@@ -1,0 +1,52 @@
+"""Weights of the flax GPT model as the port's state dict."""
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from alpa_tpu_torch.model.gpt_model import GPTConfig
+
+
+def gpt_params_from_flax(tree: Dict[str, Any], config: GPTConfig,
+                         device=None) -> Dict[str, torch.Tensor]:
+    """Map a flax ``GPTModel`` parameter tree (arrays or numpy arrays,
+    with or without the outer ``params`` key) to a state dict for
+    ``alpa_tpu_torch.model.gpt_model.GPTModel``.
+
+    Flax ``Dense`` kernels are (in, out) and become (out, in) ``Linear``
+    weights.  Linear and embedding weights are stored in ``config.dtype``
+    (flax casts its fp32 params to that dtype at use); LayerNorm
+    parameters stay fp32."""
+    p = tree["params"] if "params" in tree else tree
+
+    def tensor(x, dtype, transpose=False):
+        a = np.array(x, np.float32)     # a writable copy
+        if transpose:
+            a = np.ascontiguousarray(a.T)
+        return torch.from_numpy(a).to(
+            device=device, dtype=dtype)
+
+    def dense(prefix, node):
+        return {f"{prefix}.weight": tensor(node["kernel"], config.dtype,
+                                           transpose=True),
+                f"{prefix}.bias": tensor(node["bias"], config.dtype)}
+
+    def layer_norm(prefix, node):
+        return {f"{prefix}.weight": tensor(node["scale"], torch.float32),
+                f"{prefix}.bias": tensor(node["bias"], torch.float32)}
+
+    sd = {"wte.weight": tensor(p["wte"]["embedding"], config.dtype),
+          "wpe.weight": tensor(p["wpe"]["embedding"], config.dtype)}
+    for i in range(config.num_layers):
+        blk = p[f"h{i}"]
+        sd.update(layer_norm(f"h.{i}.ln1", blk["ln1"]))
+        sd.update(layer_norm(f"h.{i}.ln2", blk["ln2"]))
+        sd.update(dense(f"h.{i}.attn.qkv", blk["attn"]["qkv"]))
+        sd.update(dense(f"h.{i}.attn.out", blk["attn"]["out"]))
+        sd.update(dense(f"h.{i}.mlp.fc_in", blk["mlp"]["fc_in"]))
+        sd.update(dense(f"h.{i}.mlp.fc_out", blk["mlp"]["fc_out"]))
+    sd.update(layer_norm("ln_f", p["ln_f"]))
+    if "lm_head" in p:
+        sd["lm_head.weight"] = tensor(p["lm_head"]["kernel"], config.dtype,
+                                      transpose=True)
+    return sd

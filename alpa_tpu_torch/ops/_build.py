@@ -1,0 +1,71 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Each source under ``alpa_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries land
+in ``alpa_tpu_torch/_build/<hash>/``, keyed by the source's and the flags'
+hash, so an edited source is rebuilt and an unchanged one is reused within
+a checkout.  There is no fallback: a missing ``nvcc`` or a failed build
+raises.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler on PATH, else the toolkit's default location."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are built from source "
+            "at first use and need the CUDA toolkit (nvcc on PATH or "
+            "/usr/local/cuda/bin/nvcc)")
+    return nvcc
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` into a shared library unless an identical
+    build exists; return the library's path.  The compiler's register and
+    shared-memory report is kept beside it as ``build.log``."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / digest
+    lib = out_dir / (Path(source).stem + ".so")
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True, check=False)
+    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} "
+                           f"(rc={proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>``, once per process."""
+    with _lock:
+        if source not in _loaded:
+            _loaded[source] = ctypes.CDLL(str(build(source)))
+        return _loaded[source]

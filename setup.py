@@ -28,8 +28,10 @@ setup(
     version="0.1.0",
     description=("TPU-native automatic inter- and intra-operator "
                  "parallelization for JAX programs"),
-    packages=find_packages(include=["alpa_tpu", "alpa_tpu.*"]),
-    package_data={"alpa_tpu": ["_native/*.so"]},
+    packages=find_packages(include=["alpa_tpu", "alpa_tpu.*",
+                                    "alpa_tpu_torch", "alpa_tpu_torch.*"]),
+    package_data={"alpa_tpu": ["_native/*.so"],
+                  "alpa_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,126 @@
+"""Rules the PyTorch port keeps: no JAX, CUDA by default, no fallback."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import alpa_tpu_torch
+from alpa_tpu_torch.model.gpt_model import GPTConfig
+from alpa_tpu_torch.ops import _build
+from alpa_tpu_torch.ops import flash_attention as fa
+from alpa_tpu_torch.serve import Generator, get_model, run_controller
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "alpa_tpu_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "alpa_tpu")
+TINY = GPTConfig(hidden_size=64, num_layers=1, num_heads=1, seq_len=32,
+                 vocab_size=32)
+
+
+@pytest.fixture(autouse=True)
+def _keep_global_torch_rng():
+    """Building a torch module draws its default init from the global RNG;
+    restore that state so these tests leave other tests' draws alone."""
+    with torch.random.fork_rng():
+        yield
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def test_every_module_imports_with_jax_blocked():
+    """Import each port module, and chip_smoke.py, in a fresh interpreter
+    where any attempt to import jax, flax or alpa_tpu raises."""
+    modules = [".".join(p.relative_to(REPO).with_suffix("").parts)
+               for p in sorted(PORT.rglob("*.py"))]
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules]
+    script = f"""
+import importlib, importlib.util, sys
+BLOCKED = {BLOCKED!r}
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked import of " + name)
+        return None
+sys.meta_path.insert(0, Block())
+for m in {modules!r}:
+    importlib.import_module(m)
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke", {str(REPO / "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = [m for m in sys.modules if any(
+    m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not leaked, leaked
+print("ok", len({modules!r}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120, check=False)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_blocked(n) for n in names), (path, node.lineno)
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        alpa_tpu_torch.get_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Generator(None, TINY)
+    server = run_controller(port=0)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            server.controller.register_model("m", TINY)
+    finally:
+        server.shutdown()
+    assert alpa_tpu_torch.get_device("cpu").type == "cpu"
+
+
+def test_kernel_wrapper_rejects_what_the_kernel_cannot_take():
+    def qkv(d=64, dtype=torch.float32):
+        return [torch.zeros(1, 8, 2, d, dtype=dtype) for _ in range(3)]
+
+    with pytest.raises(ValueError, match="head dim"):
+        fa._kernel_args(*qkv(d=96))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa._kernel_args(*qkv(dtype=torch.float16))
+    q, k, v = qkv()
+    with pytest.raises(ValueError, match="contiguous head"):
+        fa._kernel_args(q, k, v.transpose(-1, -2))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.flash_attention_forward(*[t.to("meta") for t in qkv()],
+                                   causal=True)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_forward(*qkv(), causal=True, q_offset=-1)
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    monkeypatch.setattr(_build, "BUILD_ROOT",
+                        pathlib.Path("/nonexistent-build-root"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("flash_fwd.cu")
