@@ -1,15 +1,22 @@
 """GPT-style decoder-only transformer in PyTorch.
 
-Counterpart of ``alpa_tpu/model/gpt_model.py`` for serving.  It computes
-what the flax model computes, with the same cast points:
+Counterpart of ``alpa_tpu/model/gpt_model.py`` for serving and training.
+It computes what the flax model computes, with the same cast points:
 
 * LayerNorm runs in fp32 (eps from the config) and its output is cast to
   ``cfg.dtype`` at the next Linear;
-* Linear and embedding weights are stored in ``cfg.dtype`` (flax keeps
-  fp32 params and casts them at use, which gives the same numbers);
-  LayerNorm parameters stay fp32;
+* Linear and embedding weights are stored in ``param_dtype`` and cast to
+  ``cfg.dtype`` at use, as flax casts its fp32 params.  Serving stores them
+  in ``cfg.dtype`` (the default; the cast is then a no-op); training keeps
+  them in fp32, where an Adam step far below a bf16 ulp still lands.
+  LayerNorm parameters are always fp32;
 * the residual is added in ``cfg.dtype``;
 * tied logits are ``x.to(dtype) @ wte.T``.
+
+``remat_blocks`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant); ``remat_policy="dots"`` keeps
+the outputs of the Linear products, as ``dots_with_no_batch_dims_saveable``
+keeps the dots without batch dimensions.
 
 KV caches are lists of ``(k_cache, v_cache, index)`` per layer.  Unlike the
 functional JAX version, ``update_kv_cache`` writes the caches in place (a
@@ -21,16 +28,18 @@ With ``attention_impl="flash"``, the cache-free forward and the prefill at
 a scalar cache index go through the flash kernel (the JAX package's
 ``_flash_forward`` with ``q_offset`` computes exactly the einsum reference
 there); decode with a per-row index stays on ``reference_attention``, as in
-JAX.  Not in this port yet: ``segment_ids`` packing, ``remat``,
-pipeline-boundary markers and the ring/ulysses attention variants.
+JAX.  Not in this port yet: ``segment_ids`` packing, pipeline-boundary
+markers and the ring/ulysses attention variants.
 """
 import dataclasses
+import functools
 import math
 from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from alpa_tpu_torch.ops.flash_attention import flash_attention
 
@@ -53,6 +62,10 @@ class GPTConfig:
     activation: str = "gelu"
     # learned-positional-table offset (OPT reserves the first 2 rows)
     pos_offset: int = 0
+    # recompute each block in the backward pass (memory <-> FLOPs)
+    remat_blocks: bool = False
+    # None: save nothing; "dots": save the Linear products' outputs
+    remat_policy: Optional[str] = None
 
 
 # The GPT ladder: name -> (hidden, layers, heads); seq 1024, vocab 51200
@@ -130,6 +143,13 @@ def get_attention_fn(config: GPTConfig):
         f"attention_impl {config.attention_impl!r} is not ported yet")
 
 
+def _dense(layer: nn.Linear, x, dtype):
+    """``layer`` applied in ``dtype``: input, weight and bias cast at use,
+    as flax ``Dense(dtype=...)`` casts them."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
 def update_kv_cache(kv_cache, k, v):
     """Write step K/V into the resident caches, in place, and return
     ``(k_full, v_full, new_cache)``.
@@ -156,11 +176,11 @@ def update_kv_cache(kv_cache, k, v):
 
 class SelfAttention(nn.Module):
 
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, param_dtype=None):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        kw = dict(dtype=config.dtype, device=device)
+        kw = dict(dtype=param_dtype or config.dtype, device=device)
         self.qkv = nn.Linear(h, 3 * h, **kw)
         self.out = nn.Linear(h, h, **kw)
 
@@ -168,7 +188,7 @@ class SelfAttention(nn.Module):
         cfg = self.config
         nh = cfg.num_heads
         hd = cfg.hidden_size // nh
-        q, k, v = self.qkv(x.to(cfg.dtype)).chunk(3, dim=-1)
+        q, k, v = _dense(self.qkv, x, cfg.dtype).chunk(3, dim=-1)
         q, k, v = (t.unflatten(-1, (nh, hd)) for t in (q, k, v))
 
         new_cache = None
@@ -184,36 +204,37 @@ class SelfAttention(nn.Module):
                                           offset=index)
         else:
             out = get_attention_fn(cfg)(q, k, v, causal=cfg.causal)
-        return self.out(out.flatten(-2)), new_cache
+        return _dense(self.out, out.flatten(-2), cfg.dtype), new_cache
 
 
 class MLPBlock(nn.Module):
 
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, param_dtype=None):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        kw = dict(dtype=config.dtype, device=device)
+        kw = dict(dtype=param_dtype or config.dtype, device=device)
         self.fc_in = nn.Linear(h, config.mlp_ratio * h, **kw)
         self.fc_out = nn.Linear(config.mlp_ratio * h, h, **kw)
 
     def forward(self, x):
-        x = self.fc_in(x.to(self.config.dtype))
+        dtype = self.config.dtype
+        x = _dense(self.fc_in, x, dtype)
         x = (F.relu(x) if self.config.activation == "relu" else
              F.gelu(x, approximate="tanh"))
-        return self.fc_out(x)
+        return _dense(self.fc_out, x, dtype)
 
 
 class TransformerBlock(nn.Module):
 
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, param_dtype=None):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_eps
         kw = dict(dtype=torch.float32, device=device)
         self.ln1 = nn.LayerNorm(h, eps=eps, **kw)
-        self.attn = SelfAttention(config, device)
+        self.attn = SelfAttention(config, device, param_dtype)
         self.ln2 = nn.LayerNorm(h, eps=eps, **kw)
-        self.mlp = MLPBlock(config, device)
+        self.mlp = MLPBlock(config, device, param_dtype)
 
     def forward(self, x, kv_cache=None):
         attn_out, new_cache = self.attn(self.ln1(x.float()), kv_cache)
@@ -222,17 +243,42 @@ class TransformerBlock(nn.Module):
         return x, new_cache
 
 
-class GPTModel(nn.Module):
-    """Decoder-only LM.  Returns logits (and the new KV caches if given)."""
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
-    def __init__(self, config: GPTConfig, device=None):
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    Linear products (``mm``/``addmm``, no batch dimension), recompute the
+    rest, including attention's batched products."""
+    del ctx, args, kwargs
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(config: GPTConfig) -> dict:
+    if config.remat_policy is None:
+        return {}
+    if config.remat_policy == "dots":
+        return dict(context_fn=functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_dots))
+    raise ValueError(f"unknown remat_policy {config.remat_policy!r}")
+
+
+class GPTModel(nn.Module):
+    """Decoder-only LM.  Returns logits (and the new KV caches if given).
+
+    ``param_dtype`` is the storage dtype of Linear and embedding weights
+    (default ``config.dtype``); they are cast to ``config.dtype`` at use."""
+
+    def __init__(self, config: GPTConfig, device=None, param_dtype=None):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        kw = dict(dtype=config.dtype, device=device)
+        kw = dict(dtype=param_dtype or config.dtype, device=device)
         self.wte = nn.Embedding(config.vocab_size, h, **kw)
         self.wpe = nn.Embedding(config.seq_len + config.pos_offset, h, **kw)
-        self.h = nn.ModuleList(TransformerBlock(config, device)
+        self.h = nn.ModuleList(TransformerBlock(config, device, param_dtype)
                                for _ in range(config.num_layers))
         self.ln_f = nn.LayerNorm(h, eps=config.layer_norm_eps,
                                  dtype=torch.float32, device=device)
@@ -241,7 +287,9 @@ class GPTModel(nn.Module):
             self.lm_head = nn.Linear(h, config.vocab_size, bias=False, **kw)
 
     def forward(self, input_ids, position_ids=None, kv_caches=None,
-                segment_ids=None):
+                segment_ids=None, return_hidden=False):
+        """``return_hidden=True`` returns the final (B, S, H) fp32 hidden
+        states instead of logits, for ``chunked_cross_entropy_loss``."""
         if segment_ids is not None:
             raise NotImplementedError(
                 "packed sequences (segment_ids) are not ported yet")
@@ -250,18 +298,32 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(
                 s, device=input_ids.device).expand(b, s)
-        x = self.wte(input_ids) + self.wpe(position_ids + cfg.pos_offset)
+        # rows are gathered, then cast: the same numbers as flax's cast of
+        # the whole table, without writing a cast copy of it
+        x = (F.embedding(input_ids, self.wte.weight).to(cfg.dtype) +
+             F.embedding(position_ids + cfg.pos_offset,
+                         self.wpe.weight).to(cfg.dtype))
+        remat = (cfg.remat_blocks and kv_caches is None and
+                 torch.is_grad_enabled())
+        remat_kw = _remat_kwargs(cfg) if remat else None
         new_caches = [] if kv_caches is not None else None
         for i, block in enumerate(self.h):
+            if remat:
+                x = torch_checkpoint.checkpoint(
+                    lambda y, blk=block: blk(y)[0], x, use_reentrant=False,
+                    **remat_kw)
+                continue
             x, new_cache = block(
                 x, kv_caches[i] if kv_caches is not None else None)
             if new_caches is not None:
                 new_caches.append(new_cache)
         x = self.ln_f(x.float())
+        if return_hidden:
+            return x
         if self.lm_head is None:
-            logits = F.linear(x.to(cfg.dtype), self.wte.weight)
+            logits = F.linear(x.to(cfg.dtype), self.wte.weight.to(cfg.dtype))
         else:
-            logits = self.lm_head(x.to(cfg.dtype))
+            logits = _dense(self.lm_head, x, cfg.dtype)
         if new_caches is not None:
             return logits, new_caches
         return logits

@@ -1,5 +1,5 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention: hand-written Hopper kernels and their plain PyTorch
+versions.
 
 Counterpart of ``alpa_tpu/ops/flash_attention.py``.  The JAX package has
 two forward Pallas kernels, one with k/v resident in VMEM and one that
@@ -8,13 +8,18 @@ function, and the CUDA kernel in ``csrc/flash_fwd.cu`` replaces both: a
 loop over k tiles inside the block does what the streaming grid dimension
 did, so the port has no residency limit.
 
-``flash_attention_forward`` is the kernel's wrapper.  A CPU tensor goes to
-the plain version; a CUDA tensor launches the kernel or raises.  Every
-launch adds one to ``FLASH_FWD_LAUNCHES``.
+The backward keeps the JAX package's two kernels, ``_flash_bwd_dq_kernel``
+and ``_flash_bwd_dkv_kernel``, as two CUDA kernels in ``csrc/flash_bwd.cu``.
+The JAX package runs them only while k/v (and q/dO) fit its 4 MiB VMEM
+budget and recomputes through the einsum reference beyond it; the GPU has
+no such limit, so the port runs its kernels at every length.
 
-The backward kernels (the JAX package's ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``) come with the training slice; until then a call
-that needs a gradient raises ``NotImplementedError``.
+``flash_attention_forward`` and ``flash_attention_backward`` are the
+kernels' wrappers.  A CPU tensor goes to the plain version; a CUDA tensor
+launches the kernels or raises.  Every launch adds one to its counter:
+``FLASH_FWD_LAUNCHES``, ``FLASH_BWD_DQ_LAUNCHES``, ``FLASH_BWD_DKV_LAUNCHES``.
+``flash_attention`` is differentiable through ``FlashAttention``, the
+counterpart of the JAX package's ``custom_vjp``.
 """
 import ctypes
 import functools
@@ -29,8 +34,12 @@ NEG_INF = -1e9
 
 #: kernel launches made by ``flash_attention_forward`` in this process
 FLASH_FWD_LAUNCHES = 0
+#: launches of the dq and the dk/dv kernel by ``flash_attention_backward``
+FLASH_BWD_DQ_LAUNCHES = 0
+FLASH_BWD_DKV_LAUNCHES = 0
 
 _SOURCE = "flash_fwd.cu"
+_BWD_SOURCE = "flash_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
@@ -73,19 +82,21 @@ def flash_attention_forward_reference(q, k, v, *, causal: bool,
     return out, lse
 
 
-def _kernel_args(q, k, v):
-    """Validate what the CUDA kernel takes; raise on anything else."""
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+def _kernel_args(*tensors):
+    """Validate what the CUDA kernels take (q, k, v and, for the backward,
+    dO); raise on anything else."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or tensors[0].dtype not in _DTYPES:
         raise ValueError(f"flash kernel takes float32 or bfloat16 q, k, v of "
-                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
+                         f"one dtype; got {[t.dtype for t in tensors]}")
+    if tensors[0].shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"flash kernel takes head dim {_HEAD_DIMS}; got "
-                         f"{q.shape[-1]}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+                         f"{tensors[0].shape[-1]}")
+    if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("flash kernel needs a contiguous head dimension")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q, k, v on different devices: {q.device}, "
-                         f"{k.device}, {v.device}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"flash kernel inputs on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,15 +148,169 @@ def flash_attention_forward(q, k, v, *, causal: bool, q_offset: int = 0
     return _launch(q, k, v, causal, q_offset)
 
 
+def _delta(out, do) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, laid out (B*H, Sq) as lse.  ``out`` is taken
+    as saved, in q's dtype, as the JAX package takes it (``:360``)."""
+    b, sq, h, _ = out.shape
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, sq)
+
+
+def _check_backward(q, k, v, out, lse, do, q_offset):
+    _check_shapes(q, k, v, q_offset)
+    b, sq, h, _ = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if lse.shape != (b * h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 of shape {(b * h, sq)}; got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, do, *,
+                                       causal: bool, q_offset: int = 0
+                                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """Plain PyTorch version of the two backward kernels, with the JAX
+    kernels' math (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``): P
+    rebuilt from the saved ``lse``, delta from the saved ``out``, products
+    in fp32.  Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    _check_backward(q, k, v, out, lse, do, q_offset)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        k_pos = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(q_pos < k_pos, NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - _delta(out, do).reshape(b, h, sq, 1))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels():
+    """The dq and dk/dv kernels' C entry points, signatures declared."""
+    lib = _build.load(_BWD_SOURCE)
+    tail = ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                  ctypes.c_void_p])
+    dq, dkv = lib.alpa_flash_bwd_dq, lib.alpa_flash_bwd_dkv
+    dq.restype = dkv.restype = ctypes.c_int
+    dq.argtypes = [ctypes.c_void_p] * 7 + tail
+    dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+    return dq, dkv
+
+
+def _bwd_common(q, k, v, do, causal, q_offset):
+    """The arguments both backward entry points take after their pointers;
+    also checks what the kernels take."""
+    _kernel_args(q, k, v, do)
+    b, sq, h, d = q.shape
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *do.stride()[:3])
+    return (_DTYPES[q.dtype], b, h, sq, k.shape[1], d, strides, int(causal),
+            q_offset, 1.0 / math.sqrt(d))
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int):
+    global FLASH_BWD_DQ_LAUNCHES
+    common = _bwd_common(q, k, v, do, causal, q_offset)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_kernels()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError "
+                           f"{err}")
+    FLASH_BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int):
+    global FLASH_BWD_DKV_LAUNCHES
+    common = _bwd_common(q, k, v, do, causal, q_offset)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_kernels()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *common, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError "
+                           f"{err}")
+    FLASH_BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
+                             q_offset: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(dq, dk, dv)`` of flash attention from the forward's residuals;
+    the port of ``_flash_backward_kernels``.
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it computes
+    delta with one torch reduction and launches the dq and the dk/dv
+    kernels (fp32 or bf16, head dim 64 or 128, strided q/k/v/dO with a
+    contiguous head dim), and raises on what the kernels cannot take."""
+    _check_backward(q, k, v, out, lse, do, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                  causal=causal,
+                                                  q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, "
+                         f"not {q.device.type}")
+    if do.stride(-1) != 1:   # autograd hands dO over with any strides
+        do = do.contiguous()
+    delta = _delta(out, do)
+    lse = lse.contiguous()
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, q_offset)
+    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, q_offset)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the JAX package's
+    ``_flash_attention`` ``custom_vjp``: the forward kernel saves
+    ``(q, k, v, out, lse)`` and the backward kernels consume them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
+                                              causal=ctx.causal,
+                                              q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, offset: int = 0,
                     block_q: int = 256, block_k: int = 256):
     """Drop-in replacement for ``reference_attention`` (model/gpt_model.py)
     with the JAX package's signature.  ``block_q``/``block_k`` are accepted
-    as hints; the CUDA kernel picks its own tiles."""
+    as hints; the CUDA kernels pick their own tiles.  Differentiable: a call
+    that needs a gradient goes through ``FlashAttention``."""
     del block_q, block_k
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention has no backward kernel yet (the training "
-            "slice ports _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel)")
+        return FlashAttention.apply(q, k, v, causal, offset)
     return flash_attention_forward(q, k, v, causal=causal,
                                    q_offset=offset)[0]

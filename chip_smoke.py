@@ -7,25 +7,42 @@ toolkit:
 
 Phases, each reported on its own line:
 
-1. setup: the card's name and power limit; build the flash kernel from
-   ``alpa_tpu_torch/csrc`` and report the build time;
+1. setup: the card's name and power limit; build the flash kernels from
+   ``alpa_tpu_torch/csrc`` (one nvcc per source, started together) and
+   report the build time;
 2. kernel: the CUDA flash-attention forward against its plain PyTorch
    version on the card, case by case, with the tolerance stated; times of
    the kernel, the plain version and ``scaled_dot_product_attention`` (a
    yardstick only, never called by the port) at the serving prefill shape,
    beside the least time the card could take;
-3. serving: ``run_controller`` + ``register_model`` of OPT-1.3B (bf16,
+3. backward kernels: the dq and dk/dv kernels against the plain backward,
+   case by case; at the training shape their times beside the plain
+   version, ``torch.autograd.grad`` through ``scaled_dot_product_attention``
+   (its forward excluded) and the least time the card could take;
+4. serving: ``run_controller`` + ``register_model`` of OPT-1.3B (bf16,
    flash attention, all 24 layers, random weights from a seed), four
    concurrent ``POST /completions`` of 37, 128, 300 and 511 tokens with 32
    greedy new tokens; every prefill must have launched the kernel once per
    layer;
-4. fidelity: a 4-layer fp32 OPT-1.3B with the same weights generates the
-   same greedy tokens with the kernel as with the plain version.
+5. fidelity: a 4-layer fp32 OPT-1.3B with the same weights generates the
+   same greedy tokens with the kernel as with the plain version;
+6. training: ``bench.py``'s GPT train step at GPT-1.3B's full 24 layers
+   (h2048, seq 1024, batch 8, bf16 compute, fp32 params and Adam, flash
+   attention, per-block remat) through ``parallelize(ShardParallel())``
+   and ``value_and_grad``: 3 warm-up and 10 timed steps, 48 forward and
+   24 + 24 backward launches per step, a finite loss that falls; step
+   time, tokens/s, TFLOPS, MFU and peak memory, and a line in
+   ``bench.py``'s JSON schema;
+7. training fidelity: the same model in fp32 at 4 layers, batch 2, takes
+   3 Adam steps with the kernels and 3 with the plain versions in their
+   place; losses agree to 1e-5 relative, step-0 gradients to 1e-4 of each
+   tensor's largest.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels as JSON.
 """
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -38,17 +55,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from alpa_tpu_torch.model.gpt_model import config_from_opt_spec
+import alpa_tpu_torch
+from alpa_tpu_torch.model.gpt_model import (GPTModel, config_from_opt_spec,
+                                            config_from_spec, init_random_)
+from alpa_tpu_torch.model.model_util import (TrainState, adam, gpt_lm_loss,
+                                             make_apply_fn)
 from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.ops import flash_attention as fa
 from alpa_tpu_torch.serve import GenerationConfig, get_model, run_controller
+from alpa_tpu_torch.telemetry.perf import GPU_SPECS, compute_mfu
+from alpa_tpu_torch.util import compute_gpt_tflops
 
 SEED = 0
 PROMPT_LENGTHS = (37, 128, 300, 511)
 NEW_TOKENS = 32
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SPEC = GPU_SPECS["h100-sxm"]
+PEAK_BYTES_PER_S = SPEC["hbm_bytes_per_s"]
+PEAK_FLOPS = {torch.bfloat16: SPEC["peak_bf16_tflops"] * 1e12,
+              torch.float32: SPEC["peak_fp32_tflops"] * 1e12}
+# bench.py's divisor for vs_baseline (a V100's TFLOPS in the reference)
+BASELINE_TFLOPS_PER_DEVICE = 37.01
+# backward kernels vs plain: bf16 gradients are rounded once from fp32 on
+# both sides (an ulp is 2**-8 relative); fp32 gradients differ by the order
+# of sums over up to 16384 keys
+GRAD_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2),
+            torch.float32: dict(atol=1e-4, rtol=1e-4)}
 # kernel vs plain: bf16 outputs are rounded once from fp32 on both sides,
 # so they may differ by a bf16 ulp or two (2**-8 relative, 1e-2 at |x|<1);
 # fp32 outputs differ only by summation order
@@ -86,21 +119,49 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(b, sq, sk, h, d, causal, off, dtype):
-    """Least time for the attention forward on this card: each needed
-    input byte read once, each output byte written once, and the FLOPs of
-    the (q, k) pairs the causal mask leaves visible."""
+def visible_pairs(sq, sk, causal, off) -> float:
+    """(q, k) pairs the causal mask leaves visible."""
     rows = np.arange(sq)
-    visible = (np.minimum(sk, rows + off + 1) if causal
-               else np.full(sq, sk)).sum()
-    keys = min(sk, sq + off) if causal else sk
-    item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (b * h * d * item * (2 * sq + 2 * keys) + b * h * sq * 4)
-    flops = 4.0 * b * h * d * float(visible)
+    return float((np.minimum(sk, rows + off + 1) if causal
+                  else np.full(sq, sk)).sum())
+
+
+def bound(nbytes, flops, dtype):
+    """(least ms, "bytes" or "operations"): the larger of bytes over the
+    memory rate and FLOPs over the dtype's peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def flash_bound(b, sq, sk, h, d, causal, off, dtype):
+    """Least time for the attention forward on this card: each needed
+    input byte read once, each output byte written once, and the FLOPs of
+    the (q, k) pairs the causal mask leaves visible."""
+    keys = min(sk, sq + off) if causal else sk
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (b * h * d * item * (2 * sq + 2 * keys) + b * h * sq * 4)
+    flops = 4.0 * b * h * d * visible_pairs(sq, sk, causal, off)
+    return bound(nbytes, flops, dtype)
+
+
+def flash_bwd_bound(b, sq, sk, h, d, causal, off, dtype, part="all"):
+    """Least time for the attention backward (``part="all"``: read q, k,
+    v, out, dO, lse, delta, write dq, dk, dv; five products over the
+    visible pairs), or for what one kernel computes: ``"dq"`` reads q, k,
+    v, dO, lse, delta, writes dq and needs three products (S, dP, dS K);
+    ``"dkv"`` writes dk, dv and needs four (S, dP, P^T dO, dS^T Q)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    q_t, k_t = b * sq * h * d * item, b * sk * h * d * item
+    rows = 2 * b * h * sq * 4            # lse and delta
+    nbytes, products = {
+        "all": (3 * q_t + 2 * k_t + rows + q_t + 2 * k_t, 5),
+        "dq": (2 * q_t + 2 * k_t + rows + q_t, 3),
+        "dkv": (2 * q_t + 2 * k_t + rows + 2 * k_t, 4),
+    }[part]
+    flops = 2.0 * products * b * h * d * visible_pairs(sq, sk, causal, off)
+    return bound(nbytes, flops, dtype)
 
 
 def make_qkv(b, sq, sk, h, d, dtype, gen):
@@ -177,6 +238,98 @@ def phase_kernel():
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
     return entry
+
+
+def phase_bwd_kernel():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, b, sq, sk, h, d, causal, q_offset, dtype); the first is the
+    # training shape, and it is timed
+    cases = [
+        ("train", 8, 1024, 1024, 32, 64, True, 0, bf16),
+        ("ragged-s1000", 2, 1000, 1000, 8, 64, True, 0, bf16),
+        ("non-causal", 2, 512, 512, 16, 64, False, 0, bf16),
+        ("q-offset", 2, 256, 2048, 16, 64, True, 512, bf16),
+        ("fp32-over-4MiB", 1, 256, 16384, 1, 64, True, 16128, f32),
+        ("head-dim-128", 2, 512, 512, 16, 128, True, 0, bf16),
+    ]
+    entries = None
+    for name, b, sq, sk, h, d, causal, off, dtype in cases:
+        q, k, v = make_qkv(b, sq, sk, h, d, dtype, gen)
+        do = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
+        out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                              q_offset=off)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, do,
+                                            causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_backward_reference(
+            q, k, v, out, lse, do, causal=causal, q_offset=off)
+        errs, ok = [], True
+        for g, r, t in zip(grads, refs, (q, k, v)):
+            check(g.shape == t.shape and g.dtype == dtype,
+                  f"{name}: gradient {tuple(g.shape)} {g.dtype}")
+            check(bool(torch.isfinite(g).all()), f"{name}: non-finite grad")
+            errs.append(float((g.float() - r.float()).abs().max()))
+            ok = ok and max_violation(g, r, **GRAD_TOL[dtype]) <= 0
+        bnd, bound_by = flash_bwd_bound(b, sq, sk, h, d, causal, off, dtype)
+        print(f"bwd kernel case {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
+              f"causal={causal} q_offset={off} {dtype}: max|err| dq "
+              f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol "
+              f"{GRAD_TOL[dtype]}), bound {bnd:.5f} ms ({bound_by}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"bwd kernel case {name} disagrees with the plain version")
+        if entries is None:
+            entries, fwd_ms = time_bwd(q, k, v, out, lse, do, errs,
+                               (b, sq, sk, h, d, causal, off, dtype))
+        del q, k, v, do, out, lse, grads, refs
+    torch.cuda.empty_cache()
+    return entries, fwd_ms
+
+
+def time_bwd(q, k, v, out, lse, do, errs, shape):
+    """Times of the two kernels, the whole backward (with delta), the plain
+    version and the library backward at the training shape."""
+    _, _, _, _, _, causal, off, dtype = shape
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_forward(
+        q, k, v, causal=causal, q_offset=off))
+    delta = fa._delta(out, do)
+    dq_ms = cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta,
+                                              causal, off))
+    dkv_ms = cuda_ms(lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal, off))
+    all_ms = cuda_ms(lambda: fa.flash_attention_backward(
+        q, k, v, out, lse, do, causal=causal, q_offset=off))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, out, lse, do, causal=causal, q_offset=off), iters=5)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    # the graph is retained, so only the backward is timed
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    bnd, bound_by = flash_bwd_bound(*shape)
+    print(f"bwd kernel timing train: forward kernel {fwd_ms:.5f} ms, dq "
+          f"kernel {dq_ms:.5f} ms, dk/dv kernel "
+          f"{dkv_ms:.5f} ms, backward with delta {all_ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, autograd through scaled_dot_product_attention "
+          f"{library_ms:.5f} ms, flash_bwd_bound {bnd:.5f} ms ({bound_by}) "
+          f"[{card_line()}]")
+    entries = []
+    for name, ms, err, line, part in (
+            ("flash_bwd_dq", dq_ms, errs[0], 244, "dq"),
+            ("flash_bwd_dkv", dkv_ms, max(errs[1:]), 290, "dkv")):
+        kb, kb_by = flash_bwd_bound(*shape, part=part)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "alpa_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"alpa_tpu/ops/flash_attention.py:{line}",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": kb, "bound_by": kb_by,
+            "library_ms": library_ms,
+            "note": "plain_ms and library_ms compute dq, dk and dv "
+                    "together; bound_ms is this kernel's own outputs"})
+    return entries, fwd_ms
 
 
 def post(port, body):
@@ -311,27 +464,204 @@ def phase_fidelity():
     check(diff < 1e-3, f"fp32 logits differ by {diff}")
 
 
+def make_train_step():
+    """``bench.py``'s train step, through the port."""
+
+    @alpa_tpu_torch.parallelize(method=alpa_tpu_torch.ShardParallel(),
+                                donate_argnums=(0,))
+    def train_step(state, batch):
+
+        def loss_fn(p):
+            return gpt_lm_loss(state.apply_fn, p, batch)
+
+        loss, grads = alpa_tpu_torch.value_and_grad(loss_fn)(state.params)
+        return state.apply_gradients(grads=grads), loss
+
+    return train_step
+
+
+def train_state(cfg):
+    model = GPTModel(cfg, device="cuda", param_dtype=torch.float32)
+    init_random_(model, SEED)
+    return TrainState.create(apply_fn=make_apply_fn(model),
+                             params=dict(model.named_parameters()),
+                             tx=adam(1e-4))
+
+
+def lm_batch(cfg, batch_size):
+    rng = np.random.default_rng(SEED)
+    return {"input_ids": rng.integers(0, cfg.vocab_size,
+                                      (batch_size, cfg.seq_len)),
+            "labels": rng.integers(0, cfg.vocab_size,
+                                   (batch_size, cfg.seq_len))}
+
+
+def launch_counts():
+    return (fa.FLASH_FWD_LAUNCHES, fa.FLASH_BWD_DQ_LAUNCHES,
+            fa.FLASH_BWD_DKV_LAUNCHES)
+
+
+def reset_launch_counts():
+    fa.FLASH_FWD_LAUNCHES = 0
+    fa.FLASH_BWD_DQ_LAUNCHES = 0
+    fa.FLASH_BWD_DKV_LAUNCHES = 0
+
+
+def phase_training(kernel_ms):
+    """``kernel_ms``: (forward, dq, dk/dv) kernel ms at the training shape,
+    for the attention kernels' share of a step."""
+    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
+                           attention_impl="flash", remat_blocks=True)
+    batch_size, warmup, n_iter = 8, 3, 10
+    alpa_tpu_torch.init(cluster="local")
+    state = train_state(cfg)
+    n_params = sum(p.numel() for p in state.params.values())
+    batch = lm_batch(cfg, batch_size)
+    train_step = make_train_step()
+    losses = []
+    reset_launch_counts()
+    for _ in range(warmup):
+        state, loss = train_step(state, batch)
+        losses.append(float(loss))
+    per_step = [c // warmup for c in launch_counts()]
+    tic = time.perf_counter()
+    for _ in range(n_iter):
+        state, loss = train_step(state, batch)
+        losses.append(loss)
+    float(loss)   # drains the queue
+    latency = (time.perf_counter() - tic) / n_iter
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    steps = warmup + n_iter
+    want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    check(tuple(per_step) == want and
+          counts == tuple(w * steps for w in want),
+          f"launches per step (fwd, dq, dkv) {per_step}, over {steps} steps "
+          f"{counts}; want {want} per step")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    tokens_per_sec = batch_size * cfg.seq_len / latency
+    tflops = compute_gpt_tflops(batch_size, cfg.seq_len, cfg.num_layers,
+                                cfg.hidden_size, cfg.vocab_size, 1, latency)
+    peak = SPEC["peak_bf16_tflops"]
+    mfu = compute_mfu(tflops, peak)
+    peak_bytes = train_step.get_last_executable().get_total_allocation_size()
+    print(f"training: GPT-1.3B ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {n_params} params, bf16 compute, fp32 params "
+          f"and Adam, flash, remat), batch {batch_size} x seq {cfg.seq_len}; "
+          f"launches per step fwd {per_step[0]} dq {per_step[1]} dkv "
+          f"{per_step[2]}; losses {['%.4f' % x for x in losses]}")
+    attn_s = sum(n * ms for n, ms in zip(per_step, kernel_ms)) / 1e3
+    print(f"training metrics [{card_line()}]: step {latency:.5f} s, "
+          f"{tokens_per_sec:.1f} tokens/s, {tflops:.3f} TFLOPS "
+          f"(compute_gpt_tflops), MFU {mfu:.4f} of {peak} TFLOP/s bf16, "
+          f"peak allocated {peak_bytes / 2**30:.3f} GiB; attention kernels "
+          f"(launches x kernel ms) {attn_s:.5f} s per step, "
+          f"{attn_s / latency:.4f} of the step")
+    print(json.dumps({
+        "metric": "gpt_train_tflops_per_chip", "value": round(tflops, 3),
+        "unit": "TFLOPS/chip",
+        "vs_baseline": round(tflops / BASELINE_TFLOPS_PER_DEVICE, 4),
+        "detail": {"model": f"h{cfg.hidden_size}-l{cfg.num_layers}",
+                   "opt": "adam", "ce": "dense", "batch": batch_size,
+                   "seq": cfg.seq_len, "latency_s": round(latency, 5),
+                   "tokens_per_sec": round(tokens_per_sec, 1),
+                   "n_devices": 1, "platform": "gpu",
+                   "generation": "h100-sxm", "peak_bf16_tflops": peak,
+                   "mfu": round(mfu, 4)}}))
+    del state, train_step
+    alpa_tpu_torch.shutdown()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fidelity_run(cfg, batch, steps):
+    """(losses, step-0 gradients) of ``steps`` Adam steps from the seed."""
+    state = train_state(cfg)
+    _, grads0 = alpa_tpu_torch.value_and_grad(
+        lambda p: gpt_lm_loss(state.apply_fn, p, batch))(
+            {k: t for k, t in state.params.items()})
+    train_step = make_train_step()
+    losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, batch)
+        losses.append(float(loss))
+    return losses, grads0
+
+
+def phase_train_fidelity():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash",
+                         remat_blocks=True), num_layers=4)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in lm_batch(cfg, 2).items()}
+    reset_launch_counts()
+    kernel_losses, kernel_grads = fidelity_run(cfg, batch, 3)
+    check(min(launch_counts()) > 0,
+          "fidelity run did not go through the kernels")
+    fwd, bwd = fa.flash_attention_forward, fa.flash_attention_backward
+    # the same steps with the plain versions called in the kernels' place
+    fa.flash_attention_forward = fa.flash_attention_forward_reference
+    fa.flash_attention_backward = fa.flash_attention_backward_reference
+    try:
+        plain_losses, plain_grads = fidelity_run(cfg, batch, 3)
+    finally:
+        fa.flash_attention_forward, fa.flash_attention_backward = fwd, bwd
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(kernel_losses, plain_losses))
+    grad_rel = max(float((kernel_grads[k] - g).abs().max() /
+                         g.abs().max().clamp_min(1e-30))
+                   for k, g in plain_grads.items())
+    print(f"training fidelity: fp32 GPT-1.3B at 4 layers, batch 2, 3 Adam "
+          f"steps; losses kernel {kernel_losses} plain {plain_losses}, max "
+          f"relative difference {loss_rel:.3e} (tol 1e-5); step-0 gradients "
+          f"max |diff| / max |g| per tensor {grad_rel:.3e} (tol 1e-4)")
+    check(loss_rel <= 1e-5, f"losses differ by {loss_rel} relative")
+    check(grad_rel <= 1e-4, f"step-0 gradients differ by {grad_rel}")
+    torch.cuda.empty_cache()
+
+
+def build_kernels():
+    """One nvcc per source, all started together."""
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))
+    print(f"setup: built {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - tic:.2f} s")
+    for lib in libs:
+        for line in (lib.parent / "build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"setup: {lib.name}: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     print(f"setup: {card_line()}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
-    tic = time.perf_counter()
-    lib = _build.build("flash_fwd.cu")
-    print(f"setup: built {lib.name} in {time.perf_counter() - tic:.2f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"setup: {line.strip()}")
+    build_kernels()
     try:
-        entry = phase_kernel()
-        entry["launches"] = phase_serving()
+        fwd_entry = phase_kernel()
+        bwd_entries, train_fwd_ms = phase_bwd_kernel()
+        serving = phase_serving()
         phase_fidelity()
+        train_fwd, train_dq, train_dkv = phase_training(
+            (train_fwd_ms, *(e["ms"] for e in bwd_entries)))
+        phase_train_fidelity()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    fwd_entry["launches"] = serving + train_fwd
+    fwd_entry["launches_by_path"] = {"serving": serving,
+                                     "training": train_fwd}
+    for entry, n in zip(bwd_entries, (train_dq, train_dkv)):
+        entry["launches"] = n
+        entry["launches_by_path"] = {"training": n}
     print(card_line())
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

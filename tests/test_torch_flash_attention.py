@@ -106,8 +106,15 @@ def test_bf16_forward_matches_jax_kernel():
     np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), **TOL)
 
 
-def test_gradient_request_raises():
+def test_gradients_flow_through_flash_attention():
+    """A call that needs a gradient goes through ``FlashAttention`` and
+    gives autograd's gradients through the plain forward, at fp32 TOL."""
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _qkv(1, 32, 32, 1, 64))
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v)
+    do = torch.from_numpy(_qkv(1, 32, 32, 1, 64, seed=9)[0])
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    ref_out, _ = fa.flash_attention_forward_reference(q, k, v, causal=True)
+    for g, r in zip(grads, torch.autograd.grad(ref_out, (q, k, v), do)):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), **TOL)

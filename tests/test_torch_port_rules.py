@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import alpa_tpu_torch
+from alpa_tpu_torch import device_mesh
 from alpa_tpu_torch.model.gpt_model import GPTConfig
 from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.ops import flash_attention as fa
@@ -124,3 +125,71 @@ def test_build_raises_without_nvcc(monkeypatch):
                         pathlib.Path("/nonexistent-build-root"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("flash_fwd.cu")
+
+
+def test_init_and_parallelize_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    alpa_tpu_torch.shutdown()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        alpa_tpu_torch.init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        alpa_tpu_torch.parallelize(lambda x: x * 2)(torch.ones(2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_mesh.LocalPhysicalDeviceMesh()
+    try:
+        alpa_tpu_torch.init(devices=["cpu"])
+        out = alpa_tpu_torch.parallelize(lambda x: x * 2)(torch.ones(2))
+        assert out.device.type == "cpu" and float(out.sum()) == 4.0
+    finally:
+        alpa_tpu_torch.shutdown()
+
+
+def test_shard_parallel_never_runs_many_devices_on_one():
+    two = alpa_tpu_torch.ShardParallel(devices=["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="2 devices"):
+        alpa_tpu_torch.parallelize(lambda x: x, method=two)(torch.ones(2))
+    with pytest.raises(NotImplementedError, match="num_micro_batches"):
+        alpa_tpu_torch.ShardParallel(devices=["cpu"], num_micro_batches=2)
+    with pytest.raises(NotImplementedError, match="ILP"):
+        alpa_tpu_torch.ShardParallel(devices=["cpu"],
+                                     auto_sharding_option=object())
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        alpa_tpu_torch.init(cluster="distributed", devices=["cpu"])
+
+
+def test_backward_wrapper_rejects_what_the_kernels_cannot_take():
+    def args(d=64, dtype=torch.float32, sq=8):
+        q, k, v, do = (torch.zeros(1, sq, 2, d, dtype=dtype)
+                       for _ in range(4))
+        return q, k, v, q.clone(), torch.zeros(2, sq), do
+
+    q, k, v, out, lse, do = args(d=96)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._bwd_common(q, k, v, do, True, 0)
+    q, k, v, out, lse, do = args(dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa._bwd_common(q, k, v, do, True, 0)
+    q, k, v, out, lse, do = args()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa._bwd_common(q, k, v, do.to(torch.bfloat16), True, 0)
+    with pytest.raises(ValueError, match="contiguous head"):
+        fa._bwd_common(q, k, v.transpose(-1, -2), do, True, 0)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward(q, k, v, out, lse[:, :4], do,
+                                    causal=True)
+    with pytest.raises(ValueError, match="q's shape"):
+        fa.flash_attention_backward(q, k, v, out[:, :4], lse, do,
+                                    causal=True)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.flash_attention_backward(*[t.to("meta") for t in args()],
+                                    causal=True)
+
+
+def test_build_raises_without_nvcc_for_the_backward_kernels(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    monkeypatch.setattr(_build, "BUILD_ROOT",
+                        pathlib.Path("/nonexistent-build-root"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("flash_bwd.cu")
