@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), fp32 accumulation.
+// Flash-attention backward for Hopper (sm_90a).
 //
 // Replaces the two backward Pallas kernels of the JAX package
 // (alpa_tpu/ops/flash_attention.py): `_flash_bwd_dq_kernel` (:244) and
@@ -9,20 +9,63 @@
 // Contract (the JAX kernels' own math, :244-339):
 //   * P = exp(sm_scale * Q K^T - lse), masked scores (q_pos + q_offset <
 //     k_pos under the causal mask) are -1e9, which makes P exactly 0;
-//   * dS = P * (dO V^T - delta), with delta = rowsum(dO * O) computed by the
-//     caller from O as saved (in q's dtype), as the JAX package computes it in
-//     XLA outside Pallas (:359-361);
+//   * dS = P * (dO V^T - delta), with delta = rowsum(dO * O) taken from O as
+//     saved (in q's dtype) with fp32 products, as the JAX package computes it
+//     in XLA outside Pallas (:359-361).  The dq kernel computes delta for its
+//     rows and writes it to a (B*H, Sq) fp32 buffer; the dk/dv kernel,
+//     launched after it on the same stream, reads it;
 //   * dq = sm_scale * dS K, dk = sm_scale * dS^T Q, dv = P^T dO, each
 //     accumulated in fp32 and written once in the inputs' dtype.
-// Beyond it: q, k, v and dO are (B, S, H, D) tensors taken with their strides
-// (the head dimension must be contiguous), lse and delta are contiguous fp32
-// (B*H, Sq), and ragged tiles are masked here, so no length has to divide
-// the tile.  A padded q row adds nothing to dk/dv (its P is set to 0, since
-// its lse and delta are not defined); a key past Sk adds nothing to dq.  The
-// dk/dv rows of a k tile that no q row can see are written as zeros.
+// Beyond it: q, k, v, dO and O are (B, S, H, D) tensors taken with their
+// strides (the head dimension must be contiguous), lse and delta are
+// contiguous fp32 (B*H, Sq), and ragged tiles are masked here, so no length
+// has to divide the tile.  A padded q row adds nothing to dk/dv (its P is set
+// to 0, since its lse and delta are not defined); a key past Sk adds nothing
+// to dq.  The dk/dv rows of a k tile that no q row can see are written as
+// zeros.
 //
-// Design: 256 threads per block, each owning a 4x4 patch of a 64x64 tile of
-// scores, as in flash_fwd.cu.
+// bf16 (the training path) runs on the tensor cores.  Bound on an H100: at
+// the training shape (B=8, H=32, S=1024, D=64, causal) the two kernels do
+// seven products over the visible (q, k) pairs (S and dP are formed in
+// both), 1.2e11 FLOP, 0.12 ms at the 989 TFLOP/s bf16 peak; their bytes need
+// 0.11 ms at 3.35 TB/s.  The design:
+//   * blocks of 128 rows, two warpgroups of 64; each warpgroup keeps its
+//     fp32 accumulators in registers (S, dP and dq in the dq kernel; S^T,
+//     dP^T, dk and dv in the dk/dv kernel);
+//   * S and dP (S^T and dP^T) are `wgmma` products of bf16 tiles in shared
+//     memory.  P and dS stay in registers and are the A operand of the
+//     second products (dS K; P^T dO and dS^T Q), whose B operand is read
+//     transposed from the same row-major tiles through the descriptor, so
+//     nothing is staged twice;
+//   * P and dS enter those products as two bf16 values each, hi = bf16(x)
+//     and lo = bf16(x - hi), so the products see 16 significant bits.  One
+//     bf16 rounding (the library backward's) breaks the 1e-2 tolerance at
+//     head dim 128, where |dP| reaches tens and the dS of a causal row with
+//     few keys nearly cancel; the pair costs one more pass of each second
+//     product, ten products' work in all;
+//   * tiles sit in shared memory as bf16 with the 128-byte swizzle, filled by
+//     16-byte `cp.async` into a ring of three stages, two tiles ahead of the
+//     products, with one barrier per tile;
+//   * dq block: 128 q rows, a loop over 64-key tiles up to the causal
+//     diagonal, the last q tiles (most keys) launched first.  dk/dv block:
+//     128 keys, a loop over 64-row q tiles from the first that can see
+//     them, the first k tiles (most rows) launched first.  A warpgroup whose
+//     rows are all masked in a tile skips it, and only tiles on an edge or
+//     the diagonal compute masks.
+// What bounds them in practice is the fixed work of each 64 x 64 tile: the
+// exponentials, the bf16 splits, the wgmma and cp.async waits and the
+// barrier, in one block of eight warps per SM (the accumulators take 166 to
+// 255 registers a thread): at head dim 128, with half the tiles for the same
+// FLOPs, the pair takes well under half the time (chip_smoke.py's
+// "train-d128" case).  Left for later: a producer warp with TMA loads,
+// mbarriers in place of the block barrier and `setmaxnreg`, overlap of one
+// tile's softmax with the next tile's products within a warpgroup, a
+// persistent grid that hides each block's prologue, clusters that share the
+// streamed tiles, and a split over k for long contexts with few blocks.
+//
+// fp32 keeps the JAX kernels' arithmetic on the CUDA cores: 256 threads per
+// block, each owning a 4x4 patch of a 64x64 tile of scores, as in
+// flash_fwd.cu.
 //   dq kernel:  one block per (batch*head, 64-row q tile).  q and dO sit
 //     transposed in shared memory; the loop over 64-row k tiles stops at the
 //     last key the tile's last row can see under the causal mask.  Per tile
@@ -33,22 +76,15 @@
 //     first tile that can see the k tile, (k_start - q_offset) / 64 (:333).
 //     Per q tile it forms S^T and dP^T, stages P^T and adds P^T dO to dv,
 //     then reuses the buffer for dS^T and adds dS^T Q to dk.
-// Products run on the CUDA cores in fp32, the Pallas kernels' arithmetic
-// (they cast bf16 inputs to fp32 before every product).
-//
-// Bound on an H100: at the training shape (B=8, H=32, S=1024, D=64, causal,
-// bf16) the backward needs ~8.6e10 FLOP (five products over the visible
-// pairs) and ~270 MB, so the card's floor is ~0.087 ms at the bf16 tensor
-// core peak, just above the ~0.081 ms that memory needs.  These kernels do
-// seven products (S and dP are formed in both) in fp32 on the CUDA cores
-// (67 TFLOP/s peak, fewer in practice because every FMA pair needs a
-// shared-memory load), so they are bound by FMA issue.  Left on the table:
-// bf16 tensor-core products (mma.sync or wgmma), TMA loads into a multi-stage
-// ring, and conflict-free transposed staging.
+// These are bound by fp32 FMA issue (67 TFLOP/s peak, fewer in practice
+// because every FMA pair needs a shared-memory load); they serve the fp32
+// fidelity checks, where TF32's ~3 digits would not do.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -65,8 +101,9 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
+  const void* out;
   const float* lse;
-  const float* delta;
+  float* delta;  // written by the dq kernel, read by the dk/dv kernel
   void* dq;
   void* dk;
   void* dv;
@@ -74,20 +111,12 @@ struct Params {
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;  // of dO
+  int64_t y_sb, y_ss, y_sh;  // of O, the forward's output
   int B, H, Sq, Sk;
   int causal;
   int q_offset;
   float scale;
 };
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -96,14 +125,14 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 // Stage rows [row0, row0 + 64) of one (batch, head) slice into shared memory
 // as fp32: transposed into t[D][stride] and, when r is given, also row-major
 // into r[64][D].  Rows at or past `valid` are zeros.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void stage(float* t, int stride, float* r,
-                                      const T* src, int64_t row_stride,
+                                      const float* src, int64_t row_stride,
                                       int row0, int valid) {
   for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
     const int row = i / D, d = i % D;
     float x = 0.f;
-    if (row < valid) x = load_f32(src + (int64_t)(row0 + row) * row_stride + d);
+    if (row < valid) x = src[(int64_t)(row0 + row) * row_stride + d];
     t[d * stride + row] = x;
     if (r != nullptr) r[row * D + d] = x;
   }
@@ -120,7 +149,7 @@ constexpr size_t dkv_smem_bytes() {
          (size_t)(2 * D * KS + 2 * D * QS + 2 * BQ * D + BQ * KS + 2 * BQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   constexpr int NC = D / 16;  // dq columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -140,20 +169,31 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   const int q0 = blockIdx.y * BQ;
   const int rows = min(BQ, p.Sq - q0);
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* out = static_cast<const float*>(p.out) + b * p.y_sb + h * p.y_sh;
 
-  stage<T, D>(qt, QS, nullptr, q, p.q_ss, q0, rows);
-  stage<T, D>(ot, QS, nullptr, dout, p.o_ss, q0, rows);
+  stage<D>(qt, QS, nullptr, q, p.q_ss, q0, rows);
+  stage<D>(ot, QS, nullptr, dout, p.o_ss, q0, rows);
+  __syncthreads();  // dO^T is read for delta
 
   float lse[4], delta[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
+    // delta over the 16 threads (one half-warp) that share row r
+    float dl = 0.f;
+    if (r < rows)
+      for (int d = tx; d < D; d += 16)
+        dl = fmaf(ot[d * QS + r], out[(int64_t)(q0 + r) * p.y_ss + d], dl);
+#pragma unroll
+    for (int m = 8; m > 0; m >>= 1) dl += __shfl_xor_sync(0xffffffffu, dl, m);
+    delta[i] = dl;
+    if (r < rows && tx == 0) p.delta[(int64_t)bh * p.Sq + q0 + r] = dl;
     lse[i] = r < rows ? p.lse[(int64_t)bh * p.Sq + q0 + r] : 0.f;
-    delta[i] = r < rows ? p.delta[(int64_t)bh * p.Sq + q0 + r] : 0.f;
 #pragma unroll
     for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
   }
@@ -166,8 +206,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
     const int k0 = t * BK;
     const int keys = min(BK, p.Sk - k0);
     __syncthreads();  // previous tile's kt/vt/ks/dst are consumed
-    stage<T, D>(kt, KS, ks, k, p.k_ss, k0, keys);
-    stage<T, D>(vt, KS, nullptr, v, p.v_ss, k0, keys);
+    stage<D>(kt, KS, ks, k, p.k_ss, k0, keys);
+    stage<D>(vt, KS, nullptr, v, p.v_ss, k0, keys);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -232,7 +272,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.dq);
+  float* dq = static_cast<float*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -242,12 +282,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
     for (int half = 0; half < NC / 4; ++half)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        store_from_f32(dq + row * D + half * 64 + tx * 4 + j,
-                       acc[i][half * 4 + j] * p.scale);
+        dq[row * D + half * 64 + tx * 4 + j] = acc[i][half * 4 + j] * p.scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) {
   constexpr int NC = D / 16;  // dk/dv columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -270,13 +309,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
   const int k0 = blockIdx.y * BK;
   const int keys = min(BK, p.Sk - k0);
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  stage<T, D>(kt, KS, nullptr, k, p.k_ss, k0, keys);
-  stage<T, D>(vt, KS, nullptr, v, p.v_ss, k0, keys);
+  stage<D>(kt, KS, nullptr, k, p.k_ss, k0, keys);
+  stage<D>(vt, KS, nullptr, v, p.v_ss, k0, keys);
 
   float dk[4][NC], dv[4][NC];
 #pragma unroll
@@ -293,8 +333,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
     const int q0 = qb * BQ;
     const int rows = min(BQ, p.Sq - q0);
     __syncthreads();  // previous tile's buffers are consumed
-    stage<T, D>(qt, QS, qs, q, p.q_ss, q0, rows);
-    stage<T, D>(ot, QS, os, dout, p.o_ss, q0, rows);
+    stage<D>(qt, QS, qs, q, p.q_ss, q0, rows);
+    stage<D>(ot, QS, os, dout, p.o_ss, q0, rows);
     for (int i = tid; i < BQ; i += THREADS) {
       lse_s[i] = i < rows ? p.lse[(int64_t)bh * p.Sq + q0 + i] : 0.f;
       delta_s[i] = i < rows ? p.delta[(int64_t)bh * p.Sq + q0 + i] : 0.f;
@@ -386,8 +426,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
     }
   }
 
-  T* dk_out = static_cast<T*>(p.dk);
-  T* dv_out = static_cast<T*>(p.dv);
+  float* dk_out = static_cast<float*>(p.dk);
+  float* dv_out = static_cast<float*>(p.dv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = ty * 4 + i;
@@ -398,49 +438,611 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int64_t at = row * D + half * 64 + tx * 4 + j;
-        store_from_f32(dk_out + at, dk[i][half * 4 + j] * p.scale);
-        store_from_f32(dv_out + at, dv[i][half * 4 + j]);
+        dk_out[at] = dk[i][half * 4 + j] * p.scale;
+        dv_out[at] = dv[i][half * 4 + j];
       }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+}  // namespace
+
+// PTX of Hopper's asynchronous copies and warpgroup products.
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (8 bf16) of row r in a [ROWS][D] bf16
+// tile.  The tile is D/64 panels of [ROWS][64], each row 128 bytes, with
+// the 128-byte swizzle (chunk XOR row % 8) of wgmma's B128 layout, so a
+// panel is a stack of 1024-byte swizzle atoms of 8 rows.
+template <int ROWS>
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// 16 bytes from global to shared memory; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// makes this thread's shared-memory writes visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma descriptor of a B128-swizzled operand at shared address `addr`.
+// K-major (k contiguous): 8-row atoms 1024 bytes apart, a k step of 16
+// adds 32 bytes to addr within the panel.  MN-major (m or n contiguous):
+// 8-row (k) atoms 1024 bytes apart, 64-column panels `panel` bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16);
+}
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr,
+                                                 uint32_t panel) {
+  return sw128_desc(addr, panel);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving register reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+// (a, b) as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi): hi + lo
+// keeps 16 significant bits where bf16 alone keeps 8
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - f.x, b - f.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// D[64 x N] (+)= A B in fp32: A from shared memory (ss) or from registers
+// (rs, the m64k16 fragment of 4 bf16 pairs a thread holds), B from shared
+// memory, K-major for ss and MN-major for rs.  accumulate == 0 ignores D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+}  // namespace sm90
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int BM = 128;     // rows of a bf16 block: two warpgroups of 64
+constexpr int BN = 64;      // rows of a streamed bf16 tile
+constexpr int STAGES = 3;   // streamed tiles in shared memory
+constexpr int WG_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr int dq_bf16_smem_bytes() {  // q and dO; stages of k and v
+  return 1024 + 2 * BM * D * 2 + STAGES * 2 * BN * D * 2;
+}
+
+template <int D>
+constexpr int dkv_bf16_smem_bytes() {  // k and v; stages of q, dO, lse, delta
+  return 1024 + 2 * BM * D * 2 + STAGES * (2 * BN * D * 2 + 2 * BN * 4);
+}
+
+// Start 16-byte async copies of rows [row0, row0 + ROWS) of one (batch,
+// head) slice into a swizzled tile at `dst`; rows at or past `valid` are
+// zero-filled.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          int64_t row_stride, int row0,
+                                          int valid) {
+  for (int i = threadIdx.x; i < ROWS * D / 8; i += WG_THREADS) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    const bool ok = r < valid;
+    sm90::cp_async16(dst + sm90::tile_off<ROWS>(r, c),
+                     ok ? src + (int64_t)(row0 + r) * row_stride + c * 8 : src,
+                     ok);
+  }
+}
+
+// The ring of streamed tiles: tile t sits in stage t % STAGES.  Every
+// iteration commits one group of copies (empty ones too), so with one group
+// left in flight tile t has landed; the barrier after that wait is passed
+// only by threads done with tile t - 1, whose stage then takes tile t + 2.
+__device__ __forceinline__ void ring_wait() {
+  sm90::cp_async_wait<1>();
+  sm90::fence_async_smem();
+  __syncthreads();
+}
+
+// sum of the products of 8 bf16 pairs, in fp32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// acc[64 x D] += A[64 x 64] B[64 x D] over four k steps of 16: A as register
+// fragments, B a row-major tile of 64 rows read MN-major
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
+                                       const uint32_t (&a)[4][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = sm90::mnmajor_desc(b + kk * 16 * 128, BN * 128);
+    if constexpr (D == 64)
+      sm90::wgmma_rs_n64(acc, a[kk], desc, 1);
+    else
+      sm90::wgmma_rs_n128(acc, a[kk], desc, 1);
+  }
+}
+
+// s = A B^T and dp = C E^T for one warpgroup: A, C rows of a BM-row tile
+// (this warpgroup's 64), B, E 64-row tiles, all K-major over D
+template <int D>
+__device__ __forceinline__ void mma_ss_pair(float (&s)[32], float (&dp)[32],
+                                            uint32_t a, uint32_t c,
+                                            uint32_t b, uint32_t e, int wg) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  sm90::fence_regs(s);
+  sm90::fence_regs(dp);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t ao = (kk / 4) * (BM * 128) + wg * (64 * 128) + (kk % 4) * 32;
+    const uint32_t bo = (kk / 4) * (BN * 128) + (kk % 4) * 32;
+    sm90::wgmma_ss_n64(s, sm90::kmajor_desc(a + ao),
+                       sm90::kmajor_desc(b + bo), kk > 0);
+    sm90::wgmma_ss_n64(dp, sm90::kmajor_desc(c + ao),
+                       sm90::kmajor_desc(e + bo), kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  sm90::fence_regs(dp);
+}
+
+// Fragment layout of a 64 x N fp32 accumulator over a warpgroup: element i
+// of a thread sits at row (warp % 4) * 16 + lane / 4 + 8 * ((i / 2) % 2) and
+// column (i / 4) * 8 + (lane % 4) * 2 + i % 2.  Elements 8 kk .. 8 kk + 7,
+// packed in pairs, are the A fragment of k step kk of a product over N.
+// The elementwise steps take `masked` as std::true_type where a tile has a
+// padded row, a key past Sk or the causal diagonal, else std::false_type.
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dq_bf16_kernel(const Params p) {
+  constexpr uint32_t Q_TILE = BM * D * 2;  // bytes of the q and dO tiles
+  constexpr uint32_t K_TILE = BN * D * 2;  // bytes of one k or v stage
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t q_s = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t o_s = q_s + Q_TILE;
+  const uint32_t k_s = o_s + Q_TILE;           // STAGES k tiles
+  const uint32_t v_s = k_s + STAGES * K_TILE;  // STAGES v tiles
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  // the last q tiles see the most keys: they take the first blocks
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int rows = min(BM, p.Sq - q0);
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const bf16* out = static_cast<const bf16*>(p.out) + b * p.y_sb + h * p.y_sh;
+
+  int k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q0 + rows + p.q_offset);
+  const int n_tiles = (k_end + BN - 1) / BN;
+  auto load_kv = [&](int t) {
+    const uint32_t stage = (t % STAGES) * K_TILE;
+    load_tile<BN, D>(k_s + stage, k, p.k_ss, t * BN, p.Sk - t * BN);
+    load_tile<BN, D>(v_s + stage, v, p.v_ss, t * BN, p.Sk - t * BN);
+  };
+  load_tile<BM, D>(q_s, q, p.q_ss, q0, rows);
+  load_tile<BM, D>(o_s, dout, p.o_ss, q0, rows);
+  load_kv(0);
+  sm90::cp_async_commit();
+  if (n_tiles > 1) load_kv(1);
+  sm90::cp_async_commit();
+
+  // this thread's accumulator rows: r0 and r0 + 8; delta and lse for them
+  const int r0 = wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = r0 + 8 * e;
+    float acc = 0.f;
+    if (r < rows) {
+      const bf16* orow = out + (int64_t)(q0 + r) * p.y_ss;
+      const bf16* grow = dout + (int64_t)(q0 + r) * p.o_ss;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) {  // the 4 threads of a row share it
+        const int c = (j * 4 + lane % 4) * 8;
+        acc += dot8(*reinterpret_cast<const uint4*>(orow + c),
+                    *reinterpret_cast<const uint4*>(grow + c));
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    const int64_t at = (int64_t)bh * p.Sq + q0 + r;
+    if (r < rows && lane % 4 == 0) p.delta[at] = acc;
+    delta[e] = acc;
+    lse[e] = r < rows ? p.lse[at] * LOG2E : 0.f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const float scale_log2 = p.scale * LOG2E;
+  const int wg_last = min(rows, wg * 64 + 64) - 1;  // last row that exists
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BN;
+    const uint32_t ks = k_s + (t % STAGES) * K_TILE;
+    const uint32_t vs = v_s + (t % STAGES) * K_TILE;
+    ring_wait();
+    if (t + 2 < n_tiles) load_kv(t + 2);  // overlaps the next two tiles
+    sm90::cp_async_commit();
+    // a warpgroup whose rows are all padding or all masked skips the tile
+    if (wg_last < wg * 64 || (p.causal && q0 + wg_last + p.q_offset < k0))
+      continue;
+    float s[32], dp[32];
+    mma_ss_pair<D>(s, dp, q_s, o_s, ks, vs, wg);
+    uint32_t hi[4][4], lo[4][4];  // dS = hi + lo, the A operand of dS K
+    auto fragments = [&](auto masked) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int e = (i / 2) % 2;
+        const int r = r0 + 8 * e;
+        const int key = k0 + (i / 4) * 8 + (lane % 4) * 2;
+        float x[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const bool seen =
+              !decltype(masked)::value ||
+              (r < rows && key + u < p.Sk &&
+               !(p.causal && q0 + r + p.q_offset < key + u));
+          const float pv = seen ? exp2f(s[i + u] * scale_log2 - lse[e]) : 0.f;
+          x[u] = pv * (dp[i + u] - delta[e]);
+        }
+        sm90::split_bf16(x[0], x[1], hi[i / 8][(i % 8) / 2],
+                         lo[i / 8][(i % 8) / 2]);
+      }
+    };
+    if (wg * 64 + 64 > rows || k0 + BN > p.Sk ||
+        (p.causal && q0 + wg * 64 + p.q_offset < k0 + BN - 1))
+      fragments(std::true_type());
+    else
+      fragments(std::false_type());
+    sm90::wgmma_fence();
+    mma_rs<D>(dq, hi, ks);
+    mma_rs<D>(dq, lo, ks);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    sm90::fence_regs(hi);
+    sm90::fence_regs(lo);
+  }
+
+  bf16* dq_out = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = r0 + 8 * ((i / 2) % 2);
+    if (r >= rows) continue;
+    const int c = (i / 4) * 8 + (lane % 4) * 2;
+    const int64_t row = ((int64_t)b * p.Sq + q0 + r) * p.H + h;
+    *reinterpret_cast<__nv_bfloat162*>(dq_out + row * D + c) =
+        __floats2bfloat162_rn(dq[i] * p.scale, dq[i + 1] * p.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_bf16_kernel(const Params p) {
+  constexpr uint32_t K_TILE = BM * D * 2;  // bytes of the k and v tiles
+  constexpr uint32_t Q_TILE = BN * D * 2;  // bytes of one q or dO stage
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + K_TILE;
+  const uint32_t q_s = v_s + K_TILE;           // STAGES q tiles
+  const uint32_t o_s = q_s + STAGES * Q_TILE;  // STAGES dO tiles
+  // STAGES of [lse (BN), delta (BN)]
+  float* const rows_s =
+      reinterpret_cast<float*>(smem_raw + (o_s + STAGES * Q_TILE - raw));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = blockIdx.y * BM;  // the first k tiles see the most rows
+  const int keys = min(BM, p.Sk - k0);
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* lse = p.lse + (int64_t)bh * p.Sq;
+  const float* delta = p.delta + (int64_t)bh * p.Sq;
+
+  // the first q tile with a row that can see key k0 (all of them if not
+  // causal); a tile whose keys no row can see runs no iteration
+  const int first = p.causal ? max(k0 - p.q_offset, 0) / BN : 0;
+  const int n_q_tiles = (p.Sq + BN - 1) / BN;
+  auto load_q = [&](int qb) {  // q tile qb into stage (qb - first) % STAGES
+    const int stage = (qb - first) % STAGES, q0 = qb * BN;
+    load_tile<BN, D>(q_s + stage * Q_TILE, q, p.q_ss, q0, p.Sq - q0);
+    load_tile<BN, D>(o_s + stage * Q_TILE, dout, p.o_ss, q0, p.Sq - q0);
+    if (tid < 2 * BN) {
+      const float* src = tid < BN ? lse : delta;
+      const int i = q0 + tid % BN;
+      sm90::cp_async4(sm90::smem_u32(rows_s + stage * 2 * BN + tid),
+                      i < p.Sq ? src + i : src, i < p.Sq);
+    }
+  };
+  load_tile<BM, D>(k_s, k, p.k_ss, k0, keys);
+  load_tile<BM, D>(v_s, v, p.v_ss, k0, keys);
+  if (first < n_q_tiles) load_q(first);
+  sm90::cp_async_commit();
+  if (first + 1 < n_q_tiles) load_q(first + 1);
+  sm90::cp_async_commit();
+
+  // this thread's accumulator rows (keys): r0 and r0 + 8
+  const int r0 = wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  const float scale_log2 = p.scale * LOG2E;
+
+  for (int qb = first; qb < n_q_tiles; ++qb) {
+    const int stage = (qb - first) % STAGES, q0 = qb * BN;
+    const uint32_t qs = q_s + stage * Q_TILE;
+    const uint32_t os = o_s + stage * Q_TILE;
+    const float* lse_t = rows_s + stage * 2 * BN;
+    const float* delta_t = lse_t + BN;
+    ring_wait();
+    if (qb + 2 < n_q_tiles) load_q(qb + 2);  // overlaps the next two tiles
+    sm90::cp_async_commit();
+    // a warpgroup whose keys are all padding or all masked skips the tile
+    const int q_last = min(p.Sq, q0 + BN) - 1;
+    if (wg * 64 >= keys ||
+        (p.causal && q_last + p.q_offset < k0 + wg * 64))
+      continue;
+    float s[32], dp[32];  // S^T and dP^T: keys x q rows
+    mma_ss_pair<D>(s, dp, k_s, v_s, qs, os, wg);
+    // P^T and dS^T as A operands, each a bf16 hi + lo pair
+    uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+    auto fragments = [&](auto masked) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int key = k0 + r0 + 8 * ((i / 2) % 2);
+        const int c = (i / 4) * 8 + (lane % 4) * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + c);
+        const float lv[2] = {l2.x, l2.y}, dl[2] = {d2.x, d2.y};
+        float pv[2], ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int row = q0 + c + u;
+          const bool seen = !decltype(masked)::value ||
+                            (key < p.Sk && row < p.Sq &&
+                             !(p.causal && row + p.q_offset < key));
+          pv[u] = seen ? exp2f(s[i + u] * scale_log2 - lv[u] * LOG2E) : 0.f;
+          ds[u] = pv[u] * (dp[i + u] - dl[u]);
+        }
+        const int f = i / 8, g = (i % 8) / 2;
+        sm90::split_bf16(pv[0], pv[1], p_hi[f][g], p_lo[f][g]);
+        sm90::split_bf16(ds[0], ds[1], ds_hi[f][g], ds_lo[f][g]);
+      }
+    };
+    if (q0 + BN > p.Sq || k0 + wg * 64 + 64 > p.Sk ||
+        (p.causal && q0 + p.q_offset < k0 + wg * 64 + 63))
+      fragments(std::true_type());
+    else
+      fragments(std::false_type());
+    sm90::wgmma_fence();
+    mma_rs<D>(dv, p_hi, os);
+    mma_rs<D>(dv, p_lo, os);
+    mma_rs<D>(dk, ds_hi, qs);
+    mma_rs<D>(dk, ds_lo, qs);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::fence_regs(p_hi);
+    sm90::fence_regs(p_lo);
+    sm90::fence_regs(ds_hi);
+    sm90::fence_regs(ds_lo);
+  }
+
+  bf16* dk_out = static_cast<bf16*>(p.dk);
+  bf16* dv_out = static_cast<bf16*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = r0 + 8 * ((i / 2) % 2);
+    if (r >= keys) continue;
+    const int c = (i / 4) * 8 + (lane % 4) * 2;
+    const int64_t at = (((int64_t)b * p.Sk + k0 + r) * p.H + h) * D + c;
+    *reinterpret_cast<__nv_bfloat162*>(dk_out + at) =
+        __floats2bfloat162_rn(dk[i] * p.scale, dk[i + 1] * p.scale);
+    *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
+        __floats2bfloat162_rn(dv[i], dv[i + 1]);
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Sk + BK - 1) / BK);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+template <int D>
+cudaError_t launch_dq(const Params& p, bool bf16_inputs, cudaStream_t s) {
+  if (bf16_inputs)
+    return launch(flash_bwd_dq_bf16_kernel<D>,
+                  dim3(p.B * p.H, (p.Sq + BM - 1) / BM), WG_THREADS,
+                  dq_bf16_smem_bytes<D>(), p, s);
+  return launch(flash_bwd_dq_kernel<D>, dim3(p.B * p.H, (p.Sq + BQ - 1) / BQ),
+                THREADS, dq_smem_bytes<D>(), p, s);
+}
+
+template <int D>
+cudaError_t launch_dkv(const Params& p, bool bf16_inputs, cudaStream_t s) {
+  if (bf16_inputs)
+    return launch(flash_bwd_dkv_bf16_kernel<D>,
+                  dim3(p.B * p.H, (p.Sk + BM - 1) / BM), WG_THREADS,
+                  dkv_bf16_smem_bytes<D>(), p, s);
+  return launch(flash_bwd_dkv_kernel<D>, dim3(p.B * p.H, (p.Sk + BK - 1) / BK),
+                THREADS, dkv_smem_bytes<D>(), p, s);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   int B, int H, int Sq, int Sk, const int64_t* strides,
-                   int causal, int q_offset, float scale) {
+                   const void* dout, const void* lse, void* delta, int B,
+                   int H, int Sq, int Sk, const int64_t* strides, int causal,
+                   int q_offset, float scale) {
   Params p;
-  p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.out = nullptr;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
   p.dq = p.dk = p.dv = nullptr;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
+  p.y_sb = p.y_ss = p.y_sh = 0;
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk;
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
   return p;
@@ -449,52 +1051,50 @@ Params make_params(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Both entry points: dtype 0 = float32, 1 = bfloat16; head_dim 64 or 128.
-// `strides` holds 12 element strides, (B, S, H) of q, k, v and dO in that
-// order; the head dimension of each must be contiguous.  lse and delta are
-// contiguous fp32 (B*H, Sq).  Outputs are contiguous (B, S, H, D) tensors of
-// the inputs' dtype.  Each returns the launch's cudaError_t (0 on success).
+// `strides` holds the element strides over (B, S, H) of q, k, v and dO, in
+// that order, and for the dq kernel then of O: 15 values, 12 for dk/dv.  The
+// head dimension of each must be contiguous; for bfloat16 every pointer and
+// stride must also be a multiple of 16 bytes.  lse and delta are contiguous
+// fp32 (B*H, Sq).  Outputs are contiguous (B, S, H, D) tensors of the
+// inputs' dtype.  Each returns the launch's cudaError_t (0 on success).
 
-// dq: (B, Sq, H, D).
+// dq: (B, Sq, H, D); also writes delta = rowsum(dO * O) for the dk/dv kernel.
 extern "C" int alpa_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int dtype, int B, int H,
-    int Sq, int Sk, int head_dim, const int64_t* strides, int causal,
-    int q_offset, float scale, void* stream) {
+    const void* out, const void* lse, void* delta, void* dq, int dtype,
+    int B, int H, int Sq, int Sk, int head_dim, const int64_t* strides,
+    int causal, int q_offset, float scale, void* stream) {
   if (B * H == 0 || Sq == 0) return (int)cudaSuccess;
-  if (Sk <= 0 || q_offset < 0 || (Sq + BQ - 1) / BQ > 65535)
+  if (Sk <= 0 || q_offset < 0 || (Sq + BQ - 1) / BQ > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, dout, lse, delta, B, H, Sq, Sk, strides,
                          causal, q_offset, scale);
+  p.out = out;
+  p.y_sb = strides[12]; p.y_ss = strides[13]; p.y_sh = strides[14];
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return (int)launch_dq<float, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return (int)launch_dq<float, 128>(p, s);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_dq<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_dq<__nv_bfloat16, 128>(p, s);
+  if (head_dim == 64) return (int)launch_dq<64>(p, dtype == 1, s);
+  if (head_dim == 128) return (int)launch_dq<128>(p, dtype == 1, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dk, dv: (B, Sk, H, D).
+// dk, dv: (B, Sk, H, D), from the delta the dq kernel wrote.
 extern "C" int alpa_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
     int H, int Sq, int Sk, int head_dim, const int64_t* strides, int causal,
     int q_offset, float scale, void* stream) {
   if (B * H == 0 || Sk == 0) return (int)cudaSuccess;
-  if (Sq < 0 || q_offset < 0 || (Sk + BK - 1) / BK > 65535)
+  if (Sq < 0 || q_offset < 0 || (Sk + BK - 1) / BK > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, dout, lse, delta, B, H, Sq, Sk, strides,
-                         causal, q_offset, scale);
+  Params p = make_params(q, k, v, dout, lse, const_cast<void*>(delta), B, H,
+                         Sq, Sk, strides, causal, q_offset, scale);
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return (int)launch_dkv<float, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return (int)launch_dkv<float, 128>(p, s);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_dkv<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_dkv<__nv_bfloat16, 128>(p, s);
+  if (head_dim == 64) return (int)launch_dkv<64>(p, dtype == 1, s);
+  if (head_dim == 128) return (int)launch_dkv<128>(p, dtype == 1, s);
   return (int)cudaErrorInvalidValue;
 }

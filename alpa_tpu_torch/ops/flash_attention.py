@@ -9,8 +9,11 @@ loop over k tiles inside the block does what the streaming grid dimension
 did, so the port has no residency limit.
 
 The backward keeps the JAX package's two kernels, ``_flash_bwd_dq_kernel``
-and ``_flash_bwd_dkv_kernel``, as two CUDA kernels in ``csrc/flash_bwd.cu``.
-The JAX package runs them only while k/v (and q/dO) fit its 4 MiB VMEM
+and ``_flash_bwd_dkv_kernel``, as two CUDA kernels in ``csrc/flash_bwd.cu``:
+for bf16 they run on the tensor cores, for fp32 on the CUDA cores.  The dq
+kernel also computes delta = rowsum(dO * O), which the JAX package computes
+in XLA, and hands it to the dk/dv kernel in an fp32 buffer.  The JAX
+package runs its kernels only while k/v (and q/dO) fit its 4 MiB VMEM
 budget and recomputes through the einsum reference beyond it; the GPU has
 no such limit, so the port runs its kernels at every length.
 
@@ -149,8 +152,9 @@ def flash_attention_forward(q, k, v, *, causal: bool, q_offset: int = 0
 
 
 def _delta(out, do) -> torch.Tensor:
-    """rowsum(dO * O) in fp32, laid out (B*H, Sq) as lse.  ``out`` is taken
-    as saved, in q's dtype, as the JAX package takes it (``:360``)."""
+    """rowsum(dO * O) in fp32, laid out (B*H, Sq) as lse, for the plain
+    version (the dq kernel computes its own).  ``out`` is taken as saved, in
+    q's dtype, as the JAX package takes it (``:360``)."""
     b, sq, h, _ = out.shape
     return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
         b * h, sq)
@@ -203,39 +207,57 @@ def _bwd_kernels():
                                   ctypes.c_void_p])
     dq, dkv = lib.alpa_flash_bwd_dq, lib.alpa_flash_bwd_dkv
     dq.restype = dkv.restype = ctypes.c_int
-    dq.argtypes = [ctypes.c_void_p] * 7 + tail
+    dq.argtypes = [ctypes.c_void_p] * 8 + tail
     dkv.argtypes = [ctypes.c_void_p] * 8 + tail
     return dq, dkv
 
 
-def _bwd_common(q, k, v, do, causal, q_offset):
-    """The arguments both backward entry points take after their pointers;
-    also checks what the kernels take."""
-    _kernel_args(q, k, v, do)
+def _aligned(t) -> bool:
+    """What the bf16 backward kernels' 16-byte copies need of a tensor."""
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
+
+
+def _bwd_common(q, k, v, do, causal, q_offset, out=None):
+    """The arguments both backward entry points take after their pointers,
+    with the (B, S, H) strides of q, k, v, dO and, for the dq kernel, O.
+    Also checks what the kernels take: the bf16 kernels copy 16-byte chunks,
+    so their pointers and strides must be multiples of 16 bytes."""
+    tensors = (q, k, v, do) if out is None else (q, k, v, do, out)
+    _kernel_args(*tensors)
+    if not all(map(_aligned, tensors)):
+        raise ValueError("bf16 flash backward needs 16-byte aligned "
+                         "pointers and (B, S, H) strides")
     b, sq, h, d = q.shape
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
-                                    *v.stride()[:3], *do.stride()[:3])
-    return (_DTYPES[q.dtype], b, h, sq, k.shape[1], d, strides, int(causal),
-            q_offset, 1.0 / math.sqrt(d))
+    strides = [s for t in tensors for s in t.stride()[:3]]
+    return (_DTYPES[q.dtype], b, h, sq, k.shape[1], d,
+            (ctypes.c_int64 * len(strides))(*strides), int(causal), q_offset,
+            1.0 / math.sqrt(d))
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int):
+def _launch_bwd_dq(q, k, v, out, do, lse, causal: bool, q_offset: int):
+    """Launch the dq kernel; returns ``(dq, delta)``, delta = rowsum(dO * O)
+    in fp32 (B*H, Sq), computed by the kernel for the dk/dv kernel."""
     global FLASH_BWD_DQ_LAUNCHES
-    common = _bwd_common(q, k, v, do, causal, q_offset)
+    common = _bwd_common(q, k, v, do, causal, q_offset, out)
+    b, sq, h, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_kernels()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common, stream)
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *common, stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError "
                            f"{err}")
     FLASH_BWD_DQ_LAUNCHES += 1
-    return dq
+    return dq, delta
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int):
+    """Launch the dk/dv kernel with the delta the dq kernel wrote."""
     global FLASH_BWD_DKV_LAUNCHES
     common = _bwd_common(q, k, v, do, causal, q_offset)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -260,10 +282,10 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     """``(dq, dk, dv)`` of flash attention from the forward's residuals;
     the port of ``_flash_backward_kernels``.
 
-    On a CPU tensor this is the plain version; on a CUDA tensor it computes
-    delta with one torch reduction and launches the dq and the dk/dv
-    kernels (fp32 or bf16, head dim 64 or 128, strided q/k/v/dO with a
-    contiguous head dim), and raises on what the kernels cannot take."""
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    the dq kernel, which also computes delta, then the dk/dv kernel (fp32
+    or bf16, head dim 64 or 128, strided q/k/v/dO with a contiguous head
+    dim), and raises on what the kernels cannot take."""
     _check_backward(q, k, v, out, lse, do, q_offset)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, do,
@@ -272,11 +294,16 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda tensors, "
                          f"not {q.device.type}")
-    if do.stride(-1) != 1:   # autograd hands dO over with any strides
-        do = do.contiguous()
-    delta = _delta(out, do)
+    return _backward_kernels(q, k, v, out, lse, do, causal, q_offset)
+
+
+def _backward_kernels(q, k, v, out, lse, do, causal: bool, q_offset: int):
+    """The CUDA half of ``flash_attention_backward``: the dq kernel, which
+    also writes delta, then the dk/dv kernel on the same stream."""
+    if do.stride(-1) != 1 or not _aligned(do):  # autograd's dO: any layout
+        do = do.clone(memory_format=torch.contiguous_format)
     lse = lse.contiguous()
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, q_offset)
+    dq, delta = _launch_bwd_dq(q, k, v, out, do, lse, causal, q_offset)
     dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, q_offset)
     return dq, dk, dv
 

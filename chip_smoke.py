@@ -16,9 +16,13 @@ Phases, each reported on its own line:
    yardstick only, never called by the port) at the serving prefill shape,
    beside the least time the card could take;
 3. backward kernels: the dq and dk/dv kernels against the plain backward,
-   case by case; at the training shape their times beside the plain
-   version, ``torch.autograd.grad`` through ``scaled_dot_product_attention``
-   (its forward excluded) and the least time the card could take;
+   case by case; at the training shape two runs give bit-identical
+   gradients, the library backward's own error against the plain version
+   is printed beside the kernels', and the kernels' times stand beside the
+   plain version, ``torch.autograd.grad`` through
+   ``scaled_dot_product_attention`` (its forward excluded) and the least
+   time the card could take; the forward kernel's time there beside its
+   bound and ``scaled_dot_product_attention``'s forward;
 4. serving: ``run_controller`` + ``register_model`` of OPT-1.3B (bf16,
    flash attention, all 24 layers, random weights from a seed), four
    concurrent ``POST /completions`` of 37, 128, 300 and 511 tokens with 32
@@ -45,6 +49,7 @@ and the line before it lists the kernels as JSON.
 import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -78,8 +83,9 @@ PEAK_FLOPS = {torch.bfloat16: SPEC["peak_bf16_tflops"] * 1e12,
 # bench.py's divisor for vs_baseline (a V100's TFLOPS in the reference)
 BASELINE_TFLOPS_PER_DEVICE = 37.01
 # backward kernels vs plain: bf16 gradients are rounded once from fp32 on
-# both sides (an ulp is 2**-8 relative); fp32 gradients differ by the order
-# of sums over up to 16384 keys
+# both sides (an ulp is 2**-8 relative), and the kernels' second products
+# see P and dS to 16 bits (a bf16 hi + lo pair); fp32 gradients differ by
+# the order of sums over up to 16384 keys
 GRAD_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2),
             torch.float32: dict(atol=1e-4, rtol=1e-4)}
 # kernel vs plain: bf16 outputs are rounded once from fp32 on both sides,
@@ -252,6 +258,11 @@ def phase_bwd_kernel():
         ("q-offset", 2, 256, 2048, 16, 64, True, 512, bf16),
         ("fp32-over-4MiB", 1, 256, 16384, 1, 64, True, 16128, f32),
         ("head-dim-128", 2, 512, 512, 16, 128, True, 0, bf16),
+        ("ragged-s37", 3, 37, 37, 5, 64, True, 0, bf16),
+        ("causal-d128-ragged", 2, 600, 600, 4, 128, True, 0, bf16),
+        # the training shape's FLOPs at head dim 128: half the tiles, each
+        # twice the products; timed too
+        ("train-d128", 4, 1024, 1024, 16, 128, True, 0, bf16),
     ]
     entries = None
     for name, b, sq, sk, h, d, causal, off, dtype in cases:
@@ -279,22 +290,38 @@ def phase_bwd_kernel():
               f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"bwd kernel case {name} disagrees with the plain version")
         if entries is None:
-            entries, fwd_ms = time_bwd(q, k, v, out, lse, do, errs,
-                               (b, sq, sk, h, d, causal, off, dtype))
+            again = fa.flash_attention_backward(q, k, v, out, lse, do,
+                                                causal=causal, q_offset=off)
+            same = all(torch.equal(g, a) for g, a in zip(grads, again))
+            print(f"bwd kernel case {name}: two runs bit-identical: {same}")
+            check(same, f"bwd kernel case {name}: gradients differ between "
+                  "two runs")
+            del again
+            entries, fwd_train = time_bwd(q, k, v, out, lse, do, refs, errs,
+                                          (b, sq, sk, h, d, causal, off,
+                                           dtype))
+        elif name == "train-d128":
+            ms = cuda_ms(lambda: fa.flash_attention_backward(
+                q, k, v, out, lse, do, causal=causal, q_offset=off))
+            print(f"bwd kernel timing {name}: backward with delta {ms:.5f} "
+                  f"ms [{card_line()}]")
         del q, k, v, do, out, lse, grads, refs
     torch.cuda.empty_cache()
-    return entries, fwd_ms
+    return entries, fwd_train
 
 
-def time_bwd(q, k, v, out, lse, do, errs, shape):
-    """Times of the two kernels, the whole backward (with delta), the plain
-    version and the library backward at the training shape."""
-    _, _, _, _, _, causal, off, dtype = shape
+def time_bwd(q, k, v, out, lse, do, refs, errs, shape):
+    """Times of the two kernels, the whole backward (the dq kernel computes
+    delta), the plain version and the library backward at the training
+    shape, and the library backward's own error against the plain version;
+    also the forward kernel's time there beside its bound and the library
+    forward.  Returns the backward entries and the forward's numbers."""
+    b, sq, sk, h, d, causal, off, dtype = shape
     fwd_ms = cuda_ms(lambda: fa.flash_attention_forward(
         q, k, v, causal=causal, q_offset=off))
-    delta = fa._delta(out, do)
-    dq_ms = cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta,
-                                              causal, off))
+    _, delta = fa._launch_bwd_dq(q, k, v, out, do, lse, causal, off)
+    dq_ms = cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, out, do, lse, causal,
+                                              off))
     dkv_ms = cuda_ms(lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta,
                                                 causal, off))
     all_ms = cuda_ms(lambda: fa.flash_attention_backward(
@@ -303,18 +330,32 @@ def time_bwd(q, k, v, out, lse, do, errs, shape):
         q, k, v, out, lse, do, causal=causal, q_offset=off), iters=5)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
+    # is_causal aligns the mask top-left, which is q_offset 0
+    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
     # the graph is retained, so only the backward is timed
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), dot, retain_graph=True))
+    lib_errs = [float((g.transpose(1, 2).float() - r.float()).abs().max())
+                for g, r in zip(torch.autograd.grad(lib_out, (qt, kt, vt),
+                                                    dot), refs)]
     bnd, bound_by = flash_bwd_bound(*shape)
-    print(f"bwd kernel timing train: forward kernel {fwd_ms:.5f} ms, dq "
-          f"kernel {dq_ms:.5f} ms, dk/dv kernel "
+    fwd_bnd, fwd_by = flash_bound(b, sq, sk, h, d, causal, off, dtype)
+    print(f"bwd kernel timing train: dq kernel {dq_ms:.5f} ms, dk/dv kernel "
           f"{dkv_ms:.5f} ms, backward with delta {all_ms:.5f} ms, plain "
           f"{plain_ms:.5f} ms, autograd through scaled_dot_product_attention "
           f"{library_ms:.5f} ms, flash_bwd_bound {bnd:.5f} ms ({bound_by}) "
           f"[{card_line()}]")
+    print(f"bwd kernel error train: max|err| against the plain version, "
+          f"kernels dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; "
+          f"library backward dq {lib_errs[0]:.3e} dk {lib_errs[1]:.3e} dv "
+          f"{lib_errs[2]:.3e} (the library rounds P and dS to bf16 once, "
+          f"the kernels to a bf16 hi + lo pair)")
+    print(f"fwd kernel timing train: forward kernel {fwd_ms:.5f} ms, "
+          f"scaled_dot_product_attention forward {lib_fwd_ms:.5f} ms, "
+          f"flash_bound {fwd_bnd:.5f} ms ({fwd_by}) [{card_line()}]")
     entries = []
     for name, ms, err, line, part in (
             ("flash_bwd_dq", dq_ms, errs[0], 244, "dq"),
@@ -329,7 +370,9 @@ def time_bwd(q, k, v, out, lse, do, errs, shape):
             "library_ms": library_ms,
             "note": "plain_ms and library_ms compute dq, dk and dv "
                     "together; bound_ms is this kernel's own outputs"})
-    return entries, fwd_ms
+    fwd_train = {"ms": fwd_ms, "bound_ms": fwd_bnd, "bound_by": fwd_by,
+                 "library_ms": lib_fwd_ms}
+    return entries, fwd_train
 
 
 def post(port, body):
@@ -623,6 +666,18 @@ def phase_train_fidelity():
     torch.cuda.empty_cache()
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_bf16_kernel<64>`` from its mangled name."""
+    # the last "flash_": nvcc names an anonymous namespace after the file
+    match = re.search(r"(flash_\w+?_kernel)I(.*?E)E+v",
+                      mangled[mangled.rfind("flash_"):])
+    if match is None:
+        return mangled
+    args = re.sub(r"Li(\d+)E", r",\1", match[2])
+    args = args.replace("13__nv_bfloat16", "bf16").strip(",")
+    return f"{match[1]}<{re.sub(r'^f,', 'float,', args)}>"
+
+
 def build_kernels():
     """One nvcc per source, all started together."""
     tic = time.perf_counter()
@@ -631,9 +686,15 @@ def build_kernels():
     print(f"setup: built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - tic:.2f} s")
     for lib in libs:
+        name = spill = None
         for line in (lib.parent / "build.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"setup: {lib.name}: {line.strip()}")
+            if "Function properties for" in line:
+                name = kernel_name(line.split()[-1])
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = line.split(":", 1)[-1].strip()
+                print(f"setup: {lib.name}: {name}: {regs}; {spill}")
 
 
 def main() -> int:
@@ -645,11 +706,11 @@ def main() -> int:
     build_kernels()
     try:
         fwd_entry = phase_kernel()
-        bwd_entries, train_fwd_ms = phase_bwd_kernel()
+        bwd_entries, fwd_train = phase_bwd_kernel()
         serving = phase_serving()
         phase_fidelity()
         train_fwd, train_dq, train_dkv = phase_training(
-            (train_fwd_ms, *(e["ms"] for e in bwd_entries)))
+            (fwd_train["ms"], *(e["ms"] for e in bwd_entries)))
         phase_train_fidelity()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -657,6 +718,7 @@ def main() -> int:
     fwd_entry["launches"] = serving + train_fwd
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "training": train_fwd}
+    fwd_entry["at_training_shape"] = fwd_train
     for entry, n in zip(bwd_entries, (train_dq, train_dkv)):
         entry["launches"] = n
         entry["launches_by_path"] = {"training": n}

@@ -193,3 +193,80 @@ def test_build_raises_without_nvcc_for_the_backward_kernels(monkeypatch):
                         pathlib.Path("/nonexistent-build-root"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("flash_bwd.cu")
+
+
+LIBRARY_ATTENTION = ("scaled_dot_product_attention",
+                     "_scaled_dot_product_flash_attention",
+                     "_scaled_dot_product_efficient_attention",
+                     "_scaled_dot_product_cudnn_attention",
+                     "_cudnn_attention", "cudnn_attention", "sdpa_kernel")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_calls_no_library_attention_or_compile(path):
+    """The port's kernels are its own: no module calls PyTorch's fused
+    attention, a cuDNN attention entry point or ``torch.compile``
+    (``chip_smoke.py`` may time one as a yardstick)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            name = node.attr
+            assert not (name == "compile" and isinstance(node.value, ast.Name)
+                        and node.value.id == "torch"), (path, node.lineno)
+        elif isinstance(node, ast.Name):
+            name = node.id
+        elif isinstance(node, ast.alias):
+            name = node.name.rsplit(".", 1)[-1]
+        else:
+            continue
+        assert name not in LIBRARY_ATTENTION, (path, node.lineno, name)
+
+
+def _cuda_function(source: str, name: str) -> str:
+    """The text of the function ``name`` in a CUDA source, up to its
+    closing brace at column 0."""
+    start = source.index(f" {name}(")
+    return source[start:source.index("\n}\n", start)]
+
+
+def test_bf16_backward_kernels_use_the_tensor_cores():
+    """The bf16 backward kernels do their products with ``wgmma`` (the dq
+    kernel: S, dP, then dS K; the dk/dv kernel: S^T, dP^T, then P^T dO and
+    dS^T Q), and the entry points send bf16 to them."""
+    src = (PORT / "csrc" / "flash_bwd.cu").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
+    for helper in ("mma_ss_pair", "mma_rs"):
+        assert "sm90::wgmma_" in _cuda_function(src, helper)
+    dq = _cuda_function(src, "flash_bwd_dq_bf16_kernel")
+    dkv = _cuda_function(src, "flash_bwd_dkv_bf16_kernel")
+    # second products take P and dS as a bf16 hi + lo pair: two passes each
+    assert dq.count("mma_ss_pair<D>(") == 1 and dq.count("mma_rs<D>(") == 2
+    assert dkv.count("mma_ss_pair<D>(") == 1 and dkv.count("mma_rs<D>(") == 4
+    for kernel in (dq, dkv):   # tiles come through the cp.async ring
+        assert "load_tile<" in kernel and "ring_wait()" in kernel
+        assert "fmaf(" not in kernel
+    for entry in ("launch_dq", "launch_dkv"):
+        launcher = _cuda_function(src, entry)
+        assert "if (bf16_inputs)" in launcher and "_bf16_kernel<D>" in launcher
+
+
+def test_bf16_backward_wrapper_rejects_misaligned_tensors():
+    """The bf16 kernels copy 16-byte chunks: a pointer or a (B, S, H) stride
+    that is not a multiple of 16 bytes raises; fp32 takes any."""
+    def bf16(shape, offset=0):
+        flat = torch.zeros(offset + int(torch.Size(shape).numel()),
+                           dtype=torch.bfloat16)
+        return flat[offset:].view(shape)
+
+    q, k, v, do = (bf16((1, 8, 2, 64)) for _ in range(4))
+    assert fa._bwd_common(q, k, v, do, True, 0)[0] == 1
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._bwd_common(q, k, v, bf16((1, 8, 2, 64), offset=1), True, 0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._bwd_common(q, bf16((1, 8, 3, 64))[:, :, :2], v, do, True, 0,
+                       out=bf16((1, 8, 2, 64), offset=4))
+    odd = bf16((1, 8, 2, 68))[..., :64]         # S and H strides of 68
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._bwd_common(q, odd, v, do, True, 0)
+    fa._bwd_common(*(t.float() for t in (q, odd, v, do)), True, 0)
