@@ -9,7 +9,7 @@
 // dimension, so one kernel covers every sequence length.
 //
 // Contract (the JAX kernels' `_online_softmax_update`, :37-102):
-//   * q is scaled by 1/sqrt(D) in fp32 before Q K^T;
+//   * scores are sm_scale * Q K^T in fp32;
 //   * causal mask q_pos + q_offset >= k_pos, masked scores are -1e9;
 //   * m, l, acc accumulate in fp32, l is clamped at 1e-20;
 //   * out = acc / l in q's dtype, lse = m + log(l) in fp32, laid out (B*H, Sq);
@@ -19,26 +19,56 @@
 // head dimension must be contiguous), and ragged tiles are masked here, so
 // no sequence length has to divide the tile.
 //
-// Design: one block of 256 threads per (batch*head, 64-row q tile).  The
-// q tile sits transposed in shared memory; k and v are staged 64 rows at a
-// time; each thread owns a 4x4 patch of the 64x64 score tile and 4 rows by
-// D/16 columns of the output accumulator, all in fp32 registers, and the
-// 16 threads that share rows reduce the row max and sum with shuffles.
-// Products run on the CUDA cores in fp32, which keeps the JAX kernels'
-// arithmetic (they also cast bf16 k/v to fp32 before both products).
+// bf16 (serving prefill and the training step) runs on the tensor cores.
+// Bound on an H100: at the training shape (B=8, H=32, S=1024, D=64,
+// causal) the function reads and writes 0.135 GB, 0.040 ms at 3.35 TB/s;
+// its two products over the visible (q, k) pairs are 3.5e10 FLOP, 0.035 ms
+// at the 989 TFLOP/s bf16 peak.  The design (that of the backward's dq
+// kernel, whose loop this is):
+//   * blocks of 128 q rows, two warpgroups of 64, the last q tiles (most
+//     keys) launched first; at head dim 64 two blocks share an SM (at most
+//     128 registers a thread), at 128 one;
+//   * the q tile sits in shared memory as bf16 with the 128-byte swizzle;
+//     64-key k and v tiles stream through a ring of four stages filled by
+//     16-byte `cp.async`, two tiles ahead of the products, with one barrier
+//     per tile, up to the last key the block's rows can see;
+//   * S = Q K^T is a `wgmma` of bf16 tiles in shared memory, from the
+//     unscaled q; S is scaled in fp32 in registers (exactly the JAX
+//     kernels' arithmetic where sm_scale is a power of two, as at head dim
+//     64), and the exponentials are `ex2.approx.ftz` with log2(e) folded
+//     into the scale (a P below 2^-126 becomes 0, nothing beside l >= 1);
+//   * the online softmax runs on the accumulator fragment: row max and sum
+//     over the four threads that share a row, masks only on tiles at the
+//     ragged edge or on the causal diagonal.  P = exp(S - m) stays in
+//     registers and is rounded once to bf16, after l has summed it in fp32,
+//     to be the A operand of O += P V, whose B operand is the row-major v
+//     tile read MN-major through the descriptor.  One rounding keeps the
+//     output within a bf16 ulp or two of the plain version, at head dim 128
+//     too (unlike the backward's dS, P is never a difference of near-equal
+//     terms; tests/test_torch_flash_attention.py models it);
+//   * a warpgroup waits for the P V product of tile t only together with
+//     S of tile t + 1, so that product overlaps the barrier and the loads
+//     of the next iteration; the fourth stage keeps its v tile in place.
+// Tried and dropped on the card (PERF.md): 128-key tiles at one
+// block per SM, and a grid that runs the q tiles of one head together.
 //
-// Bound on an H100: at the serving prefill shape (B=4, H=32, Sq=512,
-// causal, D=64, bf16) the function needs ~4.3 GFLOP and ~34 MB, so the
-// card's floor is set by memory (~10 us at 3.35 TB/s) and tensor-core peak
-// would need ~4 us.  This kernel is instead bound by fp32 FMA issue on the
-// CUDA cores (67 TFLOP/s peak, fewer in practice because every FMA pair
-// needs a shared-memory load).  Left on the table: bf16 tensor-core
-// products (mma.sync or wgmma, with P rounded to bf16), TMA loads into a
-// multi-stage ring so that loads overlap the math, and warp specialisation.
+// fp32 keeps the JAX kernels' arithmetic on the CUDA cores, for the fidelity
+// checks, where TF32's ~3 digits would not do: one block of 256 threads per
+// (batch*head, 64-row q tile).  The q tile sits transposed in shared memory,
+// scaled; k and v are staged 64 rows at a time; each thread owns a 4x4
+// patch of the 64x64 score tile and 4 rows by D/16 columns of the output
+// accumulator, all in fp32 registers, and the 16 threads that share rows
+// reduce the row max and sum with shuffles.  It is bound by fp32 FMA issue
+// (67 TFLOP/s peak, fewer in practice because every FMA pair needs a
+// shared-memory load).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -65,15 +95,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -93,7 +114,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(D * QS + D * KS + BK * D + BK * QS);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   constexpr int NC = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -111,14 +132,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const int q0 = blockIdx.y * BQ;
   const int rows = min(BQ, p.Sq - q0);
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     float x = 0.f;
-    if (r < rows) x = load_f32(q + (int64_t)(q0 + r) * p.q_ss + d) * p.scale;
+    if (r < rows) x = q[(int64_t)(q0 + r) * p.q_ss + d] * p.scale;
     qt[d * QS + r] = x;
   }
 
@@ -144,8 +165,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
       const int c = i / D, d = i % D;
       float kx = 0.f, vx = 0.f;
       if (k0 + c < p.Sk) {
-        kx = load_f32(k + (int64_t)(k0 + c) * p.k_ss + d);
-        vx = load_f32(v + (int64_t)(k0 + c) * p.v_ss + d);
+        kx = k[(int64_t)(k0 + c) * p.k_ss + d];
+        vx = v[(int64_t)(k0 + c) * p.v_ss + d];
       }
       kt[d * KS + c] = kx;
       vs[c * D + d] = vx;
@@ -219,7 +240,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     }
   }
 
-  T* out = static_cast<T*>(p.out);
+  float* out = static_cast<float*>(p.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -230,30 +251,198 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     for (int half = 0; half < NC / 4; ++half)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        store_from_f32(out + row * D + half * 64 + tx * 4 + j,
-                       acc[i][half * 4 + j] / lc);
+        out[row * D + half * 64 + tx * 4 + j] = acc[i][half * 4 + j] / lc;
     if (tx == 0) p.lse[(int64_t)bh * p.Sq + q0 + r] = m[i] + logf(lc);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+// k/v stages of the bf16 kernel: loads run two tiles ahead, as in the
+// backward, and a fourth stage keeps tile t - 1's v in place while its P V
+// product still runs during iteration t
+constexpr int KV_STAGES = 4;
+
+template <int D>
+constexpr int bf16_smem_bytes() {  // the q tile; stages of k and v
+  return 1024 + BM * D * 2 + KV_STAGES * 2 * BN * D * 2;
+}
+
+// s = Q K^T for one warpgroup: its 64 rows of the BM-row q tile against a
+// 64-row k tile, both K-major over D
+template <int D>
+__device__ __forceinline__ void mma_qk(float (&s)[32], uint32_t q, uint32_t k,
+                                       int wg) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  sm90::fence_regs(s);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qo = (kk / 4) * (BM * 128) + wg * (64 * 128) + (kk % 4) * 32;
+    const uint32_t ko = (kk / 4) * (BN * 128) + (kk % 4) * 32;
+    sm90::wgmma_ss_n64(s, sm90::kmajor_desc(q + qo), sm90::kmajor_desc(k + ko),
+                       kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
+    flash_fwd_bf16_kernel(const Params p) {
+  constexpr uint32_t Q_TILE = BM * D * 2;  // bytes of the q tile
+  constexpr uint32_t K_TILE = BN * D * 2;  // bytes of one k or v stage
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t q_s = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + Q_TILE;              // KV_STAGES k tiles
+  const uint32_t v_s = k_s + KV_STAGES * K_TILE;  // KV_STAGES v tiles
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  // the last q tiles see the most keys: they take the first blocks
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int rows = min(BM, p.Sq - q0);
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  int k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q0 + rows + p.q_offset);
+  const int n_tiles = (k_end + BN - 1) / BN;
+  auto load_kv = [&](int t) {
+    const uint32_t stage = (t % KV_STAGES) * K_TILE;
+    load_tile<BN, D>(k_s + stage, k, p.k_ss, t * BN, p.Sk - t * BN);
+    load_tile<BN, D>(v_s + stage, v, p.v_ss, t * BN, p.Sk - t * BN);
+  };
+  load_tile<BM, D>(q_s, q, p.q_ss, q0, rows);
+  load_kv(0);
+  sm90::cp_async_commit();
+  if (n_tiles > 1) load_kv(1);
+  sm90::cp_async_commit();
+
+  // this thread's accumulator rows: r0 and r0 + 8.  m is the running row
+  // max of the unscaled scores; l sums this thread's share of the row
+  const int r0 = wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  const float scale_log2 = p.scale * LOG2E;
+  const float masked = MASKED / p.scale;  // a masked score, unscaled
+  float m[2] = {masked, masked}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int wg_last = min(rows, wg * 64 + 64) - 1;  // last row that exists
+  // P in bf16, the A operand of P V: it outlives the iteration, since the
+  // product of tile t runs on until the wait for S of tile t + 1
+  uint32_t pf[4][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pf[i / 4][i % 4] = 0u;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BN;
+    const uint32_t ks = k_s + (t % KV_STAGES) * K_TILE;
+    const uint32_t vs = v_s + (t % KV_STAGES) * K_TILE;
+    ring_wait();
+    if (t + 2 < n_tiles) load_kv(t + 2);  // overlaps the next two tiles
+    sm90::cp_async_commit();
+    // a warpgroup whose rows are all padding or all masked skips the tile
+    if (wg_last < wg * 64 || (p.causal && q0 + wg_last + p.q_offset < k0))
+      continue;
+    float s[32];
+    mma_qk<D>(s, q_s, ks, wg);  // its wait also ends the last P V product
+    sm90::fence_regs(acc);
+    sm90::fence_regs(pf);
+    auto softmax = [&](auto masked_tile) {
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int e = (i / 2) % 2;
+        if constexpr (decltype(masked_tile)::value) {
+          const int key = k0 + (i / 4) * 8 + (lane % 4) * 2 + i % 2;
+          if (key >= p.Sk)
+            s[i] = -INFINITY;  // ragged edge: no key at all
+          else if (p.causal && q0 + r0 + 8 * e + p.q_offset < key)
+            s[i] = masked;
+        }
+        mx[e] = fmaxf(mx[e], s[i]);
+      }
+      float alpha[2], mb[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        alpha[e] = sm90::exp2_ftz((m[e] - mx[e]) * scale_log2);
+        m[e] = mx[e];
+        mb[e] = mx[e] * scale_log2;
+        l[e] *= alpha[e];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int e = (i / 2) % 2;
+        const float p0 = sm90::exp2_ftz(s[i] * scale_log2 - mb[e]);
+        const float p1 = sm90::exp2_ftz(s[i + 1] * scale_log2 - mb[e]);
+        l[e] += p0 + p1;
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+        pf[i / 8][(i % 8) / 2] = *reinterpret_cast<const uint32_t*>(&pb);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+    };
+    if (k0 + BN > p.Sk ||
+        (p.causal && q0 + wg * 64 + p.q_offset < k0 + BN - 1))
+      softmax(std::true_type());
+    else
+      softmax(std::false_type());
+    sm90::wgmma_fence();
+    mma_rs<D>(acc, pf, vs);
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  float lc[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {  // the four threads of a row hold its sum
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    lc[e] = fmaxf(l[e], 1e-20f);
+    const int r = r0 + 8 * e;
+    if (r < rows && lane % 4 == 0)
+      p.lse[(int64_t)bh * p.Sq + q0 + r] = m[e] * p.scale + logf(lc[e]);
+  }
+  bf16* out = static_cast<bf16*>(p.out);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int e = (i / 2) % 2;
+    const int r = r0 + 8 * e;
+    if (r >= rows) continue;
+    const int c = (i / 4) * 8 + (lane % 4) * 2;
+    const int64_t row = ((int64_t)b * p.Sq + q0 + r) * p.H + h;
+    *reinterpret_cast<__nv_bfloat162*>(out + row * D + c) =
+        __floats2bfloat162_rn(acc[i] / lc[e], acc[i + 1] / lc[e]);
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd(const Params& p, bool bf16_inputs, cudaStream_t s) {
+  if (bf16_inputs)
+    return launch(flash_fwd_bf16_kernel<D>,
+                  dim3(p.B * p.H, (p.Sq + BM - 1) / BM), WG_THREADS,
+                  bf16_smem_bytes<D>(), p, s);
+  return launch(flash_fwd_kernel<D>, dim3(p.B * p.H, (p.Sq + BQ - 1) / BQ),
+                THREADS, smem_bytes<D>(), p, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  Strides are in
-// elements; the head dimension of q, k and v must be contiguous.  out is a
-// contiguous (B, Sq, H, D) tensor of q's dtype, lse a contiguous fp32
-// (B*H, Sq) tensor.  Returns the launch's cudaError_t (0 on success).
+// elements; the head dimension of q, k and v must be contiguous, and for
+// bfloat16 every pointer and stride must also be a multiple of 16 bytes.
+// out is a contiguous (B, Sq, H, D) tensor of q's dtype, lse a contiguous
+// fp32 (B*H, Sq) tensor.  Returns the launch's cudaError_t (0 on success).
 extern "C" int alpa_flash_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int dtype, int B, int H, int Sq, int Sk, int head_dim,
@@ -262,7 +451,8 @@ extern "C" int alpa_flash_fwd(
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int causal, int q_offset, float scale, void* stream) {
   if (B * H == 0 || Sq == 0) return (int)cudaSuccess;
-  if (Sk <= 0 || q_offset < 0 || (Sq + BQ - 1) / BQ > 65535)
+  if (Sk <= 0 || q_offset < 0 || (Sq + BQ - 1) / BQ > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.out = out; p.lse = static_cast<float*>(lse);
@@ -272,10 +462,7 @@ extern "C" int alpa_flash_fwd(
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk;
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return (int)launch<float, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return (int)launch<float, 128>(p, s);
-  if (dtype == 1 && head_dim == 64) return (int)launch<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch<__nv_bfloat16, 128>(p, s);
+  if (head_dim == 64) return (int)launch_fwd<64>(p, dtype == 1, s);
+  if (head_dim == 128) return (int)launch_fwd<128>(p, dtype == 1, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,10 +3,10 @@
 Each source under ``alpa_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries land
-in ``alpa_tpu_torch/_build/<hash>/``, keyed by the source's and the flags'
-hash, so an edited source is rebuilt and an unchanged one is reused within
-a checkout.  There is no fallback: a missing ``nvcc`` or a failed build
-raises.
+in ``alpa_tpu_torch/_build/<hash>/``, keyed by the hash of the source, of
+every header under ``csrc/`` and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused within a checkout.  There
+is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 import ctypes
 import hashlib
@@ -39,14 +39,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def build_dir(source: str) -> Path:
+    """Where ``csrc/<source>`` is built: a directory named by the hash of
+    the source, of every ``*.cuh`` under ``csrc/`` (any of which it may
+    include) and of the compiler's flags."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / digest.hexdigest()[:16]
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` into a shared library unless an identical
     build exists; return the library's path.  The compiler's register and
     shared-memory report is kept beside it as ``build.log``."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / digest
+    out_dir = build_dir(source)
     lib = out_dir / (Path(source).stem + ".so")
     if lib.exists():
         return lib

@@ -6,7 +6,8 @@ two forward Pallas kernels, one with k/v resident in VMEM and one that
 streams k/v once they pass 4 MiB per (batch, head).  They compute the same
 function, and the CUDA kernel in ``csrc/flash_fwd.cu`` replaces both: a
 loop over k tiles inside the block does what the streaming grid dimension
-did, so the port has no residency limit.
+did, so the port has no residency limit.  For bf16 it runs on the tensor
+cores, for fp32 on the CUDA cores.
 
 The backward keeps the JAX package's two kernels, ``_flash_bwd_dq_kernel``
 and ``_flash_bwd_dkv_kernel``, as two CUDA kernels in ``csrc/flash_bwd.cu``:
@@ -102,6 +103,12 @@ def _kernel_args(*tensors):
                          f"{[str(t.device) for t in tensors]}")
 
 
+def _aligned(t) -> bool:
+    """What the bf16 kernels' 16-byte copies need of a tensor."""
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The built kernel's C entry point, with its signature declared."""
@@ -117,6 +124,9 @@ def _kernel():
 def _launch(q, k, v, causal: bool, q_offset: int):
     global FLASH_FWD_LAUNCHES
     _kernel_args(q, k, v)
+    if not all(map(_aligned, (q, k, v))):
+        raise ValueError("bf16 flash forward needs 16-byte aligned pointers "
+                         "and (B, S, H) strides")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -139,8 +149,9 @@ def flash_attention_forward(q, k, v, *, causal: bool, q_offset: int = 0
     """``(out, lse)`` of flash attention; the port of ``_flash_forward``.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
-    the Hopper kernel (fp32 or bf16, head dim 64 or 128, any strides with a
-    contiguous head dim) and raises on what the kernel cannot take."""
+    the Hopper kernel (fp32 or bf16, head dim 64 or 128, strides with a
+    contiguous head dim, for bf16 multiples of 16 bytes, as are the
+    pointers) and raises on what the kernel cannot take."""
     _check_shapes(q, k, v, q_offset)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, causal=causal,
@@ -210,12 +221,6 @@ def _bwd_kernels():
     dq.argtypes = [ctypes.c_void_p] * 8 + tail
     dkv.argtypes = [ctypes.c_void_p] * 8 + tail
     return dq, dkv
-
-
-def _aligned(t) -> bool:
-    """What the bf16 backward kernels' 16-byte copies need of a tensor."""
-    return t.dtype != torch.bfloat16 or (
-        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
 
 
 def _bwd_common(q, k, v, do, causal, q_offset, out=None):

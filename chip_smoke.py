@@ -11,18 +11,20 @@ Phases, each reported on its own line:
    ``alpa_tpu_torch/csrc`` (one nvcc per source, started together) and
    report the build time;
 2. kernel: the CUDA flash-attention forward against its plain PyTorch
-   version on the card, case by case, with the tolerance stated; times of
-   the kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick only, never called by the port) at the serving prefill shape,
-   beside the least time the card could take;
+   version on the card, case by case (ragged lengths, both head dims, with
+   and without the causal mask, the model's packed qkv views), with the
+   tolerance stated; at the training shape two runs give bit-identical
+   outputs; times of the kernel, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick only, never called by the
+   port) at the serving prefill shape and at the training shape, beside the
+   least time the card could take;
 3. backward kernels: the dq and dk/dv kernels against the plain backward,
    case by case; at the training shape two runs give bit-identical
    gradients, the library backward's own error against the plain version
    is printed beside the kernels', and the kernels' times stand beside the
    plain version, ``torch.autograd.grad`` through
    ``scaled_dot_product_attention`` (its forward excluded) and the least
-   time the card could take; the forward kernel's time there beside its
-   bound and ``scaled_dot_product_attention``'s forward;
+   time the card could take;
 4. serving: ``run_controller`` + ``register_model`` of OPT-1.3B (bf16,
    flash attention, all 24 layers, random weights from a seed), four
    concurrent ``POST /completions`` of 37, 128, 300 and 511 tokens with 32
@@ -36,7 +38,9 @@ Phases, each reported on its own line:
    and ``value_and_grad``: 3 warm-up and 10 timed steps, 48 forward and
    24 + 24 backward launches per step, a finite loss that falls; step
    time, tokens/s, TFLOPS, MFU and peak memory, and a line in
-   ``bench.py``'s JSON schema;
+   ``bench.py``'s JSON schema; then ``torch.profiler`` over two more
+   steps: the ten heaviest kernels by device time and the device's busy
+   share;
 7. training fidelity: the same model in fp32 at 4 layers, batch 2, takes
    3 Adam steps with the kernels and 3 with the plain versions in their
    place; losses agree to 1e-5 relative, step-0 gradients to 1e-4 of each
@@ -170,11 +174,15 @@ def flash_bwd_bound(b, sq, sk, h, d, causal, off, dtype, part="all"):
     return bound(nbytes, flops, dtype)
 
 
-def make_qkv(b, sq, sk, h, d, dtype, gen):
+def make_qkv(b, sq, sk, h, d, dtype, gen, packed=False):
     """q as a strided view of a packed qkv projection, as the model gives
-    it; k/v as contiguous KV caches."""
+    it; k/v as contiguous KV caches or, ``packed`` (self-attention, sq ==
+    sk), as views of the same projection, as the model's training and
+    cache-free forward give them."""
     qkv = torch.randn(b, sq, 3 * h * d, device="cuda", generator=gen)
-    q = qkv.to(dtype)[..., :h * d].unflatten(-1, (h, d))
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.to(dtype).chunk(3, -1))
+    if packed:
+        return q, k, v
     k = torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
     v = torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
     return q, k, v
@@ -186,7 +194,28 @@ def max_violation(a, b, atol, rtol) -> float:
     return float(((a - b).abs() - (atol + rtol * b.abs())).max())
 
 
+def time_fwd(name, q, k, v, causal, off, bnd, bound_by):
+    """Times of the forward kernel, its plain version and one
+    ``scaled_dot_product_attention`` call on the same inputs."""
+    ms = cuda_ms(lambda: fa.flash_attention_forward(
+        q, k, v, causal=causal, q_offset=off))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_forward_reference(
+        q, k, v, causal=causal, q_offset=off))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # is_causal aligns the mask top-left: q_pos >= k_pos, which is q_offset
+    # 0, the same function on the same inputs
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    print(f"kernel timing {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
+          f"ms, scaled_dot_product_attention {library_ms:.5f} ms, bound "
+          f"{bnd:.5f} ms ({bound_by}) [{card_line()}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def phase_kernel():
+    """Returns the forward kernel's entry (timed at the serving prefill
+    shape) and its numbers at the training shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
     # (name, b, sq, sk, h, d, causal, q_offset, dtype)
@@ -197,10 +226,17 @@ def phase_kernel():
         ("ragged-sq96", 4, 96, 2048, 32, 64, True, 0, bf16),
         ("fp32-over-4MiB", 1, 256, 16384, 1, 64, True, 16128, f32),
         ("head-dim-128", 2, 256, 1024, 16, 128, True, 256, bf16),
+        # bench.py's GPT-1.3B step: timed, and run twice
+        ("train", 8, 1024, 1024, 32, 64, True, 0, bf16),
+        ("ragged-sk1000", 2, 300, 1000, 16, 64, False, 0, bf16),
+        ("head-dim-128-noncausal", 2, 500, 520, 16, 128, False, 0, bf16),
+        # q, k and v as the model's views of one packed qkv projection
+        ("model-qkv-views", 2, 1000, 1000, 16, 64, True, 0, bf16),
     ]
-    entry = None
+    entry = fwd_train = None
     for name, b, sq, sk, h, d, causal, off, dtype in cases:
-        q, k, v = make_qkv(b, sq, sk, h, d, dtype, gen)
+        q, k, v = make_qkv(b, sq, sk, h, d, dtype, gen,
+                           packed=name == "model-qkv-views")
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
                                               q_offset=off)
         torch.cuda.synchronize()
@@ -213,37 +249,33 @@ def phase_kernel():
         lse_err = float((lse - ref_lse).abs().max())
         ok = (max_violation(out, ref_out, **TOL[dtype]) <= 0 and
               max_violation(lse, ref_lse, **LSE_TOL) <= 0)
-        bound, bound_by = flash_bound(b, sq, sk, h, d, causal, off, dtype)
+        bnd, bound_by = flash_bound(b, sq, sk, h, d, causal, off, dtype)
         print(f"kernel case {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"causal={causal} q_offset={off} {dtype}: max|out err| "
               f"{err:.3e} (tol {TOL[dtype]}), max|lse err| {lse_err:.3e} "
-              f"(tol {LSE_TOL}), bound {bound:.5f} ms ({bound_by}) "
+              f"(tol {LSE_TOL}), bound {bnd:.5f} ms ({bound_by}) "
               f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"kernel case {name} disagrees with the plain version")
-        if entry is None:   # the serving prefill shape: time it
-            ms = cuda_ms(lambda: fa.flash_attention_forward(
-                q, k, v, causal=causal, q_offset=off))
-            plain_ms = cuda_ms(lambda: fa.flash_attention_forward_reference(
-                q, k, v, causal=causal, q_offset=off))
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            # is_causal aligns the mask top-left: q_pos >= k_pos, which is
-            # q_offset 0, the same function on the same inputs
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
-            print(f"kernel timing {name}: kernel {ms:.5f} ms, plain "
-                  f"{plain_ms:.5f} ms, scaled_dot_product_attention "
-                  f"{library_ms:.5f} ms, bound {bound:.5f} ms ({bound_by})"
-                  f" [{card_line()}]")
+        if name == "prefill-bucket":
             entry = {"name": "flash_fwd", "route": "cuda",
                      "source": "alpa_tpu_torch/csrc/flash_fwd.cu",
                      "replaces": "alpa_tpu/ops/flash_attention.py:62",
                      "also_replaces": "alpa_tpu/ops/flash_attention.py:110",
-                     "launches": 0, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": library_ms}
+                     "launches": 0, "max_abs_err": err,
+                     **time_fwd(name, q, k, v, causal, off, bnd, bound_by)}
+        elif name == "train":
+            again = fa.flash_attention_forward(q, k, v, causal=causal,
+                                               q_offset=off)
+            same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            print(f"kernel case {name}: two runs bit-identical: {same}")
+            check(same, f"kernel case {name}: outputs differ between runs")
+            del again
+            fwd_train = {"max_abs_err": err,
+                         **time_fwd(name, q, k, v, causal, off, bnd,
+                                    bound_by)}
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
-    return entry
+    return entry, fwd_train
 
 
 def phase_bwd_kernel():
@@ -297,9 +329,8 @@ def phase_bwd_kernel():
             check(same, f"bwd kernel case {name}: gradients differ between "
                   "two runs")
             del again
-            entries, fwd_train = time_bwd(q, k, v, out, lse, do, refs, errs,
-                                          (b, sq, sk, h, d, causal, off,
-                                           dtype))
+            entries = time_bwd(q, k, v, out, lse, do, refs, errs,
+                               (b, sq, sk, h, d, causal, off, dtype))
         elif name == "train-d128":
             ms = cuda_ms(lambda: fa.flash_attention_backward(
                 q, k, v, out, lse, do, causal=causal, q_offset=off))
@@ -307,18 +338,15 @@ def phase_bwd_kernel():
                   f"ms [{card_line()}]")
         del q, k, v, do, out, lse, grads, refs
     torch.cuda.empty_cache()
-    return entries, fwd_train
+    return entries
 
 
 def time_bwd(q, k, v, out, lse, do, refs, errs, shape):
     """Times of the two kernels, the whole backward (the dq kernel computes
     delta), the plain version and the library backward at the training
-    shape, and the library backward's own error against the plain version;
-    also the forward kernel's time there beside its bound and the library
-    forward.  Returns the backward entries and the forward's numbers."""
-    b, sq, sk, h, d, causal, off, dtype = shape
-    fwd_ms = cuda_ms(lambda: fa.flash_attention_forward(
-        q, k, v, causal=causal, q_offset=off))
+    shape, and the library backward's own error against the plain version.
+    Returns the backward entries."""
+    causal, off = shape[5:7]
     _, delta = fa._launch_bwd_dq(q, k, v, out, do, lse, causal, off)
     dq_ms = cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, out, do, lse, causal,
                                               off))
@@ -331,8 +359,6 @@ def time_bwd(q, k, v, out, lse, do, refs, errs, shape):
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     # is_causal aligns the mask top-left, which is q_offset 0
-    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
     # the graph is retained, so only the backward is timed
@@ -342,7 +368,6 @@ def time_bwd(q, k, v, out, lse, do, refs, errs, shape):
                 for g, r in zip(torch.autograd.grad(lib_out, (qt, kt, vt),
                                                     dot), refs)]
     bnd, bound_by = flash_bwd_bound(*shape)
-    fwd_bnd, fwd_by = flash_bound(b, sq, sk, h, d, causal, off, dtype)
     print(f"bwd kernel timing train: dq kernel {dq_ms:.5f} ms, dk/dv kernel "
           f"{dkv_ms:.5f} ms, backward with delta {all_ms:.5f} ms, plain "
           f"{plain_ms:.5f} ms, autograd through scaled_dot_product_attention "
@@ -353,9 +378,6 @@ def time_bwd(q, k, v, out, lse, do, refs, errs, shape):
           f"library backward dq {lib_errs[0]:.3e} dk {lib_errs[1]:.3e} dv "
           f"{lib_errs[2]:.3e} (the library rounds P and dS to bf16 once, "
           f"the kernels to a bf16 hi + lo pair)")
-    print(f"fwd kernel timing train: forward kernel {fwd_ms:.5f} ms, "
-          f"scaled_dot_product_attention forward {lib_fwd_ms:.5f} ms, "
-          f"flash_bound {fwd_bnd:.5f} ms ({fwd_by}) [{card_line()}]")
     entries = []
     for name, ms, err, line, part in (
             ("flash_bwd_dq", dq_ms, errs[0], 244, "dq"),
@@ -370,9 +392,7 @@ def time_bwd(q, k, v, out, lse, do, refs, errs, shape):
             "library_ms": library_ms,
             "note": "plain_ms and library_ms compute dq, dk and dv "
                     "together; bound_ms is this kernel's own outputs"})
-    fwd_train = {"ms": fwd_ms, "bound_ms": fwd_bnd, "bound_by": fwd_by,
-                 "library_ms": lib_fwd_ms}
-    return entries, fwd_train
+    return entries
 
 
 def post(port, body):
@@ -612,10 +632,61 @@ def phase_training(kernel_ms):
                    "n_devices": 1, "platform": "gpu",
                    "generation": "h100-sxm", "peak_bf16_tflops": peak,
                    "mfu": round(mfu, 4)}}))
+    state = profile_steps(train_step, state, batch, 2, latency)
     del state, train_step
     alpa_tpu_torch.shutdown()
     torch.cuda.empty_cache()
     return counts
+
+
+def profile_steps(train_step, state, batch, steps, latency):
+    """``torch.profiler`` over ``steps`` training steps: the ten heaviest
+    kernels by device time per step, the flash kernels' share, and the
+    device's busy share, both under the profiler (the union of kernel
+    intervals over the span from the first kernel's start to the last
+    one's end) and as device time per step over ``latency``, the step time
+    measured without it.  Returns the state."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        tic = time.perf_counter()
+        for _ in range(steps):
+            state, loss = train_step(state, batch)
+        float(loss)
+        wall = time.perf_counter() - tic
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us == 0:
+        print("training profile: profiler: no device time")
+        return state
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    busy_us, reach = 0.0, spans[0][0]
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    span_us = reach - spans[0][0]
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key)
+    per_step = total_us / 1e6 / steps
+    print(f"training profile [{card_line()}]: {steps} steps, host wall "
+          f"{wall:.5f} s with the profiler on; device time {per_step:.5f} s "
+          f"per step in {len(kernels)} kernels by name, "
+          f"{per_step / latency:.4f} of the step time without the profiler; "
+          f"busy share {busy_us / span_us:.4f} of the device span "
+          f"{span_us / 1e6:.5f} s with it; flash kernels "
+          f"{flash_us / 1e6 / steps:.5f} s per step, "
+          f"{flash_us / total_us:.4f} of the device time")
+    for rank, e in enumerate(kernels[:10], 1):
+        print(f"training profile kernel {rank}: "
+              f"{e.self_device_time_total / 1e3 / steps:.3f} ms per step, "
+              f"{e.count // steps} launches per step, "
+              f"{e.self_device_time_total / total_us:.4f} of the device "
+              f"time: {e.key[:120]}")
+    return state
 
 
 def fidelity_run(cfg, batch, steps):
@@ -705,8 +776,8 @@ def main() -> int:
           f"{torch.version.cuda}")
     build_kernels()
     try:
-        fwd_entry = phase_kernel()
-        bwd_entries, fwd_train = phase_bwd_kernel()
+        fwd_entry, fwd_train = phase_kernel()
+        bwd_entries = phase_bwd_kernel()
         serving = phase_serving()
         phase_fidelity()
         train_fwd, train_dq, train_dkv = phase_training(

@@ -230,11 +230,19 @@ def _cuda_function(source: str, name: str) -> str:
     return source[start:source.index("\n}\n", start)]
 
 
+def _cuda_source(name: str) -> str:
+    """A CUDA source with the shared header it includes."""
+    csrc = PORT / "csrc"
+    src = (csrc / name).read_text()
+    assert '#include "sm90.cuh"' in src
+    return src + (csrc / "sm90.cuh").read_text()
+
+
 def test_bf16_backward_kernels_use_the_tensor_cores():
     """The bf16 backward kernels do their products with ``wgmma`` (the dq
     kernel: S, dP, then dS K; the dk/dv kernel: S^T, dP^T, then P^T dO and
     dS^T Q), and the entry points send bf16 to them."""
-    src = (PORT / "csrc" / "flash_bwd.cu").read_text()
+    src = _cuda_source("flash_bwd.cu")
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
     for helper in ("mma_ss_pair", "mma_rs"):
         assert "sm90::wgmma_" in _cuda_function(src, helper)
@@ -270,3 +278,38 @@ def test_bf16_backward_wrapper_rejects_misaligned_tensors():
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa._bwd_common(q, odd, v, do, True, 0)
     fa._bwd_common(*(t.float() for t in (q, odd, v, do)), True, 0)
+
+
+def test_bf16_forward_kernel_uses_the_tensor_cores():
+    """The bf16 forward kernel does S = Q K^T and O += P V with ``wgmma``
+    through the ``sm90::`` helpers, on tiles that come through the
+    ``cp.async`` ring, with no FMA on the CUDA cores; the fp32 kernel keeps
+    those, and the launcher sends bf16 to the tensor-core kernel."""
+    src = _cuda_source("flash_fwd.cu")
+    assert "sm90::wgmma_ss_n64(" in _cuda_function(src, "mma_qk")
+    kernel = _cuda_function(src, "flash_fwd_bf16_kernel")
+    assert kernel.count("mma_qk<D>(") == 1 and kernel.count("mma_rs<D>(") == 1
+    assert "load_tile<" in kernel and "ring_wait()" in kernel
+    assert "fmaf(" not in kernel
+    assert "fmaf(" in _cuda_function(src, "flash_fwd_kernel")
+    assert "__nv_bfloat16" not in _cuda_function(src, "flash_fwd_kernel")
+    launcher = _cuda_function(src, "launch_fwd")
+    assert "if (bf16_inputs)" in launcher
+    assert "flash_fwd_bf16_kernel<D>" in launcher
+    assert "launch_fwd<64>(p, dtype == 1, s)" in src
+
+
+def test_an_edited_header_changes_the_build_directory(monkeypatch, tmp_path):
+    """Every ``*.cuh`` under ``csrc/`` enters the hash that names a
+    source's build directory, so editing a header rebuilds the kernels that
+    include it; the build directory of an unchanged tree stays."""
+    for path in (PORT / "csrc").iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {s: _build.build_dir(s) for s in ("flash_fwd.cu", "flash_bwd.cu")}
+    assert before == {s: _build.build_dir(s) for s in before}
+    header = tmp_path / "sm90.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    for source, old in before.items():
+        assert _build.build_dir(source) != old
+        assert _build.build_dir(source).parent == old.parent
