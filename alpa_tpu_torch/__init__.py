@@ -9,9 +9,19 @@ from alpa_tpu_torch.api import (clear_executable_cache, grad, init,
                                 mark_gradient, parallelize, shutdown,
                                 value_and_grad)
 from alpa_tpu_torch.device_mesh import get_seed, set_seed
-from alpa_tpu_torch.parallel_method import ParallelMethod, ShardParallel
+from alpa_tpu_torch.parallel_method import (ParallelMethod, PipeshardParallel,
+                                            ShardParallel)
+from alpa_tpu_torch.pipeline_parallel.layer_construction import (
+    AutoLayerOption, ManualLayerOption)
+from alpa_tpu_torch.pipeline_parallel.primitive_def import \
+    mark_pipeline_boundary
+from alpa_tpu_torch.pipeline_parallel.stage_construction import (
+    AutoStageOption, ManualStageOption, UniformStageOption)
 from alpa_tpu_torch.platform import get_device
 
-__all__ = ["ParallelMethod", "ShardParallel", "clear_executable_cache",
+__all__ = ["AutoLayerOption", "AutoStageOption", "ManualLayerOption",
+           "ManualStageOption", "ParallelMethod", "PipeshardParallel",
+           "ShardParallel", "UniformStageOption", "clear_executable_cache",
            "get_device", "get_seed", "grad", "init", "mark_gradient",
-           "parallelize", "set_seed", "shutdown", "value_and_grad"]
+           "mark_pipeline_boundary", "parallelize", "set_seed", "shutdown",
+           "value_and_grad"]

@@ -3,13 +3,20 @@
 Counterpart of ``alpa_tpu/api.py``.  The decorator keeps the JAX
 package's argument semantics: ``static_argnums``/``donate_argnums``
 ("auto" for both), ``batch_argnums``, and executables cached per
-(argument tree, shapes and dtypes, static values).  PyTorch runs eagerly,
-so making an executable traces nothing; the cache keeps
-``get_last_executable()`` meaningful and each executable's memory figure.
+(argument tree, shapes and dtypes, static values).  A Python number is
+keyed as a 0-d tensor of its kind (int64, float32, bool), as JAX keys it as
+a weakly typed scalar, so a step that returns its counter as a tensor
+reuses the executable the Python counter made.  ``ShardParallel`` runs the
+function eagerly; ``PipeshardParallel`` traces it once per executable.
 
-Donation: a donated ``TrainState`` is flagged while the step runs, so its
-``apply_gradients`` updates params and optimizer moments in place.  After
-the call every donated argument (and tensor leaf) that the call did not
+``grad``/``value_and_grad`` apply the layer option that the pipeshard
+compiler installs while it traces, and wrap ``(value, grads)`` in the
+gradient marker; outside a pipeshard trace both are no-ops.
+
+Donation: for an eager method a donated ``TrainState`` is flagged while the
+step runs, so its ``apply_gradients`` updates params and optimizer moments
+in place; a tracing method gets the donated leaves and frees them itself.
+After the call every donated argument (and tensor leaf) that the call did not
 hand back is marked deleted, and passing it again raises, the counterpart
 of JAX's "Array has been deleted".  With ``donate_argnums="auto"`` the
 TrainState-like arguments are donated.
@@ -26,6 +33,9 @@ from torch.utils import _pytree as pytree
 from alpa_tpu_torch.device_mesh import (init_global_cluster,
                                         shutdown_global_cluster)
 from alpa_tpu_torch.parallel_method import ParallelMethod, ShardParallel
+from alpa_tpu_torch.pipeline_parallel.layer_construction import (
+    current_layer_option, layer_level_transform)
+from alpa_tpu_torch.pipeline_parallel.primitive_def import mark_gradient
 
 
 def init(cluster: str = "local",
@@ -55,12 +65,20 @@ def _is_state_like(arg) -> bool:
     return hasattr(arg, "apply_gradients") and hasattr(arg, "params")
 
 
+_SCALAR_DTYPES = ((bool, torch.bool), (int, torch.int64),
+                  (float, torch.float32))
+
+
 def _abstractify(x):
-    """The cache key of one leaf: shape and dtype, or a scalar's type."""
+    """The cache key of one leaf: shape and dtype; a Python number as a 0-d
+    tensor of its kind."""
     if isinstance(x, torch.Tensor):
         return (tuple(x.shape), x.dtype)
     if isinstance(x, np.ndarray):
         return (x.shape, torch.from_numpy(np.empty(0, x.dtype)).dtype)
+    for kind, dtype in _SCALAR_DTYPES:
+        if isinstance(x, kind):
+            return ((), dtype)
     return ((), type(x))
 
 
@@ -140,55 +158,62 @@ class ParallelizedFunc:
                             _is_state_like(args[i]))
         else:
             donated = tuple(self.donate_argnums)
+        donated_invars = tuple(i in donated for i in leaf_arg)
         return (static_idx, static_vals, flat_args, in_tree, avals,
-                batch_invars, donated)
+                batch_invars, donated, donated_invars)
 
     def _get(self, args):
         _check_live(args)
         (static_idx, static_vals, flat_args, in_tree, avals, batch_invars,
-         donated) = self._decode_args(args)
+         donated, donated_invars) = self._decode_args(args)
         key = (in_tree, avals, static_idx, static_vals, batch_invars, donated)
         try:
             cached = self._executable_cache.get(key)
         except TypeError:  # unhashable static arg
             key, cached = None, None
         if cached is None:
-            cached = self._make_executable(len(args), static_idx,
-                                           static_vals, in_tree, donated)
+            cached = self._make_executable(
+                len(args), static_idx, static_vals, in_tree, donated,
+                avals, batch_invars, donated_invars)
             if key is not None:
                 self._executable_cache[key] = cached
-        self._last_executable = cached
+        self._last_executable = cached[0]
         return cached, flat_args, donated
 
     def _make_executable(self, n_args, static_idx, static_vals, in_tree,
-                         donated):
-        fun, made = self.fun, []
+                         donated, avals, batch_invars, donated_invars):
+        """(executable, flat_fun); ``flat_fun.out_tree`` is the output tree,
+        set when it runs."""
+        fun = self.fun
+        in_place = self.method.donates_in_place
 
         def flat_fun(*flat):
             dyn = iter(pytree.tree_unflatten(list(flat), in_tree))
             static = iter(static_vals)
             full = [next(static) if i in static_idx else next(dyn)
                     for i in range(n_args)]
-            for i in donated:
-                if _is_state_like(full[i]):
-                    # lets apply_gradients update in place
-                    object.__setattr__(full[i], "_donated", True)
-            flat_out, made[0].out_tree = pytree.tree_flatten(fun(*full))
+            if in_place:
+                for i in donated:
+                    if _is_state_like(full[i]):
+                        # lets apply_gradients update in place
+                        object.__setattr__(full[i], "_donated", True)
+            flat_out, flat_fun.out_tree = pytree.tree_flatten(fun(*full))
             return flat_out
 
-        executable = self.method.compile_executable(flat_fun)
-        made.append(executable)
-        return executable
+        executable = self.method.compile_executable(
+            flat_fun, avals=avals, batch_invars=batch_invars,
+            donated_invars=donated_invars)
+        return executable, flat_fun
 
     def get_executable(self, *args):
-        executable, flat_args, _ = self._get(args)
+        (executable, _), flat_args, _ = self._get(args)
         return executable, flat_args
 
     def __call__(self, *args):
-        executable, flat_args, donated = self._get(args)
+        (executable, flat_fun), flat_args, donated = self._get(args)
         flat_out = executable.launch_on_driver(*flat_args)
         _mark_deleted([args[i] for i in donated], flat_out)
-        return pytree.tree_unflatten(flat_out, executable.out_tree)
+        return pytree.tree_unflatten(flat_out, flat_fun.out_tree)
 
     def get_last_executable(self):
         return self._last_executable
@@ -213,10 +238,11 @@ def parallelize(fun: Optional[Callable] = None,
     return decorate(fun)
 
 
-def mark_gradient(x):
-    """The gradient boundary marker; a no-op on one device (gradient
-    accumulation and pipelining split at it in later slices)."""
-    return x
+def _maybe_layer_transform(fun):
+    """``fun`` under the layer option the pipeshard compiler installed while
+    it traces; ``fun`` itself otherwise."""
+    opt = current_layer_option()
+    return fun if opt is None else layer_level_transform(fun, opt)
 
 
 def value_and_grad(fun, argnums: int = 0, has_aux: bool = False):
@@ -228,11 +254,12 @@ def value_and_grad(fun, argnums: int = 0, has_aux: bool = False):
     @functools.wraps(fun)
     def wrapped(*args, **kwargs):
         leaves, spec = pytree.tree_flatten(args[argnums])
+        run = _maybe_layer_transform(fun)
         with torch.enable_grad():
             diff = [x.detach().requires_grad_() for x in leaves]
             call = list(args)
             call[argnums] = pytree.tree_unflatten(diff, spec)
-            val = fun(*call, **kwargs)
+            val = run(*call, **kwargs)
             grads = torch.autograd.grad(val[0] if has_aux else val, diff,
                                         allow_unused=True,
                                         materialize_grads=True)

@@ -2,12 +2,18 @@
 
 Counterpart of ``alpa_tpu/device_mesh.py``: ``PhysicalDeviceMesh`` and
 ``LocalPhysicalDeviceMesh`` over this process's CUDA devices,
-``DeviceCluster``, the process-global cluster and mesh, and the global
-seed.  A mesh is a (host, device) grid of ``torch.device``s.  Without
-devices named, the CUDA devices are taken, and the call raises when CUDA is
-missing; the CPU is used only when a caller names it (``devices=["cpu"]``).
-Logical meshes, virtual meshes and multi-host clusters come with the
-auto-sharding and pipeshard slices.
+``DeviceCluster``, ``VirtualPhysicalMesh`` (the compile-time mesh that
+pipeshard slices into stage meshes), the process-global cluster, mesh and
+virtual mesh, and the global seed.  A mesh is a (host, device) grid of
+``torch.device``s.  Without devices named, the CUDA devices are taken, and
+the call raises when CUDA is missing; the CPU is used only when a caller
+names it (``devices=["cpu"]``).
+
+A device list may name one physical device more than once
+(``devices=["cpu"] * 2``, or ``["cuda:0"] * 2`` on a one-card machine): the
+counterpart of the JAX tests' virtual CPU devices, so that a pipeline of
+one-device stage meshes runs where there are fewer cards than stages.
+Logical meshes and multi-host clusters come with the auto-sharding slice.
 """
 from typing import List, Optional, Sequence, Tuple
 
@@ -90,6 +96,44 @@ class DeviceCluster:
                 f"num_devices_per_host={self.num_devices_per_host})")
 
 
+class VirtualPhysicalMesh:
+    """Compile-time mesh: a (host, device) grid that is sliced into stage
+    meshes before any of them is used (``alpa_tpu/device_mesh.py:361``)."""
+
+    def __init__(self, devices):
+        self.devices = PhysicalDeviceMesh(devices).devices
+
+    @property
+    def num_hosts(self) -> int:
+        return self.devices.shape[0]
+
+    @property
+    def num_devices_per_host(self) -> int:
+        return self.devices.shape[1]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.num_hosts, self.num_devices_per_host)
+
+    @property
+    def num_devices(self) -> int:
+        return int(self.devices.size)
+
+    def slice_1d(self, dim: int, indices: Sequence[Sequence[int]]
+                 ) -> List["VirtualPhysicalMesh"]:
+        """Submeshes along hosts (``dim=0``) or devices (``dim=1``)."""
+        return [VirtualPhysicalMesh(self.devices[list(idx), :] if dim == 0
+                                    else self.devices[:, list(idx)])
+                for idx in indices]
+
+    def slice_2d(self, host_indices, device_indices) -> "VirtualPhysicalMesh":
+        return VirtualPhysicalMesh(
+            self.devices[np.ix_(list(host_indices), list(device_indices))])
+
+    def __repr__(self):
+        return f"VirtualPhysicalMesh(shape={self.shape})"
+
+
 global_cluster: Optional[DeviceCluster] = None
 global_physical_mesh: Optional[PhysicalDeviceMesh] = None
 
@@ -122,6 +166,18 @@ def get_global_physical_mesh(create_if_not_exist=False
     if global_physical_mesh is None and create_if_not_exist:
         global_physical_mesh = LocalPhysicalDeviceMesh()
     return global_physical_mesh
+
+
+def get_global_virtual_physical_mesh(create_if_not_exist=False
+                                     ) -> Optional[VirtualPhysicalMesh]:
+    """The global cluster's devices as a virtual mesh; with
+    ``create_if_not_exist`` and no cluster, every CUDA device (raising
+    without CUDA)."""
+    if global_cluster is not None:
+        return VirtualPhysicalMesh(global_cluster.devices)
+    if create_if_not_exist:
+        return VirtualPhysicalMesh(DeviceCluster().devices)
+    return None
 
 
 _global_seed = 42

@@ -46,7 +46,6 @@ class NormalMeshExecutable(MeshExecutable):
                 f"{physical_mesh.num_devices}")
         self.device = physical_mesh.flat_devices[0]
         self.fun = fun
-        self.out_tree = None
         self._peak_bytes = -1
 
     def launch_on_driver(self, *flat_args):

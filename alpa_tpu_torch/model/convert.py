@@ -1,4 +1,4 @@
-"""Weights of the flax GPT model as the port's state dict."""
+"""Weights of the flax models as the port's state dicts."""
 from typing import Any, Dict
 
 import numpy as np
@@ -52,4 +52,22 @@ def gpt_params_from_flax(tree: Dict[str, Any], config: GPTConfig,
     if "lm_head" in p:
         sd["lm_head.weight"] = tensor(p["lm_head"]["kernel"], param_dtype,
                                       transpose=True)
+    return sd
+
+
+def mlp_params_from_flax(tree: Dict[str, Any], device=None
+                         ) -> Dict[str, torch.Tensor]:
+    """Map the parameter tree of ``alpa_tpu.testing.MLPModel`` (``Dense_i``
+    kernels (in, out) and biases, with or without the outer ``params`` key)
+    to the state dict of ``alpa_tpu_torch.testing.MLPModel`` (``layers.i``
+    ``Linear`` weights (out, in) and biases), as fp32 tensors."""
+    p = tree["params"] if "params" in tree else tree
+    sd = {}
+    for i in range(len(p)):
+        dense = p[f"Dense_{i}"]
+        kernel = np.array(dense["kernel"], np.float32)
+        sd[f"layers.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.T)).to(device)
+        sd[f"layers.{i}.bias"] = torch.from_numpy(
+            np.array(dense["bias"], np.float32)).to(device)
     return sd

@@ -28,8 +28,11 @@ With ``attention_impl="flash"``, the cache-free forward and the prefill at
 a scalar cache index go through the flash kernel (the JAX package's
 ``_flash_forward`` with ``q_offset`` computes exactly the einsum reference
 there); decode with a per-row index stays on ``reference_attention``, as in
-JAX.  Not in this port yet: ``segment_ids`` packing, pipeline-boundary
-markers and the ring/ulysses attention variants.
+JAX.  ``pipeline_boundary_every=k`` calls ``mark_pipeline_boundary()``
+before every k-th block, as the JAX model does, for ``ManualLayerOption``;
+outside a pipeshard trace the call does nothing.  Per-block remat inside a
+pipeshard trace raises (remat layers are ROADMAP A.5).  Not in this port
+yet: ``segment_ids`` packing and the ring/ulysses attention variants.
 """
 import dataclasses
 import functools
@@ -42,6 +45,8 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from alpa_tpu_torch.ops.flash_attention import flash_attention
+from alpa_tpu_torch.pipeline_parallel.primitive_def import (
+    mark_pipeline_boundary, tracing_active)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +71,8 @@ class GPTConfig:
     remat_blocks: bool = False
     # None: save nothing; "dots": save the Linear products' outputs
     remat_policy: Optional[str] = None
+    # mark a pipeline-layer boundary before every k-th block (0: none)
+    pipeline_boundary_every: int = 0
 
 
 # The GPT ladder: name -> (hidden, layers, heads); seq 1024, vocab 51200
@@ -305,9 +312,16 @@ class GPTModel(nn.Module):
                          self.wpe.weight).to(cfg.dtype))
         remat = (cfg.remat_blocks and kv_caches is None and
                  torch.is_grad_enabled())
+        if remat and tracing_active():
+            raise NotImplementedError(
+                "per-block remat inside a pipeshard trace is not ported yet "
+                "(remat layers, ROADMAP A.5); use remat_blocks=False")
         remat_kw = _remat_kwargs(cfg) if remat else None
         new_caches = [] if kv_caches is not None else None
         for i, block in enumerate(self.h):
+            if (cfg.pipeline_boundary_every and i > 0 and
+                    i % cfg.pipeline_boundary_every == 0):
+                mark_pipeline_boundary()
             if remat:
                 x = torch_checkpoint.checkpoint(
                     lambda y, blk=block: blk(y)[0], x, use_reentrant=False,

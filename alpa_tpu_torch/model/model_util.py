@@ -107,6 +107,30 @@ def scale_by_learning_rate(learning_rate: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
+def trace(decay: float) -> GradientTransformation:
+    """``optax.trace`` (momentum, not Nesterov): t = g + decay * t."""
+
+    def init(params):
+        return {"trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(updates, state, params=None, inplace=False):
+        del params
+        with torch.no_grad():
+            new = {k: _write(state["trace"][k], g + decay * state["trace"][k],
+                             inplace) for k, g in updates.items()}
+        return dict(new), {"trace": new}
+
+    return GradientTransformation(init, update)
+
+
+def sgd(learning_rate, momentum: Optional[float] = None
+        ) -> GradientTransformation:
+    """``optax.sgd``."""
+    if momentum is None:
+        return scale_by_learning_rate(learning_rate)
+    return chain(trace(momentum), scale_by_learning_rate(learning_rate))
+
+
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
     """``optax.adam``."""
     return chain(scale_by_adam(b1, b2, eps),

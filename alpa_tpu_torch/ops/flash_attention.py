@@ -22,8 +22,13 @@ no such limit, so the port runs its kernels at every length.
 kernels' wrappers.  A CPU tensor goes to the plain version; a CUDA tensor
 launches the kernels or raises.  Every launch adds one to its counter:
 ``FLASH_FWD_LAUNCHES``, ``FLASH_BWD_DQ_LAUNCHES``, ``FLASH_BWD_DKV_LAUNCHES``.
-``flash_attention`` is differentiable through ``FlashAttention``, the
-counterpart of the JAX package's ``custom_vjp``.
+The two wrappers are also the ``torch.library`` custom ops
+``alpa_tpu_torch::flash_fwd`` and ``alpa_tpu_torch::flash_bwd``, the first
+with the second as its registered gradient (the counterpart of the JAX
+package's ``custom_vjp``).  ``make_fx`` cannot see into a ``ctypes`` call,
+so a traced graph holds each call as one op node, shaped by the ops' fake
+implementations; tracing launches nothing and moves no counter.
+``flash_attention`` goes through these ops.
 """
 import ctypes
 import functools
@@ -313,36 +318,68 @@ def _backward_kernels(q, k, v, out, lse, do, causal: bool, q_offset: int):
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention, the counterpart of the JAX package's
-    ``_flash_attention`` ``custom_vjp``: the forward kernel saves
-    ``(q, k, v, out, lse)`` and the backward kernels consume them."""
+@torch.library.custom_op("alpa_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, q_offset: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_forward`` as one op: one node of a traced graph,
+    which launches the kernel on CUDA tensors (the plain version on CPU
+    ones) when the graph runs.  Outputs are contiguous, as the fake
+    implementation gives them."""
+    out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    return out.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, q_offset: int):
-        out, lse = flash_attention_forward(q, k, v, causal=causal,
-                                           q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.q_offset = causal, q_offset
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
-                                              causal=ctx.causal,
-                                              q_offset=ctx.q_offset)
-        return dq, dk, dv, None, None
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, q_offset):
+    del k, v, causal, q_offset
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b * h, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("alpa_tpu_torch::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 causal: bool, q_offset: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_attention_backward`` as one op (see ``flash_fwd_op``)."""
+    grads = flash_attention_backward(q, k, v, out, lse, do, causal=causal,
+                                     q_offset=q_offset)
+    return tuple(g.contiguous() for g in grads)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, do, causal, q_offset):
+    del out, lse, do, causal, q_offset
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    """The counterpart of the JAX package's ``custom_vjp`` residuals: the
+    forward saves ``(q, k, v, out, lse)`` and the backward consumes them."""
+    q, k, v, causal, q_offset = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.q_offset = causal, q_offset
+
+
+def _flash_backward(ctx, do, dlse):
+    del dlse   # lse is a residual; nothing differentiates it
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd_op(q, k, v, out, lse, do, ctx.causal,
+                              ctx.q_offset)
+    return dq, dk, dv, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, offset: int = 0,
                     block_q: int = 256, block_k: int = 256):
     """Drop-in replacement for ``reference_attention`` (model/gpt_model.py)
     with the JAX package's signature.  ``block_q``/``block_k`` are accepted
-    as hints; the CUDA kernels pick their own tiles.  Differentiable: a call
-    that needs a gradient goes through ``FlashAttention``."""
+    as hints; the CUDA kernels pick their own tiles.  Differentiable, and
+    one node of a graph traced with ``make_fx``: the call goes through
+    ``flash_fwd_op``, whose gradient is ``flash_bwd_op``."""
     del block_q, block_k
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, offset)
-    return flash_attention_forward(q, k, v, causal=causal,
-                                   q_offset=offset)[0]
+    return flash_fwd_op(q, k, v, causal, offset)[0]

@@ -44,7 +44,24 @@ Phases, each reported on its own line:
 7. training fidelity: the same model in fp32 at 4 layers, batch 2, takes
    3 Adam steps with the kernels and 3 with the plain versions in their
    place; losses agree to 1e-5 relative, step-0 gradients to 1e-4 of each
-   tensor's largest.
+   tensor's largest;
+8. pipeshard: the README's ``PipeshardParallel`` example on GPT-1.3B
+   (``ManualLayerOption`` at ``pipeline_boundary_every``,
+   ``UniformStageOption(2)``, 1F1B, one device per stage mesh: the card
+   named twice on a one-card machine, else two cards).  Fidelity: GPT-1.3B's
+   width at 4 layers in fp32, batch 4, two microbatches, against
+   ``ShardParallel`` from the same weights: step-0 gradients to 1e-4 of each
+   tensor's largest, and over 2 Adam steps losses to 1e-5 relative and
+   parameters to 1e-4 of their tensor's largest value where the step-0
+   gradient is at least 1e-2 of the tensor's largest, to Adam's bound of
+   2 x lr x steps elsewhere (``param_diffs``).  Full
+   width: 24 layers, bf16 compute, fp32 params and Adam, no remat, batch 8
+   in 4 microbatches, 3 warm-up and 5 timed steps: a finite loss that
+   falls, the first step's loss within 1e-2 relative of one
+   ``ShardParallel`` step from the same state and batch, and exactly 96
+   forward, 96 dq and 96 dk/dv launches per step; step time, tokens/s,
+   TFLOPS, MFU, peak memory, trace and build time, the instruction counts
+   and the schedule, then ``torch.profiler`` over two more steps.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
@@ -52,6 +69,7 @@ and the line before it lists the kernels as JSON.
 """
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -65,6 +83,8 @@ import torch
 import torch.nn.functional as F
 
 import alpa_tpu_torch
+from alpa_tpu_torch import (ManualLayerOption, PipeshardParallel,
+                            UniformStageOption)
 from alpa_tpu_torch.model.gpt_model import (GPTModel, config_from_opt_spec,
                                             config_from_spec, init_random_)
 from alpa_tpu_torch.model.model_util import (TrainState, adam, gpt_lm_loss,
@@ -76,6 +96,7 @@ from alpa_tpu_torch.telemetry.perf import GPU_SPECS, compute_mfu
 from alpa_tpu_torch.util import compute_gpt_tflops
 
 SEED = 0
+LR = 1e-4   # Adam's learning rate in every training phase
 PROMPT_LENGTHS = (37, 128, 300, 511)
 NEW_TOKENS = 32
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
@@ -527,11 +548,12 @@ def phase_fidelity():
     check(diff < 1e-3, f"fp32 logits differ by {diff}")
 
 
-def make_train_step():
-    """``bench.py``'s train step, through the port."""
+def make_train_step(method=None):
+    """``bench.py``'s train step, through the port (``ShardParallel()`` by
+    default)."""
 
-    @alpa_tpu_torch.parallelize(method=alpa_tpu_torch.ShardParallel(),
-                                donate_argnums=(0,))
+    @alpa_tpu_torch.parallelize(
+        method=method or alpa_tpu_torch.ShardParallel(), donate_argnums=(0,))
     def train_step(state, batch):
 
         def loss_fn(p):
@@ -548,7 +570,7 @@ def train_state(cfg):
     init_random_(model, SEED)
     return TrainState.create(apply_fn=make_apply_fn(model),
                              params=dict(model.named_parameters()),
-                             tx=adam(1e-4))
+                             tx=adam(LR))
 
 
 def lm_batch(cfg, batch_size):
@@ -632,20 +654,22 @@ def phase_training(kernel_ms):
                    "n_devices": 1, "platform": "gpu",
                    "generation": "h100-sxm", "peak_bf16_tflops": peak,
                    "mfu": round(mfu, 4)}}))
-    state = profile_steps(train_step, state, batch, 2, latency)
+    state, profile = profile_steps(train_step, state, batch, 2, latency)
     del state, train_step
     alpa_tpu_torch.shutdown()
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"latency": latency, **(profile or {})}
 
 
-def profile_steps(train_step, state, batch, steps, latency):
+def profile_steps(train_step, state, batch, steps, latency,
+                  label="training"):
     """``torch.profiler`` over ``steps`` training steps: the ten heaviest
     kernels by device time per step, the flash kernels' share, and the
     device's busy share, both under the profiler (the union of kernel
     intervals over the span from the first kernel's start to the last
     one's end) and as device time per step over ``latency``, the step time
-    measured without it.  Returns the state."""
+    measured without it.  Returns the state and the device time per step
+    with those two shares."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -660,8 +684,8 @@ def profile_steps(train_step, state, batch, steps, latency):
                      key=lambda e: e.self_device_time_total, reverse=True)
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us == 0:
-        print("training profile: profiler: no device time")
-        return state
+        print(f"{label} profile: profiler: no device time")
+        return state, None
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == cuda)
     busy_us, reach = 0.0, spans[0][0]
@@ -672,7 +696,7 @@ def profile_steps(train_step, state, batch, steps, latency):
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key)
     per_step = total_us / 1e6 / steps
-    print(f"training profile [{card_line()}]: {steps} steps, host wall "
+    print(f"{label} profile [{card_line()}]: {steps} steps, host wall "
           f"{wall:.5f} s with the profiler on; device time {per_step:.5f} s "
           f"per step in {len(kernels)} kernels by name, "
           f"{per_step / latency:.4f} of the step time without the profiler; "
@@ -681,12 +705,14 @@ def profile_steps(train_step, state, batch, steps, latency):
           f"{flash_us / 1e6 / steps:.5f} s per step, "
           f"{flash_us / total_us:.4f} of the device time")
     for rank, e in enumerate(kernels[:10], 1):
-        print(f"training profile kernel {rank}: "
+        print(f"{label} profile kernel {rank}: "
               f"{e.self_device_time_total / 1e3 / steps:.3f} ms per step, "
               f"{e.count // steps} launches per step, "
               f"{e.self_device_time_total / total_us:.4f} of the device "
               f"time: {e.key[:120]}")
-    return state
+    return state, {"device_s_per_step": per_step,
+                   "device_share": per_step / latency,
+                   "busy_share": busy_us / span_us}
 
 
 def fidelity_run(cfg, batch, steps):
@@ -737,6 +763,231 @@ def phase_train_fidelity():
     torch.cuda.empty_cache()
 
 
+def stage_devices():
+    """Two one-device stage meshes: the card named twice on a one-card
+    machine, else the first two cards."""
+    if torch.cuda.device_count() == 1:
+        return ["cuda:0"] * 2
+    return ["cuda:0", "cuda:1"]
+
+
+def shard_method():
+    """The ShardParallel reference: the first card."""
+    return alpa_tpu_torch.ShardParallel(devices=["cuda:0"])
+
+
+def pipeshard_method(num_micro_batches):
+    return PipeshardParallel(devices=stage_devices(),
+                             num_micro_batches=num_micro_batches,
+                             layer_option=ManualLayerOption(),
+                             stage_option=UniformStageOption(num_stages=2),
+                             pipeline_schedule="1f1b")
+
+
+def max_rel_diff(got, want):
+    """{name: max |got - want| / max |want|} (``got`` may lie on another
+    stage's card)."""
+    return {k: float((got[k].to(w.device) - w).abs().max() /
+                     w.abs().max().clamp_min(1e-30))
+            for k, w in want.items()}
+
+
+def param_diffs(got, want, grads, bound):
+    """Parameters after Adam steps, element by element: the largest
+    |got - want| / max |want| of each tensor over the elements whose step-0
+    gradient is at least 1e-2 of the tensor's largest; and, over the
+    others, the count and the largest |got - want|, which is held to
+    ``bound`` (Adam moves an element at most lr a step).  Adam's m /
+    sqrt(v) turns a gradient near its rounding noise into a step of up to
+    lr whatever its size, with a sign the order of sums decides: the key
+    third of a qkv bias has a gradient that is zero in exact arithmetic (a
+    shift of every score of a row leaves the softmax as it is)."""
+    rel, n_small, n_all, small_max = {}, 0, 0, 0.0
+    for k, w in want.items():
+        g = grads[k].abs()
+        small = g < 1e-2 * g.max()
+        diff = (got[k].to(w.device) - w).abs()
+        held = diff[~small]
+        rel[k] = float(held.max() / w.abs().max().clamp_min(1e-30)) \
+            if held.numel() else 0.0
+        n_small += int(small.sum())
+        n_all += w.numel()
+        if small.any():
+            small_max = max(small_max, float(diff[small].max()))
+    return rel, n_small, n_all, small_max
+
+
+def phase_pipeshard_fidelity():
+    """fp32, 4 layers at GPT-1.3B's width, batch 4, from the same weights
+    through PipeshardParallel (2 microbatches, 2 stages, 1F1B) and through
+    ShardParallel: step-0 gradients (the microbatch mean against the whole
+    batch's), then 2 Adam steps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash",
+                         pipeline_boundary_every=2), num_layers=4)
+    batch = lm_batch(cfg, 4)
+
+    def grad_step(state, batch):
+        return alpa_tpu_torch.value_and_grad(
+            lambda p: gpt_lm_loss(state.apply_fn, p, batch))(state.params)
+
+    runs = {}
+    for name, method in (("pipeshard", lambda: pipeshard_method(2)),
+                         ("shard", shard_method)):
+        state = train_state(cfg)
+        reset_launch_counts()
+        _, grads = alpa_tpu_torch.parallelize(
+            grad_step, method=method(), donate_argnums=())(state, batch)
+        train_step = make_train_step(method())
+        losses = []
+        for _ in range(2):
+            state, loss = train_step(state, batch)
+            losses.append(float(loss))
+        check(min(launch_counts()) > 0,
+              f"{name} fidelity run did not go through the kernels")
+        runs[name] = (losses, grads, state.params)
+        del state, train_step
+    (p_losses, p_grads, p_params), (s_losses, s_grads, s_params) = \
+        runs["pipeshard"], runs["shard"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(p_losses, s_losses))
+    grad_rel = max_rel_diff(p_grads, s_grads)
+    bound = 2 * LR * len(p_losses)
+    param_rel, n_small, n_all, small_max = param_diffs(p_params, s_params,
+                                                       s_grads, bound)
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(param_rel, key=param_rel.get)
+    print(f"pipeshard fidelity: fp32 GPT-1.3B at 4 layers, batch 4, 2 "
+          f"microbatches, 2 stages; step-0 gradients max |diff| / max |g| "
+          f"per tensor {grad_rel[worst_g]:.3e} at {worst_g} (tol 1e-4); 2 "
+          f"Adam steps: losses pipeshard {p_losses} shard {s_losses}, max "
+          f"relative difference {loss_rel:.3e} (tol 1e-5); parameters max "
+          f"|diff| / max |p| per tensor {param_rel[worst_p]:.3e} at "
+          f"{worst_p} (tol 1e-4) over the elements whose step-0 gradient is "
+          f"at least 1e-2 of its tensor's largest; the other {n_small} of "
+          f"{n_all} elements differ by at most {small_max:.3e} (tol "
+          f"{bound:.1e}, Adam's 2 x lr x steps)")
+    check(grad_rel[worst_g] <= 1e-4,
+          f"pipeshard gradient {worst_g} differs by {grad_rel[worst_g]}")
+    check(loss_rel <= 1e-5, f"pipeshard losses differ by {loss_rel}")
+    check(param_rel[worst_p] <= 1e-4,
+          f"pipeshard parameter {worst_p} differs by {param_rel[worst_p]}")
+    check(small_max <= bound, f"pipeshard parameters with near-zero "
+          f"gradients differ by {small_max}, over Adam's bound {bound}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def phase_pipeshard(shard_profile):
+    """GPT-1.3B at full width and depth through PipeshardParallel; returns
+    the (fwd, dq, dkv) launches of its run."""
+    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
+                           attention_impl="flash", pipeline_boundary_every=12)
+    batch_size, num_micro_batches, warmup, n_iter = 8, 4, 3, 5
+    batch = lm_batch(cfg, batch_size)
+    # the reference: one ShardParallel step from the same state and batch
+    state = train_state(cfg)
+    ref_step = make_train_step(shard_method())
+    state, ref_loss = ref_step(state, batch)
+    ref_loss = float(ref_loss)
+    del state, ref_step
+    torch.cuda.empty_cache()
+
+    state = train_state(cfg)
+    n_params = sum(p.numel() for p in state.params.values())
+    train_step = make_train_step(pipeshard_method(num_micro_batches))
+    reset_launch_counts()
+    tic = time.perf_counter()
+    state, loss = train_step(state, batch)
+    losses = [float(loss)]
+    first_s = time.perf_counter() - tic
+    ex = train_step.get_last_executable()
+    for _ in range(warmup - 1):
+        state, loss = train_step(state, batch)
+        losses.append(float(loss))
+    gc_s = []
+
+    def on_gc(phase, info):
+        """Wall time of Python's full collections in the timed steps."""
+        if info["generation"] == 2:
+            gc_s.append(time.perf_counter() if phase == "start"
+                        else time.perf_counter() - gc_s.pop())
+
+    gc.callbacks.append(on_gc)
+    try:
+        tic = time.perf_counter()
+        for _ in range(n_iter):
+            state, loss = train_step(state, batch)
+            losses.append(loss)
+        host = (time.perf_counter() - tic) / n_iter
+        float(loss)   # drains the queue
+        latency = (time.perf_counter() - tic) / n_iter
+    finally:
+        gc.callbacks.remove(on_gc)
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    steps = warmup + n_iter
+    want = num_micro_batches * cfg.num_layers
+    check(counts == (want * steps,) * 3,
+          f"pipeshard launches (fwd, dq, dkv) {counts} over {steps} steps; "
+          f"want {want} each per step")
+    check(all(np.isfinite(losses)), f"non-finite pipeshard loss: {losses}")
+    check(losses[-1] < losses[0], f"pipeshard loss did not fall: {losses}")
+    ref_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    check(ref_rel <= 1e-2, f"pipeshard first loss {losses[0]} vs "
+          f"ShardParallel {ref_loss}: {ref_rel} relative")
+    tokens_per_sec = batch_size * cfg.seq_len / latency
+    n_cards = len(set(stage_devices()))
+    tflops = compute_gpt_tflops(batch_size, cfg.seq_len, cfg.num_layers,
+                                cfg.hidden_size, cfg.vocab_size, n_cards,
+                                latency)
+    peak = SPEC["peak_bf16_tflops"]
+    mfu = compute_mfu(tflops, peak)
+    card = card_line()
+    print(f"pipeshard: GPT-1.3B ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {n_params} params, bf16 compute, fp32 params "
+          f"and Adam, flash, no remat), batch {batch_size} x seq "
+          f"{cfg.seq_len} in {num_micro_batches} microbatches, 2 stages on "
+          f"{stage_devices()}, 1f1b; launches per step fwd "
+          f"{counts[0] // steps} dq {counts[1] // steps} dkv "
+          f"{counts[2] // steps}; losses "
+          f"{['%.4f' % x for x in losses]}; first loss vs ShardParallel "
+          f"{ref_loss:.4f}: {ref_rel:.3e} relative (tol 1e-2)")
+    print(f"pipeshard compile [{card}]: trace {ex.trace_seconds:.3f} s, "
+          f"slicing, stage graphs and program {ex.compile_seconds:.3f} s, "
+          f"first call "
+          f"{first_s:.3f} s; stage nodes " + ", ".join(
+              f"{e.name} {e.num_nodes}" for e in ex.stage_execs +
+              [a for a in ex.apply_execs if a is not None]) +
+          f"; instructions {ex.get_instruction_counts()}; executed "
+          f"resharding bytes per step {ex.executed_resharding_bytes}")
+    print("pipeshard schedule:\n" + ex.get_schedule_text())
+    peak_bytes = ex.get_total_allocation_size()
+    print(f"pipeshard metrics [{card}]: step {latency:.5f} s, "
+          f"{tokens_per_sec:.1f} tokens/s, {tflops:.3f} TFLOPS "
+          f"(compute_gpt_tflops over {n_cards} card(s)), MFU {mfu:.4f} of "
+          f"{peak} TFLOP/s bf16, peak allocated "
+          f"{peak_bytes / 2**30:.3f} GiB; host {host:.5f} s per step until "
+          f"the step call returns; Python's full garbage collections in the "
+          f"{n_iter} timed steps: {len(gc_s)}, {sum(gc_s):.5f} s")
+    state, profile = profile_steps(train_step, state, batch, 2, latency,
+                                   label="pipeshard")
+    if profile and shard_profile.get("busy_share") is not None:
+        print(f"pipeshard vs ShardParallel (phase 6) [{card}]: device time "
+              f"per step {profile['device_s_per_step']:.5f} vs "
+              f"{shard_profile['device_s_per_step']:.5f} s, device share of "
+              f"the step {profile['device_share']:.4f} vs "
+              f"{shard_profile['device_share']:.4f}, busy share under the "
+              f"profiler {profile['busy_share']:.4f} vs "
+              f"{shard_profile['busy_share']:.4f}; step {latency:.5f} vs "
+              f"{shard_profile['latency']:.5f} s")
+    counts = launch_counts()   # the timed and the profiled steps
+    del state, train_step, ex
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_bwd_dq_bf16_kernel<64>`` from its mangled name."""
     # the last "flash_": nvcc names an anonymous namespace after the file
@@ -780,19 +1031,22 @@ def main() -> int:
         bwd_entries = phase_bwd_kernel()
         serving = phase_serving()
         phase_fidelity()
-        train_fwd, train_dq, train_dkv = phase_training(
+        (train_fwd, train_dq, train_dkv), shard_profile = phase_training(
             (fwd_train["ms"], *(e["ms"] for e in bwd_entries)))
         phase_train_fidelity()
+        phase_pipeshard_fidelity()
+        pipe = phase_pipeshard(shard_profile)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    fwd_entry["launches"] = serving + train_fwd
+    fwd_entry["launches"] = serving + train_fwd + pipe[0]
     fwd_entry["launches_by_path"] = {"serving": serving,
-                                     "training": train_fwd}
+                                     "training": train_fwd,
+                                     "pipeshard": pipe[0]}
     fwd_entry["at_training_shape"] = fwd_train
-    for entry, n in zip(bwd_entries, (train_dq, train_dkv)):
-        entry["launches"] = n
-        entry["launches_by_path"] = {"training": n}
+    for entry, n, p in zip(bwd_entries, (train_dq, train_dkv), pipe[1:]):
+        entry["launches"] = n + p
+        entry["launches_by_path"] = {"training": n, "pipeshard": p}
     print(card_line())
     print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {

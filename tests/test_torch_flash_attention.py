@@ -120,8 +120,9 @@ def test_bf16_forward_matches_jax_kernel():
 
 
 def test_gradients_flow_through_flash_attention():
-    """A call that needs a gradient goes through ``FlashAttention`` and
-    gives autograd's gradients through the plain forward, at fp32 TOL."""
+    """A call that needs a gradient goes through the ``flash_fwd`` op, whose
+    registered gradient is the ``flash_bwd`` op, and gives autograd's
+    gradients through the plain forward, at fp32 TOL."""
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _qkv(1, 32, 32, 1, 64))
     do = torch.from_numpy(_qkv(1, 32, 32, 1, 64, seed=9)[0])
@@ -262,3 +263,39 @@ def test_forward_wrapper_rejects_misaligned_bf16(monkeypatch):
             fa._launch(*bad, True, 0)
     with pytest.raises(AssertionError, match="kernel called"):
         fa._launch(*(t.float() for t in (q, odd, v)), True, 0)
+
+
+def test_make_fx_traces_one_forward_and_one_backward_op(monkeypatch):
+    """``make_fx`` in fake mode of a flash call and its gradient holds
+    exactly one forward and one backward custom-op node; the traced graph
+    run on CPU tensors equals eager bit for bit.  Tracing calls neither
+    wrapper (both raise while it runs), so it launches nothing and moves
+    no launch counter."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 48, 48, 2, 64, seed=4))
+    do = torch.from_numpy(_qkv(2, 48, 48, 2, 64, seed=5)[0])
+
+    def f(q, k, v, do):
+        with torch.enable_grad():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            out = fa.flash_attention(qq, kk, vv, causal=True)
+            return [out, *torch.autograd.grad(out, (qq, kk, vv), do)]
+
+    counters = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_BWD_DQ_LAUNCHES,
+                fa.FLASH_BWD_DKV_LAUNCHES)
+
+    def untouched(*args, **kwargs):
+        raise AssertionError("tracing called a kernel wrapper")
+
+    with monkeypatch.context() as m:
+        m.setattr(fa, "flash_attention_forward", untouched)
+        m.setattr(fa, "flash_attention_backward", untouched)
+        gm = make_fx(f, tracing_mode="fake")(q, k, v, do)
+    targets = [n.target for n in gm.graph.nodes if n.op == "call_function"]
+    assert targets.count(torch.ops.alpa_tpu_torch.flash_fwd.default) == 1
+    assert targets.count(torch.ops.alpa_tpu_torch.flash_bwd.default) == 1
+    assert (fa.FLASH_FWD_LAUNCHES, fa.FLASH_BWD_DQ_LAUNCHES,
+            fa.FLASH_BWD_DKV_LAUNCHES) == counters
+    for traced, eager in zip(gm(q, k, v, do), f(q, k, v, do)):
+        assert torch.equal(traced, eager)

@@ -313,3 +313,27 @@ def test_an_edited_header_changes_the_build_directory(monkeypatch, tmp_path):
     for source, old in before.items():
         assert _build.build_dir(source) != old
         assert _build.build_dir(source).parent == old.parent
+
+
+def test_pipeshard_without_devices_raises_without_cuda(monkeypatch):
+    """``PipeshardParallel()`` with no devices named takes the CUDA devices
+    and raises without CUDA; named CPU devices run."""
+    from alpa_tpu_torch.testing import (create_mlp_train_state_and_batch,
+                                        get_mlp_train_step)
+
+    def method(devices=None):
+        return alpa_tpu_torch.PipeshardParallel(
+            devices=devices, num_micro_batches=2,
+            layer_option=alpa_tpu_torch.ManualLayerOption(),
+            stage_option=alpa_tpu_torch.UniformStageOption(2))
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    alpa_tpu_torch.shutdown()
+    state, batch = create_mlp_train_state_and_batch(
+        batch_size=4, input_dim=8, hidden_dim=8, output_dim=8, num_layers=2,
+        manual_pipeline_layer=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_mlp_train_step(method(), use_value_and_grad=True)(state, batch)
+    state, loss = get_mlp_train_step(method(["cpu"] * 2),
+                                     use_value_and_grad=True)(state, batch)
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
