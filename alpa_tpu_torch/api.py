@@ -13,21 +13,27 @@ function eagerly; ``PipeshardParallel`` traces it once per executable.
 compiler installs while it traces, and wrap ``(value, grads)`` in the
 gradient marker; outside a pipeshard trace both are no-ops.
 
-Donation: for an eager method a donated ``TrainState`` is flagged while the
-step runs, so its ``apply_gradients`` updates params and optimizer moments
-in place; a tracing method gets the donated leaves and frees them itself.
-After the call every donated argument (and tensor leaf) that the call did not
-hand back is marked deleted, and passing it again raises, the counterpart
-of JAX's "Array has been deleted".  With ``donate_argnums="auto"`` the
-TrainState-like arguments are donated.
+Donation: with ``donate_argnums="auto"`` a leaf of a TrainState-like
+argument is donated where an output leaf not yet claimed has its shape and
+dtype (``_infer_donation``, JAX's rule: the outputs' shapes come from one
+run of the function on fake tensors, the counterpart of
+``jax.eval_shape``).  For an eager method a state whose tensor leaves are
+all donated is flagged while the step runs, so its ``apply_gradients``
+updates params and optimizer moments in place; a tracing method gets the
+donated leaves and reuses or frees their storage itself.  After the call
+every donated tensor leaf that the call did not hand back, and the argument
+holding it, is marked deleted, and passing it again raises, the counterpart
+of JAX's "Array has been deleted".
 """
 import functools
 import itertools
+import time
 import weakref
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils import _pytree as pytree
 
 from alpa_tpu_torch.device_mesh import (init_global_cluster,
@@ -99,12 +105,64 @@ def _check_live(args):
                 "and has been deleted; pass the value that call returned")
 
 
-def _mark_deleted(donated_args, flat_out):
+def _mark_deleted(args, leaf_arg, flat_args, donated_invars, flat_out):
+    """Mark each donated tensor leaf that ``flat_out`` does not hold, and
+    each argument with a donated leaf that it does not hold, deleted."""
     kept = {id(x) for x in flat_out}
-    for arg in donated_args:
-        for x in [arg] + pytree.tree_leaves(arg):
-            if _donatable(x) and id(x) not in kept:
+    holders = set()
+    for x, i, d in zip(flat_args, leaf_arg, donated_invars):
+        if d:
+            holders.add(i)
+            if isinstance(x, torch.Tensor) and id(x) not in kept:
                 _deleted[id(x)] = x
+    for i in holders:
+        if _donatable(args[i]) and id(args[i]) not in kept:
+            _deleted[id(args[i])] = args[i]
+
+
+def _fake_leaves(flat_args):
+    """Fake tensors in place of the tensor and array leaves (on the device
+    of the first tensor leaf, where the executable would put host arrays);
+    Python numbers stay as they are."""
+    device = next((x.device for x in flat_args
+                   if isinstance(x, torch.Tensor)), torch.device("cpu"))
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    out = []
+    for x in flat_args:
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            shape, dtype = _abstractify(x)
+            with mode:
+                x = torch.empty(shape, dtype=dtype, device=device)
+        out.append(x)
+    return mode, out
+
+
+def _infer_donation(flat_fun, flat_args, avals, batch_invars, state_invars):
+    """``donate_argnums="auto"``: donate a leaf of a TrainState-like
+    argument where an output leaf not yet claimed has the same shape and
+    dtype (state flowing to new state), in the order of the flat leaves:
+    the counterpart of ``alpa_tpu/api.py``'s ``_infer_donation``.  Other
+    arguments are never auto-donated: a step returning ``(loss, grads)``
+    matches every parameter, and donating parameters the caller still
+    holds deletes live tensors.  The output shapes come from one run of
+    ``flat_fun`` on fake tensors."""
+    if not any(state_invars):
+        return (False,) * len(avals)
+    mode, fake = _fake_leaves(flat_args)
+    with mode:
+        out = flat_fun(*fake)
+    pool = {}
+    for o in out:
+        key = _abstractify(o)
+        pool[key] = pool.get(key, 0) + 1
+    donated = []
+    for aval, is_batch, is_state in zip(avals, batch_invars, state_invars):
+        if is_state and not is_batch and pool.get(aval, 0) > 0:
+            pool[aval] -= 1
+            donated.append(True)
+        else:
+            donated.append(False)
+    return tuple(donated)
 
 
 _live_parallelized: "weakref.WeakSet" = weakref.WeakSet()
@@ -152,67 +210,86 @@ class ParallelizedFunc:
             [i] * len(pytree.tree_leaves(args[i])) for i in dyn_idx))
         avals = tuple(_abstractify(x) for x in flat_args)
         batch_invars = tuple(i in self.batch_argnums for i in leaf_arg)
-        if self.donate_argnums == "auto":
-            donated = tuple(i for i in dyn_idx
-                            if i not in self.batch_argnums and
-                            _is_state_like(args[i]))
-        else:
-            donated = tuple(self.donate_argnums)
-        donated_invars = tuple(i in donated for i in leaf_arg)
-        return (static_idx, static_vals, flat_args, in_tree, avals,
-                batch_invars, donated, donated_invars)
+        state_invars = tuple(_is_state_like(args[i]) for i in leaf_arg)
+        return (static_idx, static_vals, flat_args, in_tree, leaf_arg, avals,
+                batch_invars, state_invars)
 
     def _get(self, args):
         _check_live(args)
-        (static_idx, static_vals, flat_args, in_tree, avals, batch_invars,
-         donated, donated_invars) = self._decode_args(args)
-        key = (in_tree, avals, static_idx, static_vals, batch_invars, donated)
+        (static_idx, static_vals, flat_args, in_tree, leaf_arg, avals,
+         batch_invars, state_invars) = self._decode_args(args)
+        key = (in_tree, avals, static_idx, static_vals, batch_invars)
         try:
             cached = self._executable_cache.get(key)
         except TypeError:  # unhashable static arg
             key, cached = None, None
         if cached is None:
             cached = self._make_executable(
-                len(args), static_idx, static_vals, in_tree, donated,
-                avals, batch_invars, donated_invars)
+                len(args), static_idx, static_vals, in_tree, leaf_arg,
+                flat_args, avals, batch_invars, state_invars)
             if key is not None:
                 self._executable_cache[key] = cached
         self._last_executable = cached[0]
-        return cached, flat_args, donated
+        return cached, flat_args, leaf_arg
 
     def _make_executable(self, n_args, static_idx, static_vals, in_tree,
-                         donated, avals, batch_invars, donated_invars):
-        """(executable, flat_fun); ``flat_fun.out_tree`` is the output tree,
-        set when it runs."""
+                         leaf_arg, flat_args, avals, batch_invars,
+                         state_invars):
+        """(executable, flat_fun, donated_invars); ``flat_fun.out_tree`` is
+        the output tree, set when it runs."""
         fun = self.fun
-        in_place = self.method.donates_in_place
+        # the state arguments updated in place: set once donation is known
+        in_place_states = []
 
         def flat_fun(*flat):
             dyn = iter(pytree.tree_unflatten(list(flat), in_tree))
             static = iter(static_vals)
             full = [next(static) if i in static_idx else next(dyn)
                     for i in range(n_args)]
-            if in_place:
-                for i in donated:
-                    if _is_state_like(full[i]):
-                        # lets apply_gradients update in place
-                        object.__setattr__(full[i], "_donated", True)
+            for i in in_place_states:
+                # lets apply_gradients update in place
+                object.__setattr__(full[i], "_donated", True)
             flat_out, flat_fun.out_tree = pytree.tree_flatten(fun(*full))
             return flat_out
 
+        tic = time.perf_counter()
+        if self.donate_argnums == "auto":
+            donated_invars = _infer_donation(flat_fun, flat_args, avals,
+                                             batch_invars, state_invars)
+        else:
+            donated_invars = tuple(i in self.donate_argnums
+                                   for i in leaf_arg)
+        if self.method.donates_in_place:
+            # a state is updated in place when all its tensors are donated
+            tensor_leaves = {}
+            for x, i, d, s in zip(flat_args, leaf_arg, donated_invars,
+                                  state_invars):
+                if s and isinstance(x, torch.Tensor):
+                    tensor_leaves.setdefault(i, []).append(d)
+            in_place_states.extend(i for i, ds in tensor_leaves.items()
+                                   if all(ds))
+        donation_seconds = time.perf_counter() - tic
         executable = self.method.compile_executable(
             flat_fun, avals=avals, batch_invars=batch_invars,
             donated_invars=donated_invars)
-        return executable, flat_fun
+        # the seconds of auto donation's run on fake tensors
+        executable.donation_seconds = donation_seconds
+        return executable, flat_fun, donated_invars
 
     def get_executable(self, *args):
-        (executable, _), flat_args, _ = self._get(args)
+        (executable, _, _), flat_args, _ = self._get(args)
         return executable, flat_args
 
+    def get_donated_invars(self, *args):
+        """Which flat leaves of ``args`` a call donates."""
+        (_, _, donated_invars), _, _ = self._get(args)
+        return donated_invars
+
     def __call__(self, *args):
-        (executable, flat_fun), flat_args, donated = self._get(args)
+        (executable, flat_fun, donated_invars), flat_args, leaf_arg = \
+            self._get(args)
         flat_out = executable.launch_on_driver(*flat_args)
-        _mark_deleted([args[i] for i in donated], flat_out)
+        _mark_deleted(args, leaf_arg, flat_args, donated_invars, flat_out)
         return pytree.tree_unflatten(flat_out, flat_fun.out_tree)
 
     def get_last_executable(self):
@@ -245,32 +322,44 @@ def _maybe_layer_transform(fun):
     return fun if opt is None else layer_level_transform(fun, opt)
 
 
-def value_and_grad(fun, argnums: int = 0, has_aux: bool = False):
+def value_and_grad(fun, argnums: Union[int, Sequence[int]] = 0,
+                   has_aux: bool = False):
     """``jax.value_and_grad`` for PyTorch: the value of ``fun`` and the
     gradient of its (first, with ``has_aux``) output with respect to the
-    tensor leaves of argument ``argnums``, in that argument's structure.
-    A leaf the output does not depend on gets a zero gradient."""
+    tensor leaves of argument ``argnums``, in that argument's structure; for
+    a tuple ``argnums``, a tuple of such gradients, one per argument.  A
+    leaf the output does not depend on gets a zero gradient."""
+    nums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
 
     @functools.wraps(fun)
     def wrapped(*args, **kwargs):
-        leaves, spec = pytree.tree_flatten(args[argnums])
+        flat = [pytree.tree_flatten(args[i]) for i in nums]
         run = _maybe_layer_transform(fun)
         with torch.enable_grad():
-            diff = [x.detach().requires_grad_() for x in leaves]
+            diff = [[x.detach().requires_grad_() for x in leaves]
+                    for leaves, _ in flat]
             call = list(args)
-            call[argnums] = pytree.tree_unflatten(diff, spec)
+            for i, d, (_, spec) in zip(nums, diff, flat):
+                call[i] = pytree.tree_unflatten(d, spec)
             val = run(*call, **kwargs)
-            grads = torch.autograd.grad(val[0] if has_aux else val, diff,
-                                        allow_unused=True,
-                                        materialize_grads=True)
+            grads = torch.autograd.grad(
+                val[0] if has_aux else val,
+                list(itertools.chain.from_iterable(diff)),
+                allow_unused=True, materialize_grads=True)
         val = pytree.tree_map(
             lambda t: t.detach() if isinstance(t, torch.Tensor) else t, val)
-        return mark_gradient((val, pytree.tree_unflatten(list(grads), spec)))
+        trees, pos = [], 0
+        for d, (_, spec) in zip(diff, flat):
+            trees.append(pytree.tree_unflatten(list(grads[pos:pos + len(d)]),
+                                               spec))
+            pos += len(d)
+        return mark_gradient(
+            (val, trees[0] if isinstance(argnums, int) else tuple(trees)))
 
     return wrapped
 
 
-def grad(fun, argnums: int = 0, has_aux: bool = False):
+def grad(fun, argnums: Union[int, Sequence[int]] = 0, has_aux: bool = False):
     """``jax.grad`` for PyTorch (see ``value_and_grad``)."""
     vg = value_and_grad(fun, argnums, has_aux)
 

@@ -315,7 +315,9 @@ class GPTModel(nn.Module):
         if remat and tracing_active():
             raise NotImplementedError(
                 "per-block remat inside a pipeshard trace is not ported yet "
-                "(remat layers, ROADMAP A.5); use remat_blocks=False")
+                "(ROADMAP A.5.3, its second half: make_fx inlines the block "
+                "checkpoints); use remat_blocks=False with "
+                "remat_layer=True in the layer option")
         remat_kw = _remat_kwargs(cfg) if remat else None
         new_caches = [] if kv_caches is not None else None
         for i, block in enumerate(self.h):

@@ -2,10 +2,12 @@
 
 Counterpart of ``alpa_tpu/parallel_method.py``: a ``ParallelMethod`` turns
 a function and a mesh into an executable.  Ported: ``ShardParallel`` on one
-device, and ``PipeshardParallel`` with ``ManualLayerOption``,
-``UniformStageOption``/``ManualStageOption`` and one device per stage
-mesh.  ``ShardParallel`` on a mesh of more than one device, with gradient
-accumulation or with a sharding option raises instead of running on one
+device; ``PipeshardParallel`` with manual, automatic and follow layers
+(remat layers too), uniform, manual and automatic stages, and one device
+per stage mesh; ``LocalPipelineParallel``; and ``get_3d_parallel_method``
+for data and operator parallelism of 1.  ``ShardParallel`` on a mesh of
+more than one device, with gradient accumulation or with a sharding option
+raises instead of running on one device, as does a stage of more than one
 device: those come with the auto-sharding slice (ROADMAP A.3) and the
 gradient-accumulation slice (A.4).
 """
@@ -18,9 +20,10 @@ from alpa_tpu_torch.device_mesh import (LocalPhysicalDeviceMesh,
                                         get_global_virtual_physical_mesh)
 from alpa_tpu_torch.mesh_executable import NormalMeshExecutable
 from alpa_tpu_torch.pipeline_parallel.layer_construction import \
-    check_layer_option
+    AutoLayerOption
 from alpa_tpu_torch.pipeline_parallel.stage_construction import \
-    check_stage_option
+    ManualStageOption
+from alpa_tpu_torch.platform import get_device
 
 
 class ParallelMethod:
@@ -85,10 +88,13 @@ class PipeshardParallel(ParallelMethod):
     "1f1b_overlap_friendly").  ``devices`` is a ``VirtualPhysicalMesh`` or a
     device list; by default the global cluster's devices (every CUDA device,
     raising without CUDA, unless ``init`` named others).  A list may name one
-    device more than once.  ``layer_option`` must be a ``ManualLayerOption``
-    and ``stage_option`` a ``UniformStageOption`` or ``ManualStageOption``;
+    device more than once.  ``layer_option``: ``ManualLayerOption``,
+    ``AutoLayerOption``, ``FollowLayerOption`` (any of them with
+    ``remat_layer``), by default ``AutoLayerOption(layer_num=min(8,
+    #devices))``; ``stage_option``: ``UniformStageOption`` (the default),
+    ``ManualStageOption`` or ``AutoStageOption``.
     ``default_auto_sharding_option`` and ``stage_input_shardings`` raise
-    (ROADMAP A.3), as does ``AutoLayerOption``/``AutoStageOption`` (A.5)."""
+    (ROADMAP A.3), as does a stage mesh of more than one device."""
     donates_in_place = False
 
     def __init__(self,
@@ -106,8 +112,6 @@ class PipeshardParallel(ParallelMethod):
                 "default_auto_sharding_option and stage_input_shardings need "
                 "intra-op sharding inside a stage, which is not ported yet "
                 "(ROADMAP A.3)")
-        check_layer_option(layer_option)
-        check_stage_option(stage_option)
         if devices is not None and not isinstance(devices,
                                                   VirtualPhysicalMesh):
             devices = VirtualPhysicalMesh(list(devices))
@@ -127,3 +131,63 @@ class PipeshardParallel(ParallelMethod):
             fun, mesh, avals, batch_invars, donated_invars,
             self.num_micro_batches, self.pipeline_schedule,
             self.layer_option, self.stage_option)
+
+
+class LocalPipelineParallel(ParallelMethod):
+    """The sliced layer graphs run in order on one device, a debugging aid
+    that separates slicing faults from runtime faults
+    (``alpa_tpu/parallel_method.py:133``, ``local_pipeline.py``).
+    ``layer_option`` defaults to ``AutoLayerOption(layer_num=2)``;
+    ``device`` to CUDA (raising without it)."""
+    donates_in_place = False
+
+    def __init__(self, device=None, layer_option: Any = None):
+        self.device = get_device(device)
+        self.layer_option = layer_option
+
+    def compile_executable(self, fun, *, avals, batch_invars,
+                           donated_invars):
+        del batch_invars, donated_invars
+        from alpa_tpu_torch.pipeline_parallel.local_pipeline import \
+            LocalPipelineExecutable
+        return LocalPipelineExecutable(fun, avals, self.device,
+                                       self.layer_option)
+
+
+def get_3d_parallel_method(num_micro_batches: int,
+                           data_parallel: int,
+                           operator_parallel: int,
+                           pipeline_parallel: int,
+                           devices: Optional[Union[VirtualPhysicalMesh,
+                                                   Sequence]] = None,
+                           allow_degenerate_into_shard_parallel: bool = True):
+    """The dp x op x pp method (``alpa_tpu/parallel_method.py:144``): the
+    cluster in ``pipeline_parallel`` equal submeshes, one stage of
+    ``AutoLayerOption(layer_num=pipeline_parallel)`` layers on each.  With
+    ``pipeline_parallel == 1`` (and degeneration allowed) it is
+    ``ShardParallel``.  A stage of more than one device (data or operator
+    parallelism above 1) needs intra-op sharding and raises (ROADMAP
+    A.3)."""
+    if devices is not None and not isinstance(devices, VirtualPhysicalMesh):
+        devices = VirtualPhysicalMesh(list(devices))
+    mesh = devices or get_global_virtual_physical_mesh(
+        create_if_not_exist=True)
+    dp, op, pp = data_parallel, operator_parallel, pipeline_parallel
+    if dp * op * pp != mesh.num_devices:
+        raise ValueError(f"dp({dp}) * op({op}) * pp({pp}) != "
+                         f"#devices({mesh.num_devices})")
+    if dp * op != 1:
+        raise NotImplementedError(
+            f"get_3d_parallel_method with data_parallel={dp} and "
+            f"operator_parallel={op}: a (dp, op) logical mesh in each stage "
+            "needs intra-op sharding, which is not ported yet (ROADMAP A.3)")
+    if pp == 1 and allow_degenerate_into_shard_parallel:
+        return ShardParallel(devices=list(mesh.devices.flat),
+                             num_micro_batches=num_micro_batches)
+    return PipeshardParallel(
+        devices=mesh, num_micro_batches=num_micro_batches,
+        pipeline_schedule="1f1b",
+        layer_option=AutoLayerOption(layer_num=pp),
+        stage_option=ManualStageOption(
+            forward_stage_layer_ids=[[i] for i in range(pp)],
+            submesh_physical_shapes=[[1, 1] for _ in range(pp)]))

@@ -37,7 +37,7 @@ from alpa_tpu_torch.pipeline_parallel.computation import (
     mark_missing_vars_in_backward_computation_pipeline_marks,
     merge_computations, pipeline_dce, slice_graph_by_full_pipeline_marks)
 from alpa_tpu_torch.pipeline_parallel.layer_construction import (
-    LayerOption, check_layer_option, set_current_layer_option)
+    AutoLayerOption, LayerOption, set_current_layer_option)
 from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
     PipeshardDriverExecutable
 from alpa_tpu_torch.pipeline_parallel.primitive_def import (is_marker,
@@ -109,7 +109,9 @@ def compile_pipeshard_executable(fun: Callable,
                                  ) -> PipeshardDriverExecutable:
     tic = time.perf_counter()
     num_micro_batches = num_micro_batches or 1
-    check_layer_option(layer_option)
+    layer_option = layer_option or AutoLayerOption(
+        layer_num=min(8, virtual_mesh.num_hosts if virtual_mesh.num_hosts > 1
+                      else virtual_mesh.num_devices))
     if pipeline_schedule == "inference":
         raise NotImplementedError(
             "the inference schedule runs forward-only functions; the "
@@ -139,8 +141,8 @@ def compile_pipeshard_executable(fun: Callable,
     computations = slice_graph_by_full_pipeline_marks(compute_nodes)
     if not computations:
         raise ValueError(
-            "no pipeline layers found: mark them with "
-            "mark_pipeline_boundary() and use ManualLayerOption")
+            "no pipeline layers found: use AutoLayerOption, or "
+            "ManualLayerOption with mark_pipeline_boundary()")
     computations = \
         mark_missing_vars_in_backward_computation_pipeline_marks(
             computations)
@@ -154,8 +156,10 @@ def compile_pipeshard_executable(fun: Callable,
                                     []).append(comp)
 
     # ---- stages ----
-    fwd_stage_layer_ids, submeshes = cluster_layers_and_slice_mesh(
-        num_layers, virtual_mesh, stage_option)
+    fwd_stage_layer_ids, submeshes, stage_dp_info = \
+        cluster_layers_and_slice_mesh(
+            num_layers, virtual_mesh, stage_option, layer_comps=fwd_comps,
+            num_micro_batches=num_micro_batches, schedule=pipeline_schedule)
     mesh_devices = []
     for s, sub in enumerate(submeshes):
         if sub.num_devices != 1:
@@ -221,6 +225,8 @@ def compile_pipeshard_executable(fun: Callable,
         in_dtypes=[dtype for _, dtype in avals], batch_invars=batch_invars,
         donated_invars=donated_invars, grad_pairs=grad_pairs,
         acc_info=acc_info)
+    executable.stage_dp_info = stage_dp_info
+    executable.fwd_layer_comps = fwd_comps
     executable.trace_seconds = trace_seconds
     executable.compile_seconds = time.perf_counter() - tic - trace_seconds
     return executable

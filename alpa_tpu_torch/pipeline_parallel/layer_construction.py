@@ -5,31 +5,38 @@ transform applies to the loss function before differentiation:
 ``alpa_tpu_torch.grad``/``value_and_grad`` consult the option that the
 pipeshard compiler installs while it traces (``set_current_layer_option``).
 ``layer_level_transform`` traces the loss function with ``make_fx`` into an
-aten graph, cuts it at the ``mark_pipeline_boundary()`` nodes
-(``ManualLayerOption``), wraps every layer in start/end markers that carry
-each value entering or leaving it, and runs the marked graph in the loss
-function's place.  Run differentiably inside the compiler's trace, the
-markers' autograd formula gives each backward layer its own flipped
-markers.
-
-Ported: ``ManualLayerOption``.  ``AutoLayerOption`` (the cost-based
-clustering ``cluster_eqns_by_cost``), ``FollowLayerOption`` and
-``remat_layer=True`` raise ``NotImplementedError`` (ROADMAP A.5).
+aten graph and groups its nodes into layers: at the
+``mark_pipeline_boundary()`` nodes (``ManualLayerOption``), or by the
+cost-based DP ``cluster_nodes_by_cost`` (``AutoLayerOption``, and
+``FollowLayerOption`` with another executable's stage count).  It wraps
+every layer in start/end markers that carry each value entering or leaving
+it and runs the marked graph in the loss function's place.  Run
+differentiably inside the compiler's trace, the markers' autograd formula
+gives each backward layer its own flipped markers.  With
+``remat_layer=True`` each layer runs under non-reentrant
+``torch.utils.checkpoint`` inside its markers, so the traced backward
+recomputes the layer's forward between that layer's backward markers
+(``_remat_by_layer``).
 """
 import dataclasses
 import operator
 import threading
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import fx
 from torch.fx.experimental.proxy_tensor import (disable_proxy_modes_tracing,
                                                 make_fx)
 from torch.utils import _pytree as pytree
+from torch.utils import checkpoint as torch_checkpoint
 
-from alpa_tpu_torch.pipeline_parallel.primitive_def import is_boundary
+from alpa_tpu_torch.pipeline_parallel.primitive_def import (
+    is_boundary, pipeline_marker, pipeshard_tracing, tracing_active)
+from alpa_tpu_torch.util import node_flops
 
 _MARKER = torch.ops.alpa_tpu_torch.pipeline_marker.default
+aten = torch.ops.aten
 
 
 @dataclasses.dataclass
@@ -45,7 +52,9 @@ class ManualLayerOption(LayerOption):
 
 @dataclasses.dataclass
 class AutoLayerOption(LayerOption):
-    """Cluster into ``layer_num`` layers by cost (not ported yet)."""
+    """Cluster into ``layer_num`` layers by cost (``cluster_nodes_by_cost``):
+    the fewest bytes crossing the cuts, each layer's flops within
+    ``1 + eps`` of an equal share."""
     layer_num: int = 2
     eps: float = 0.6
     cost_criteria: str = "flops"
@@ -53,23 +62,22 @@ class AutoLayerOption(LayerOption):
 
 @dataclasses.dataclass
 class FollowLayerOption(LayerOption):
-    """Take another executable's layer count (not ported yet)."""
+    """Cluster automatically into as many layers as another pipeshard
+    executable has forward stages, so that stage assignments line up."""
     src_executable: Any = None
     layer_num: int = 2
 
-
-def check_layer_option(layer_option: Optional[LayerOption]):
-    """Raise on what this port does not run yet."""
-    if not isinstance(layer_option, ManualLayerOption):
-        name = ("layer_option=None (AutoLayerOption)" if layer_option is None
-                else type(layer_option).__name__)
-        raise NotImplementedError(
-            f"{name}: only ManualLayerOption is ported; AutoLayerOption "
-            "(cluster_eqns_by_cost) and FollowLayerOption are ROADMAP A.5")
-    if layer_option.remat_layer:
-        raise NotImplementedError(
-            "remat_layer=True: remat layers are not ported yet (ROADMAP "
-            "A.5)")
+    def resolved_layer_num(self) -> int:
+        ex = self.src_executable
+        if ex is None:
+            return self.layer_num
+        n = getattr(ex, "num_fwd_stages", None)
+        if n is None:
+            raise ValueError(
+                "FollowLayerOption.src_executable must be a pipeshard "
+                f"executable (got {type(ex).__name__}, which has no "
+                "stages to follow); pass layer_num explicitly instead")
+        return int(n)
 
 
 _layer_ctx = threading.local()
@@ -108,6 +116,158 @@ def _remove_dead_nodes(graph: fx.Graph):
             graph.erase_node(node)
 
 
+########################################
+# the auto-layer DP
+########################################
+
+HEAVY_OPS = frozenset({aten.mm.default, aten.addmm.default,
+                       aten.bmm.default, aten.baddbmm.default,
+                       aten.convolution.default})
+
+
+def compute_nodes(graph: fx.Graph) -> List[fx.Node]:
+    """The nodes the layer DP groups: every op but the boundaries."""
+    return [n for n in graph.nodes
+            if n.op == "call_function" and not is_boundary(n)]
+
+
+def _segment_nodes(nodes: Sequence[fx.Node]) -> List[Tuple[int, int]]:
+    """Coarsen nodes into segments that each end right after a heavy op,
+    the only cut points (JAX's ``_segment_eqns``; the flash op is not one,
+    as the JAX package's ``pallas_call`` is not)."""
+    bounds, start = [], 0
+    for i, node in enumerate(nodes):
+        if node.target in HEAVY_OPS:
+            bounds.append((start, i + 1))
+            start = i + 1
+    if start < len(nodes):
+        bounds.append((start, len(nodes)))
+    return bounds
+
+
+def _value_bytes(node: fx.Node) -> Optional[float]:
+    val = node.meta.get("val")
+    if not isinstance(val, torch.Tensor):
+        return None
+    return float(val.numel()) * val.element_size()
+
+
+def cluster_nodes_by_cost(nodes: Sequence[fx.Node], outputs: Any,
+                          layer_num: int, eps: float = 0.6
+                          ) -> List[List[fx.Node]]:
+    """DP clustering of ``nodes`` into ``layer_num`` contiguous groups:
+    ``cluster_eqns_by_cost`` of the JAX package over aten nodes.
+
+    Minimizes, lexicographically, the bytes crossing the cuts and then the
+    sum of squared layer flops (the tie-break toward balance), with every
+    layer's flops (``node_flops``) within ``(1 + eps) * total /
+    layer_num``.  Cuts fall only after heavy ops (``_segment_nodes``).  A
+    value crosses each cut between its node and its last reader (the loss
+    function's ``outputs`` read after the last segment), at numel x
+    element size from its fake tensor.  Without a feasible clustering, an
+    equal-flops split."""
+    nodes = list(nodes)
+    if not nodes or layer_num <= 1:
+        return [nodes]
+    segments = _segment_nodes(nodes)
+    n = len(segments)
+    if n <= layer_num:
+        return [nodes[a:b] for a, b in segments]
+    flops = np.array([sum(node_flops(v) for v in nodes[a:b])
+                      for a, b in segments])
+    total = flops.sum()
+    budget = (1 + eps) * total / layer_num
+    cum = np.concatenate([[0], np.cumsum(flops)]).tolist()
+
+    seg_of = {}
+    for si, (a, b) in enumerate(segments):
+        for v in nodes[a:b]:
+            seg_of[v] = si
+    last_use = {}
+    for v in nodes:
+        for u in v.all_input_nodes:
+            if u in seg_of:
+                last_use[u] = seg_of[v]
+    for v in pytree.tree_leaves(outputs):
+        if isinstance(v, fx.Node) and v in seg_of:
+            last_use[v] = n
+    cut_bytes = np.zeros(n + 1)
+    for v, d in seg_of.items():
+        lu = last_use.get(v, d)
+        nbytes = _value_bytes(v)
+        if lu > d and nbytes is not None:
+            cut_bytes[d + 1:lu + 1] += nbytes   # v crosses the cuts (d, lu]
+    cut_bytes = cut_bytes.tolist()
+
+    # f[k][i]: the lexicographic (cut bytes, sum of squared layer flops)
+    # of the first i segments in k layers
+    inf = float("inf")
+    f = [[(inf, inf)] * (n + 1) for _ in range(layer_num + 1)]
+    arg = [[0] * (n + 1) for _ in range(layer_num + 1)]
+    f[0][0] = (0.0, 0.0)
+    for k in range(1, layer_num + 1):
+        for i in range(1, n + 1):
+            for j in range(i):
+                if cum[i] - cum[j] > budget or f[k - 1][j][0] == inf:
+                    continue
+                seg_fl = float(cum[i] - cum[j])
+                c = (f[k - 1][j][0] + (cut_bytes[j] if j > 0 else 0.0),
+                     f[k - 1][j][1] + seg_fl * seg_fl)
+                if c < f[k][i]:
+                    f[k][i] = c
+                    arg[k][i] = j
+    if f[layer_num][n][0] == inf:
+        return _equal_flops_split(nodes, segments, flops, layer_num)
+    cuts, i = [], n
+    for k in range(layer_num, 0, -1):
+        j = arg[k][i]
+        cuts.append((j, i))
+        i = j
+    cuts.reverse()
+    return [nodes[segments[a][0]:segments[b - 1][1]] for a, b in cuts
+            if b > a]
+
+
+def _equal_flops_split(nodes, segments, flops, layer_num):
+    """Close a layer each time its flops reach an equal share."""
+    target = flops.sum() / layer_num
+    groups, cur, acc = [], [], 0.0
+    for (a, b), fl in zip(segments, flops):
+        cur.extend(nodes[a:b])
+        acc += fl
+        if acc >= target and len(groups) < layer_num - 1:
+            groups.append(cur)
+            cur, acc = [], 0.0
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+########################################
+# markers and remat
+########################################
+
+
+def _layer_io(gm: fx.GraphModule, sliced: List[List[fx.Node]]):
+    """``(invars, outvars)`` of each group: every value it reads from
+    outside, and every value it defines that a later group or the output
+    reads."""
+    layer_of: Dict[fx.Node, int] = {n: li for li, group in enumerate(sliced)
+                                    for n in group}
+    output = next(n for n in gm.graph.nodes if n.op == "output")
+    later: set = set(output.all_input_nodes)
+    io = []
+    for li in range(len(sliced) - 1, -1, -1):
+        used_after = set(later)
+        for node in sliced[li]:
+            later.update(node.all_input_nodes)
+        invars = list(dict.fromkeys(
+            v for n in sliced[li] for v in n.all_input_nodes
+            if layer_of.get(v) != li))
+        io.append((invars, [n for n in sliced[li] if n in used_after]))
+    return io[::-1]
+
+
 def add_pipeline_marks_for_sliced_nodes(gm: fx.GraphModule,
                                         sliced: List[List[fx.Node]]
                                         ) -> fx.GraphModule:
@@ -115,33 +275,21 @@ def add_pipeline_marks_for_sliced_nodes(gm: fx.GraphModule,
     over every value it uses from outside and an end marker over every
     value it defines that a later layer or the output uses (named
     ``layer_<i>``)."""
-    layer_of: Dict[fx.Node, int] = {n: li for li, group in enumerate(sliced)
-                                    for n in group}
     output = next(n for n in gm.graph.nodes if n.op == "output")
-    used_after: List[set] = [set() for _ in sliced]
-    later: set = set(output.all_input_nodes)
-    for li in range(len(sliced) - 1, -1, -1):
-        used_after[li] = set(later)
-        for node in sliced[li]:
-            later.update(node.all_input_nodes)
-
     new = fx.Graph()
     outer: Dict[fx.Node, fx.Node] = {}
     for node in gm.graph.nodes:
         if node.op in ("placeholder", "get_attr"):
             outer[node] = new.node_copy(node)
-    for li, group in enumerate(sliced):
+    for li, (group, (invars, outvars)) in enumerate(
+            zip(sliced, _layer_io(gm, sliced))):
         name = f"layer_{li}"
-        invars = list(dict.fromkeys(
-            v for n in group for v in n.all_input_nodes
-            if layer_of.get(v) != li))
         start = new.call_function(_MARKER,
                                   ([outer[v] for v in invars], name, "start"))
         local = {v: new.call_function(operator.getitem, (start, i))
                  for i, v in enumerate(invars)}
         for node in group:
             local[node] = new.node_copy(node, lambda v: local[v])
-        outvars = [n for n in group if n in used_after[li]]
         end = new.call_function(_MARKER,
                                 ([local[v] for v in outvars], name, "end"))
         for i, v in enumerate(outvars):
@@ -150,34 +298,131 @@ def add_pipeline_marks_for_sliced_nodes(gm: fx.GraphModule,
     return fx.GraphModule(gm, new)
 
 
+def _mark(values: List[torch.Tensor], name: str, mark_type: str):
+    """The marker over ``values`` inside a pipeshard trace; the values as
+    they are outside one (``manual_remat`` on a plain call)."""
+    if not tracing_active():
+        return values
+    return pipeline_marker(values, name, mark_type)
+
+
+def _remat_by_layer(gm: fx.GraphModule, sliced: List[List[fx.Node]]
+                    ) -> Callable:
+    """``gm`` run layer by layer, each layer's nodes a ``GraphModule`` of
+    their own under non-reentrant ``torch.utils.checkpoint`` between the
+    layer's start and end markers: the counterpart of JAX's
+    ``_remat_by_layer`` (``jax.checkpoint`` per layer).  Traced with its
+    backward, each layer's forward is recomputed in that layer's backward
+    section, between its flipped markers."""
+    io = _layer_io(gm, sliced)
+    layers = []
+    for group, (invars, outvars) in zip(sliced, io):
+        graph = fx.Graph()
+        env = {v: graph.placeholder(v.name) for v in invars}
+        for node in group:
+            env[node] = graph.node_copy(node, lambda v: env[v])
+        graph.output([env[v] for v in outvars])
+        layers.append(fx.GraphModule(gm, graph))
+    nodes = list(gm.graph.nodes)
+    placeholders = [n for n in nodes if n.op == "placeholder"]
+    consts = {n: getattr(gm, n.target) for n in nodes if n.op == "get_attr"}
+    output = nodes[-1]
+
+    def run(*tensors):
+        env = dict(consts)
+        env.update(zip(placeholders, tensors))
+        for li, (layer, (invars, outvars)) in enumerate(zip(layers, io)):
+            name = f"layer_{li}"
+            args = _mark([env[v] for v in invars], name, "start")
+            outs = torch_checkpoint.checkpoint(layer, *args,
+                                               use_reentrant=False)
+            env.update(zip(outvars, _mark(list(outs), name, "end")))
+        return fx.node.map_arg(output.args[0], lambda v: env[v])
+
+    return run
+
+
+########################################
+# the loss-function transform
+########################################
+
+
+def slice_layers(gm: fx.GraphModule, layer_option: LayerOption
+                 ) -> List[List[fx.Node]]:
+    """The layer groups of a traced loss function under ``layer_option``
+    (the dispatch of JAX's ``layer_level_transform``)."""
+    output = next(n for n in gm.graph.nodes if n.op == "output")
+    if isinstance(layer_option, AutoLayerOption):
+        return cluster_nodes_by_cost(compute_nodes(gm.graph), output.args[0],
+                                     layer_option.layer_num,
+                                     layer_option.eps)
+    if isinstance(layer_option, FollowLayerOption):
+        return cluster_nodes_by_cost(compute_nodes(gm.graph), output.args[0],
+                                     layer_option.resolved_layer_num())
+    return slice_nodes_by_boundary(gm.graph)
+
+
+def trace_loss(fn: Callable, *args, **kwargs):
+    """``(gm, tensors, out_spec)``: ``fn`` traced by ``make_fx`` over the
+    tensor leaves of its arguments, boundaries recorded, dead nodes
+    dropped."""
+    leaves, in_spec = pytree.tree_flatten((args, kwargs))
+    idx = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+    out_spec = []
+
+    def flat_fn(*tensors):
+        full = list(leaves)
+        for i, t in zip(idx, tensors):
+            full[i] = t
+        a, kw = pytree.tree_unflatten(full, in_spec)
+        out, spec = pytree.tree_flatten(fn(*a, **kw))
+        out_spec.append(spec)
+        return out
+
+    tensors = [leaves[i] for i in idx]
+    with disable_proxy_modes_tracing(), pipeshard_tracing():
+        gm = make_fx(flat_fn)(*tensors)
+    _remove_dead_nodes(gm.graph)
+    return gm, tensors, out_spec[0]
+
+
 def layer_level_transform(fn: Callable, layer_option: LayerOption
                           ) -> Callable:
     """``fn`` as its layer-marked traced graph (see the module docstring).
     Tensor leaves of the arguments become the graph's inputs; tensors
     ``fn`` closes over become its constants, which inside the compiler's
     trace are that trace's values."""
-    check_layer_option(layer_option)
 
     def wrapped(*args, **kwargs):
-        leaves, in_spec = pytree.tree_flatten((args, kwargs))
-        idx = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
-        out_spec = []
-
-        def flat_fn(*tensors):
-            full = list(leaves)
-            for i, t in zip(idx, tensors):
-                full[i] = t
-            a, kw = pytree.tree_unflatten(full, in_spec)
-            out, spec = pytree.tree_flatten(fn(*a, **kw))
-            out_spec.append(spec)
-            return out
-
-        tensors = [leaves[i] for i in idx]
-        with disable_proxy_modes_tracing():
-            gm = make_fx(flat_fn)(*tensors)
-        _remove_dead_nodes(gm.graph)
-        marked = add_pipeline_marks_for_sliced_nodes(
-            gm, slice_nodes_by_boundary(gm.graph))
-        return pytree.tree_unflatten(marked(*tensors), out_spec[0])
+        gm, tensors, out_spec = trace_loss(fn, *args, **kwargs)
+        sliced = slice_layers(gm, layer_option)
+        run = (_remat_by_layer(gm, sliced) if layer_option.remat_layer
+               else add_pipeline_marks_for_sliced_nodes(gm, sliced))
+        return pytree.tree_unflatten(run(*tensors), out_spec)
 
     return wrapped
+
+
+def manual_remat(fun: Optional[Callable] = None):
+    """Recompute each manually marked layer of ``fun`` (boundaries from
+    ``mark_pipeline_boundary()``) in the backward pass, outside a pipeline
+    compile too: JAX's ``manual_remat``.  A bare decorator, or called with
+    the function."""
+
+    def decorate(f):
+        return layer_level_transform(f, ManualLayerOption(remat_layer=True))
+
+    return decorate if fun is None else decorate(fun)
+
+
+def automatic_remat(fun: Optional[Callable] = None, *, layer_num: int = 2,
+                    eps: float = 0.6):
+    """Recompute ``fun`` in the backward pass layer by layer, at the cuts
+    of ``cluster_nodes_by_cost``: JAX's ``automatic_remat``."""
+
+    def decorate(f):
+        return layer_level_transform(
+            f, AutoLayerOption(layer_num=layer_num, eps=eps,
+                               remat_layer=True))
+
+    return decorate if fun is None else decorate(fun)

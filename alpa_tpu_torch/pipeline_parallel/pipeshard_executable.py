@@ -9,13 +9,17 @@ emits RUN, RESHARD and FREE instructions; ``launch_on_driver`` places the
 inputs (microbatch slices of the batch arguments, each other input on
 every mesh that reads it), allocates the zero gradient accumulators and
 interprets the program in one Python loop.  FREE drops the program's
-reference to a value, so a value no instruction reads any more is freed;
-donated inputs have their storage released after the step.
+reference to a value, so a value no instruction reads any more is freed.
+A donated input that exactly one apply-grad graph reads (JAX's rule) is
+overwritten by that graph with an output of its shape and dtype, or freed
+right after it, so old and new state do not coexist; the other donated
+inputs have their storage released after the step.
 
 The register-file replay, threaded per-mesh dispatch and the overlap,
 fault and telemetry hooks of the JAX driver are not ported yet (ROADMAP
 A.5).
 """
+import operator
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -30,19 +34,101 @@ from alpa_tpu_torch.pipeline_parallel.runtime_emitter import (
 from alpa_tpu_torch.pipeline_parallel.schedules import \
     create_pipeline_schedule
 
+aten = torch.ops.aten
+
+
+def _aliases_its_input(node: fx.Node) -> bool:
+    """Whether a node's result may share storage with a tensor it reads: a
+    view, an in-place op, ``_unsafe_view`` or an item of such a result."""
+    if node.target is operator.getitem:
+        return True
+    if node.target is aten._unsafe_view.default:
+        return True
+    schema = getattr(node.target, "_schema", None)
+    return schema is not None and any(r.alias_info is not None
+                                      for r in schema.returns)
+
+
+def alias_donated_inputs(gm: fx.GraphModule, donate: Sequence[int],
+                         invals: Sequence[Any]) -> Dict[int, int]:
+    """Write outputs of ``gm`` into the storage of its donated inputs, the
+    counterpart of XLA's input-output aliasing of donated buffers.
+
+    ``donate`` are placeholder indices, ``invals`` the fake values of all
+    placeholders.  Outputs are taken in the order the graph computes them;
+    each computed (not viewed) output takes a donated input of its shape
+    and dtype that nothing reads after it (through a view either), the one
+    read last.  A ``copy_`` into that input follows the output's node, and
+    every later use of the output reads the input instead, so the output's
+    own tensor is freed at once.  Returns ``{output index: placeholder
+    index}``; values are bit-identical."""
+    graph = gm.graph
+    nodes = list(graph.nodes)
+    order = {n: i for i, n in enumerate(nodes)}
+    placeholders = [n for n in nodes if n.op == "placeholder"]
+    output = nodes[-1]
+    outs = list(output.args[0])
+
+    def last_read(p):
+        seen, todo, last = {p}, [p], order[p]
+        while todo:
+            for user in todo.pop().users:
+                last = max(last, order[user])
+                if user not in seen and _aliases_its_input(user):
+                    seen.add(user)
+                    todo.append(user)
+        return last
+
+    def key(val):
+        return (tuple(val.shape), val.dtype)
+
+    free = {i: (key(invals[i]), last_read(placeholders[i])) for i in donate
+            if isinstance(invals[i], torch.Tensor)}
+    pairs, done = {}, set()
+    computed = sorted((order[o], j, o) for j, o in enumerate(outs)
+                      if isinstance(o, fx.Node) and o.op == "call_function"
+                      and not _aliases_its_input(o))
+    for pos, j, o in computed:
+        val = o.meta.get("val")
+        if o in done or not isinstance(val, torch.Tensor):
+            continue
+        fits = [(last, i) for i, (k, last) in free.items()
+                if k == key(val) and last <= pos]
+        if not fits:
+            continue
+        _, i = max(fits)
+        del free[i]
+        done.add(o)
+        with graph.inserting_after(o):
+            copied = graph.call_function(aten.copy_.default,
+                                         (placeholders[i], o))
+        copied.meta = dict(o.meta)
+        o.replace_all_uses_with(copied,
+                                delete_user_cb=lambda u, c=copied: u is not c)
+        pairs[j] = i
+    gm.recompile()
+    return pairs
+
 
 class StageExecutable:
     """One computation as a ``GraphModule`` on one mesh's device, run
-    without autograd."""
+    without autograd.  ``donate``: indices of invars the graph may write
+    its outputs into (``alias_donated_inputs``); those it does not write
+    are listed in ``free_after``."""
 
     def __init__(self, comp: PipelineComputation, mesh_id: int,
-                 device: torch.device, root: torch.nn.Module):
+                 device: torch.device, root: torch.nn.Module,
+                 donate: Sequence[int] = ()):
         self.name = comp.name
         self.mesh_id = mesh_id
         self.invars = list(comp.invars)
         self.outvars = list(comp.outvars)
         self.num_nodes = len(comp.nodes)
         self.module = comp.get_runnable(root, device)
+        self.aliased = alias_donated_inputs(
+            self.module, donate, [v.meta.get("val") for v in self.invars])
+        written = set(self.aliased.values())
+        self.free_after = [i for i in donate if i not in written]
 
     def __call__(self, args):
         with torch.no_grad():
@@ -54,6 +140,14 @@ def _to_tensor(x, dtype, device) -> torch.Tensor:
         return x.to(device, non_blocking=True)
     return torch.as_tensor(np.asarray(x) if isinstance(x, np.ndarray) else x,
                            dtype=dtype, device=device)
+
+
+def _release(x: torch.Tensor, keep_ptrs):
+    """Free the storage of a donated input right after its one reader,
+    unless an undonated argument shares it."""
+    storage = x.untyped_storage()
+    if storage.data_ptr() not in keep_ptrs and storage.resizable():
+        storage.resize_(0)
 
 
 class PipeshardDriverExecutable:
@@ -88,16 +182,38 @@ class PipeshardDriverExecutable:
             StageExecutable(c, s, self.mesh_devices[s], root)
             for s, c in enumerate(bwd_stages)]
         self.num_fwd_stages = len(fwd_stages)
+        # JAX's rule: a donated state input that exactly one apply
+        # computation reads is donated to it, so old and new state never
+        # coexist (an input the step returns as it is stays)
+        returned = set(v for v in global_outvars if isinstance(v, fx.Node))
+        donated_global = {v for v, d in zip(global_invars, donated_invars)
+                          if d and v not in returned}
+        use_count: Dict[fx.Node, int] = {}
+        for comp in apply_comps:
+            for v in comp.invars:
+                use_count[v] = use_count.get(v, 0) + 1
         self.apply_execs = [
-            StageExecutable(c, m, self.mesh_devices[m], root)
+            StageExecutable(c, m, self.mesh_devices[m], root, donate=[
+                i for i, v in enumerate(c.invars)
+                if v in donated_global and use_count[v] == 1])
             if c.nodes or c.outvars else None
             for m, c in enumerate(apply_comps)]
+        index = {v: i for i, v in enumerate(global_invars)}
+        self._written_inputs = sorted(
+            index[e.invars[i]] for e in self.apply_execs if e is not None
+            for i in e.aliased.values())
         self.schedule = create_pipeline_schedule(
             schedule_name, num_stages=2 * self.num_meshes,
             num_meshes=self.num_meshes, num_batch=num_micro_batches)
         self._emit()
         # set by the compiler: the seconds of the trace and of the rest
         self.trace_seconds = self.compile_seconds = 0.0
+        # set by parallelize: the seconds of auto donation's fake pass
+        self.donation_seconds = 0.0
+        # set by the compiler: the forward layer computations, and what
+        # the stage DP decided when it chose the stages
+        self.fwd_layer_comps: List[PipelineComputation] = []
+        self.stage_dp_info = None
         self.executed_resharding_bytes = 0
         self._peak_bytes = -1
 
@@ -233,10 +349,14 @@ class PipeshardDriverExecutable:
             torch.cuda.reset_peak_memory_stats(d)
         env: Dict[Tuple[Any, int], Dict[int, torch.Tensor]] = {}
         n_mb = self.num_micro_batches
+        inputs = self._unshare_written_inputs(flat_args)
+        undonated = {x.untyped_storage().data_ptr()
+                     for x, d in zip(flat_args, self.donated_invars)
+                     if isinstance(x, torch.Tensor) and not d}
         for v, meshes in self.input_place.items():
             i = self._input_index[v]
             for m in meshes:
-                x = _to_tensor(flat_args[i], self.in_dtypes[i],
+                x = _to_tensor(inputs[i], self.in_dtypes[i],
                                self.mesh_devices[m])
                 if self.batch_invars[i]:
                     for mb, part in enumerate(x.chunk(n_mb)):
@@ -254,6 +374,8 @@ class PipeshardDriverExecutable:
                 outs = inst.executable([env[k][m] for k in inst.input_keys])
                 for k, o in zip(inst.output_keys, outs):
                     env.setdefault(k, {})[m] = o
+                for i in inst.executable.free_after:
+                    _release(env[inst.input_keys[i]].pop(m), undonated)
             elif inst.opcode == PipelineInstType.RESHARD:
                 x, n = reshard(env[inst.var_key][inst.src_mesh],
                                self.mesh_devices[inst.dst_mesh])
@@ -278,6 +400,20 @@ class PipeshardDriverExecutable:
             self._peak_bytes = max(torch.cuda.max_memory_allocated(d)
                                    for d in devices)
         return outs
+
+    def _unshare_written_inputs(self, flat_args):
+        """The arguments, with a copy of each one an apply graph writes in
+        place whose storage another argument shares."""
+        ptrs = [x.untyped_storage().data_ptr()
+                if isinstance(x, torch.Tensor) else None for x in flat_args]
+        shared = [i for i in self._written_inputs
+                  if ptrs[i] is not None and ptrs.count(ptrs[i]) > 1]
+        if not shared:
+            return flat_args
+        args = list(flat_args)
+        for i in shared:
+            args[i] = args[i].clone()
+        return args
 
     def _free_donated(self, flat_args, outs):
         """Release the storage of donated input tensors that no output and

@@ -1,12 +1,14 @@
 """Stage construction: group layers into stages and slice the mesh.
 
-Counterpart of ``alpa_tpu/pipeline_parallel/stage_construction.py`` for
-``UniformStageOption`` and ``ManualStageOption``.  ``AutoStageOption`` (the
-OSDI'22 stage DP of ``stage_dp.py``) raises ``NotImplementedError``
-(ROADMAP A.5).
+Counterpart of ``alpa_tpu/pipeline_parallel/stage_construction.py``:
+``UniformStageOption``, ``ManualStageOption`` and ``AutoStageOption`` (the
+OSDI'22 stage DP of ``stage_dp.py``, whose optimum must put every stage on
+one device until the intra-op ILP is ported, ROADMAP A.3), submesh
+enumeration and mesh slicing.  The compile cache of the DP's decisions is
+not ported (ROADMAP A.6).
 """
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,17 +37,56 @@ class ManualStageOption(StageOption):
 
 @dataclasses.dataclass
 class AutoStageOption(StageOption):
-    """The stage DP's search space (not ported yet)."""
+    """Search the layer -> stage clustering and the submesh shapes with the
+    stage DP.  ``memory_budget_per_device`` (bytes, None: unconstrained) and
+    ``stage_imbalance_tolerance`` are ported.  ``submesh_logical_shape_space``
+    is searched by the intra-op planner, and is kept for the API.  The
+    fields of the communication term and of measured profiling
+    (``use_hlo_cost_model``, ``profiling_mode``,
+    ``profiling_database_filename``, ``measured_candidates_limit``,
+    ``measured_compile_workers``) and ``cached_compute_cost`` raise when set
+    to anything but their defaults (ROADMAP A.3, A.6)."""
     submesh_physical_shape_space: str = "power_of_two"
     submesh_logical_shape_space: str = "single_node_model_parallel"
     stage_imbalance_tolerance: float = np.inf
+    use_hlo_cost_model: bool = True
+    profiling_database_filename: Optional[str] = None
+    profiling_mode: str = "cost_model"
+    measured_candidates_limit: int = 16
+    measured_compile_workers: int = 4
+    cached_compute_cost: Optional[str] = None
+    memory_budget_per_device: Optional[float] = None
 
 
-def check_stage_option(stage_option: Optional[StageOption]):
-    if isinstance(stage_option, AutoStageOption):
-        raise NotImplementedError(
-            "AutoStageOption: the stage DP (stage_dp.py) is not ported yet "
-            "(ROADMAP A.5); use UniformStageOption or ManualStageOption")
+def get_submesh_choices(num_hosts: int, num_devices_per_host: int,
+                        space: str = "power_of_two"
+                        ) -> List[Tuple[int, int]]:
+    """The candidate submesh shapes: (1, 2^k) within a host, then (k, every
+    device of a host) across hosts, k by ``space`` ("all",
+    "power_of_two", "small_power_of_two")."""
+    choices = []
+    i = 1
+    while i <= num_devices_per_host:
+        choices.append((1, i))
+        i *= 2
+    if choices[-1][1] != num_devices_per_host:
+        raise ValueError("num_devices_per_host must be a power of two")
+    if space == "all":
+        for k in range(2, num_hosts + 1):
+            choices.append((k, num_devices_per_host))
+    elif space == "power_of_two":
+        k = 2
+        while k <= num_hosts:
+            choices.append((k, num_devices_per_host))
+            k *= 2
+    elif space == "small_power_of_two":
+        k = 2
+        while k <= min(num_hosts, 4):
+            choices.append((k, num_devices_per_host))
+            k *= 2
+    else:
+        raise ValueError(f"invalid submesh space: {space!r}")
+    return choices
 
 
 def get_sliced_virtual_submeshes(virtual_mesh: VirtualPhysicalMesh,
@@ -100,14 +141,22 @@ def uniform_layer_to_stage(num_layers: int, num_stages: int
 
 def cluster_layers_and_slice_mesh(num_forward_layers: int,
                                   virtual_mesh: VirtualPhysicalMesh,
-                                  stage_option: Optional[StageOption]):
-    """(forward_stage_layer_ids, submeshes)."""
+                                  stage_option: Optional[StageOption],
+                                  layer_comps=None,
+                                  num_micro_batches: int = 1,
+                                  schedule: str = "1f1b"):
+    """``(forward_stage_layer_ids, submeshes, stage_dp_info)``; the info is
+    None unless the stage DP ran (``AutoStageOption``)."""
     stage_option = stage_option or UniformStageOption()
-    check_stage_option(stage_option)
     if isinstance(stage_option, ManualStageOption):
         return (stage_option.forward_stage_layer_ids,
                 get_sliced_virtual_submeshes(
-                    virtual_mesh, stage_option.submesh_physical_shapes))
+                    virtual_mesh, stage_option.submesh_physical_shapes), None)
+    if isinstance(stage_option, AutoStageOption):
+        from alpa_tpu_torch.pipeline_parallel.stage_dp import auto_stage_dp
+        return auto_stage_dp(num_forward_layers, virtual_mesh, stage_option,
+                             layer_comps, num_micro_batches,
+                             schedule=schedule)
     num_stages = stage_option.num_stages
     if num_stages is None:
         num_stages = (virtual_mesh.num_hosts if virtual_mesh.num_hosts > 1
@@ -126,4 +175,4 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
                 f"{num_stages} equal pipeline stages; pass a stage_option "
                 "with num_stages dividing the device count")
         shapes = [(1, virtual_mesh.num_devices // num_stages)] * num_stages
-    return fwd_ids, get_sliced_virtual_submeshes(virtual_mesh, shapes)
+    return fwd_ids, get_sliced_virtual_submeshes(virtual_mesh, shapes), None

@@ -61,7 +61,21 @@ Phases, each reported on its own line:
    ``ShardParallel`` step from the same state and batch, and exactly 96
    forward, 96 dq and 96 dk/dv launches per step; step time, tokens/s,
    TFLOPS, MFU, peak memory, trace and build time, the instruction counts
-   and the schedule, then ``torch.profiler`` over two more steps.
+   and the schedule, then ``torch.profiler`` over two more steps; then
+   the peak of its third step without and with the in-place apply-grad,
+   each built in this run, with bit-identical losses;
+9. pipeshard auto-layer fidelity: the fidelity check of phase 8 for 4
+   layers without boundaries under ``AutoLayerOption(layer_num=4,
+   remat_layer=True)``;
+10. pipeshard auto: the README's headline form at full width and depth,
+   GPT-1.3B with no boundaries under ``AutoLayerOption(layer_num=8,
+   remat_layer=True)`` and ``UniformStageOption(2)``, 4 microbatches, 1F1B,
+   as phase 8 measures it (first loss within 1e-6 of ``ShardParallel``'s,
+   192 forward launches per step: each block's forward runs again in its
+   layer's backward), with the layer cuts (blocks and flops per layer);
+   then one step under ``get_3d_parallel_method(dp=1, op=1, pp=2)`` and one
+   under ``AutoStageOption`` on one card (the stage DP's partition, solver
+   and solve time), each first loss within 1e-6 of ``ShardParallel``'s.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
@@ -83,8 +97,9 @@ import torch
 import torch.nn.functional as F
 
 import alpa_tpu_torch
-from alpa_tpu_torch import (ManualLayerOption, PipeshardParallel,
-                            UniformStageOption)
+from alpa_tpu_torch import (AutoLayerOption, AutoStageOption,
+                            ManualLayerOption, PipeshardParallel,
+                            UniformStageOption, get_3d_parallel_method)
 from alpa_tpu_torch.model.gpt_model import (GPTModel, config_from_opt_spec,
                                             config_from_spec, init_random_)
 from alpa_tpu_torch.model.model_util import (TrainState, adam, gpt_lm_loss,
@@ -93,7 +108,7 @@ from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.ops import flash_attention as fa
 from alpa_tpu_torch.serve import GenerationConfig, get_model, run_controller
 from alpa_tpu_torch.telemetry.perf import GPU_SPECS, compute_mfu
-from alpa_tpu_torch.util import compute_gpt_tflops
+from alpa_tpu_torch.util import compute_gpt_tflops, node_flops
 
 SEED = 0
 LR = 1e-4   # Adam's learning rate in every training phase
@@ -548,12 +563,13 @@ def phase_fidelity():
     check(diff < 1e-3, f"fp32 logits differ by {diff}")
 
 
-def make_train_step(method=None):
+def make_train_step(method=None, donate_argnums=(0,)):
     """``bench.py``'s train step, through the port (``ShardParallel()`` by
     default)."""
 
     @alpa_tpu_torch.parallelize(
-        method=method or alpa_tpu_torch.ShardParallel(), donate_argnums=(0,))
+        method=method or alpa_tpu_torch.ShardParallel(),
+        donate_argnums=donate_argnums)
     def train_step(state, batch):
 
         def loss_fn(p):
@@ -784,6 +800,18 @@ def pipeshard_method(num_micro_batches):
                              pipeline_schedule="1f1b")
 
 
+def auto_pipeshard_method(num_micro_batches, layer_num, devices=None,
+                          stage_option=None):
+    """The README's headline form: automatic remat layers, by default in
+    two uniform stages on ``stage_devices()``."""
+    return PipeshardParallel(
+        devices=devices or stage_devices(),
+        num_micro_batches=num_micro_batches,
+        layer_option=AutoLayerOption(layer_num=layer_num, remat_layer=True),
+        stage_option=stage_option or UniformStageOption(num_stages=2),
+        pipeline_schedule="1f1b")
+
+
 def max_rel_diff(got, want):
     """{name: max |got - want| / max |want|} (``got`` may lie on another
     stage's card)."""
@@ -818,15 +846,31 @@ def param_diffs(got, want, grads, bound):
 
 
 def phase_pipeshard_fidelity():
-    """fp32, 4 layers at GPT-1.3B's width, batch 4, from the same weights
-    through PipeshardParallel (2 microbatches, 2 stages, 1F1B) and through
-    ShardParallel: step-0 gradients (the microbatch mean against the whole
-    batch's), then 2 Adam steps."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Manual layers (a boundary every 2 blocks), 2 microbatches, 2 stages,
+    1F1B, against ShardParallel (``pipeshard_fidelity``)."""
     cfg = dataclasses.replace(
         config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash",
                          pipeline_boundary_every=2), num_layers=4)
+    pipeshard_fidelity("pipeshard fidelity", cfg, lambda: pipeshard_method(2))
+
+
+def phase_pipeshard_auto_fidelity():
+    """``AutoLayerOption(layer_num=4, remat_layer=True)`` (no boundaries),
+    2 microbatches, 2 stages, 1F1B, against ShardParallel
+    (``pipeshard_fidelity``)."""
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash"),
+        num_layers=4)
+    pipeshard_fidelity("pipeshard auto-layer fidelity", cfg,
+                       lambda: auto_pipeshard_method(2, 4))
+
+
+def pipeshard_fidelity(label, cfg, method):
+    """fp32, 4 layers at GPT-1.3B's width, batch 4, from the same weights
+    through ``method()`` and through ShardParallel: step-0 gradients (the
+    microbatch mean against the whole batch's), then 2 Adam steps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     batch = lm_batch(cfg, 4)
 
     def grad_step(state, batch):
@@ -834,19 +878,18 @@ def phase_pipeshard_fidelity():
             lambda p: gpt_lm_loss(state.apply_fn, p, batch))(state.params)
 
     runs = {}
-    for name, method in (("pipeshard", lambda: pipeshard_method(2)),
-                         ("shard", shard_method)):
+    for name, make in (("pipeshard", method), ("shard", shard_method)):
         state = train_state(cfg)
         reset_launch_counts()
         _, grads = alpa_tpu_torch.parallelize(
-            grad_step, method=method(), donate_argnums=())(state, batch)
-        train_step = make_train_step(method())
+            grad_step, method=make(), donate_argnums=())(state, batch)
+        train_step = make_train_step(make())
         losses = []
         for _ in range(2):
             state, loss = train_step(state, batch)
             losses.append(float(loss))
         check(min(launch_counts()) > 0,
-              f"{name} fidelity run did not go through the kernels")
+              f"{label}: the {name} run did not go through the kernels")
         runs[name] = (losses, grads, state.params)
         del state, train_step
     (p_losses, p_grads, p_params), (s_losses, s_grads, s_params) = \
@@ -858,51 +901,91 @@ def phase_pipeshard_fidelity():
                                                        s_grads, bound)
     worst_g = max(grad_rel, key=grad_rel.get)
     worst_p = max(param_rel, key=param_rel.get)
-    print(f"pipeshard fidelity: fp32 GPT-1.3B at 4 layers, batch 4, 2 "
-          f"microbatches, 2 stages; step-0 gradients max |diff| / max |g| "
-          f"per tensor {grad_rel[worst_g]:.3e} at {worst_g} (tol 1e-4); 2 "
-          f"Adam steps: losses pipeshard {p_losses} shard {s_losses}, max "
-          f"relative difference {loss_rel:.3e} (tol 1e-5); parameters max "
-          f"|diff| / max |p| per tensor {param_rel[worst_p]:.3e} at "
-          f"{worst_p} (tol 1e-4) over the elements whose step-0 gradient is "
-          f"at least 1e-2 of its tensor's largest; the other {n_small} of "
-          f"{n_all} elements differ by at most {small_max:.3e} (tol "
-          f"{bound:.1e}, Adam's 2 x lr x steps)")
+    print(f"{label}: fp32 GPT-1.3B at 4 layers, batch 4, 2 microbatches, 2 "
+          f"stages; step-0 gradients max |diff| / max |g| per tensor "
+          f"{grad_rel[worst_g]:.3e} at {worst_g} (tol 1e-4); 2 Adam steps: "
+          f"losses pipeshard {p_losses} shard {s_losses}, max relative "
+          f"difference {loss_rel:.3e} (tol 1e-5); parameters max |diff| / "
+          f"max |p| per tensor {param_rel[worst_p]:.3e} at {worst_p} (tol "
+          f"1e-4) over the elements whose step-0 gradient is at least 1e-2 "
+          f"of its tensor's largest; the other {n_small} of {n_all} elements "
+          f"differ by at most {small_max:.3e} (tol {bound:.1e}, Adam's 2 x "
+          f"lr x steps)")
     check(grad_rel[worst_g] <= 1e-4,
-          f"pipeshard gradient {worst_g} differs by {grad_rel[worst_g]}")
-    check(loss_rel <= 1e-5, f"pipeshard losses differ by {loss_rel}")
+          f"{label}: gradient {worst_g} differs by {grad_rel[worst_g]}")
+    check(loss_rel <= 1e-5, f"{label}: losses differ by {loss_rel}")
     check(param_rel[worst_p] <= 1e-4,
-          f"pipeshard parameter {worst_p} differs by {param_rel[worst_p]}")
-    check(small_max <= bound, f"pipeshard parameters with near-zero "
+          f"{label}: parameter {worst_p} differs by {param_rel[worst_p]}")
+    check(small_max <= bound, f"{label}: parameters with near-zero "
           f"gradients differ by {small_max}, over Adam's bound {bound}")
     del runs
     torch.cuda.empty_cache()
 
 
-def phase_pipeshard(shard_profile):
-    """GPT-1.3B at full width and depth through PipeshardParallel; returns
-    the (fwd, dq, dkv) launches of its run."""
-    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
-                           attention_impl="flash", pipeline_boundary_every=12)
-    batch_size, num_micro_batches, warmup, n_iter = 8, 4, 3, 5
-    batch = lm_batch(cfg, batch_size)
-    # the reference: one ShardParallel step from the same state and batch
+def pipeshard_config(**kw):
+    """GPT-1.3B at full width and depth for the pipeshard phases: bf16
+    compute, flash, no per-block remat (not ported inside a pipeshard
+    trace)."""
+    return config_from_spec("1.3B", dtype=torch.bfloat16,
+                            attention_impl="flash", **kw)
+
+
+def shard_first_loss(cfg, batch):
+    """The loss of one ShardParallel step from the seed state: the
+    reference of the pipeshard phases' first loss."""
     state = train_state(cfg)
     ref_step = make_train_step(shard_method())
-    state, ref_loss = ref_step(state, batch)
-    ref_loss = float(ref_loss)
+    state, loss = ref_step(state, batch)
+    loss = float(loss)
     del state, ref_step
     torch.cuda.empty_cache()
+    return loss
 
+
+def first_loss(method, cfg, batch):
+    """The loss of one step under ``method`` from the seed state, and the
+    step's executable."""
+    state = train_state(cfg)
+    step = make_train_step(method)
+    state, loss = step(state, batch)
+    loss, ex = float(loss), step.get_last_executable()
+    del state, step
+    torch.cuda.empty_cache()
+    return loss, ex
+
+
+def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
+                    forward_runs=1):
+    """Train ``cfg`` through the pipeshard ``method`` from the seed state: 3
+    warm-up and 5 timed steps, then ``torch.profiler`` over 2 more.  Checks
+    a finite, falling loss, the first loss against ``ref_loss`` (relative
+    ``ref_tol``) and the flash launches per step (``forward_runs`` forward
+    launches per block and microbatch, one of each backward kernel); prints
+    the step's metrics.  Returns the (fwd, dq, dkv) launches of the run and
+    the executable."""
+    batch_size, num_micro_batches = 8, method.num_micro_batches
+    warmup, n_iter = 3, 5
+    cards = sorted(set(str(d) for d in method.devices.devices.flat))
+    # what earlier phases still hold (objects in reference cycles wait for
+    # a collection) would count in this phase's peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = max(torch.cuda.memory_allocated(d) for d in cards)
     state = train_state(cfg)
     n_params = sum(p.numel() for p in state.params.values())
-    train_step = make_train_step(pipeshard_method(num_micro_batches))
+    # the user's default: auto donation, its fake pass timed
+    train_step = make_train_step(method, donate_argnums="auto")
     reset_launch_counts()
     tic = time.perf_counter()
     state, loss = train_step(state, batch)
     losses = [float(loss)]
     first_s = time.perf_counter() - tic
     ex = train_step.get_last_executable()
+    n_leaves = len(torch.utils._pytree.tree_leaves(state))
+    donated = train_step.get_donated_invars(state, batch)
+    check(sum(donated) == n_leaves and all(donated[:n_leaves]),
+          f"{label}: auto donation donated {sum(donated)} leaves, want the "
+          f"state's {n_leaves}")
     for _ in range(warmup - 1):
         state, loss = train_step(state, batch)
         losses.append(float(loss))
@@ -929,32 +1012,36 @@ def phase_pipeshard(shard_profile):
     losses = [float(x) for x in losses]
     steps = warmup + n_iter
     want = num_micro_batches * cfg.num_layers
-    check(counts == (want * steps,) * 3,
-          f"pipeshard launches (fwd, dq, dkv) {counts} over {steps} steps; "
-          f"want {want} each per step")
-    check(all(np.isfinite(losses)), f"non-finite pipeshard loss: {losses}")
-    check(losses[-1] < losses[0], f"pipeshard loss did not fall: {losses}")
+    want = (forward_runs * want, want, want)
+    check(counts == tuple(w * steps for w in want),
+          f"{label} launches (fwd, dq, dkv) {counts} over {steps} steps; "
+          f"want {want} per step")
+    check(all(np.isfinite(losses)), f"non-finite {label} loss: {losses}")
+    check(losses[-1] < losses[0], f"{label} loss did not fall: {losses}")
     ref_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
-    check(ref_rel <= 1e-2, f"pipeshard first loss {losses[0]} vs "
+    check(ref_rel <= ref_tol, f"{label} first loss {losses[0]} vs "
           f"ShardParallel {ref_loss}: {ref_rel} relative")
     tokens_per_sec = batch_size * cfg.seq_len / latency
-    n_cards = len(set(stage_devices()))
+    n_cards = len(cards)
     tflops = compute_gpt_tflops(batch_size, cfg.seq_len, cfg.num_layers,
                                 cfg.hidden_size, cfg.vocab_size, n_cards,
                                 latency)
     peak = SPEC["peak_bf16_tflops"]
     mfu = compute_mfu(tflops, peak)
     card = card_line()
-    print(f"pipeshard: GPT-1.3B ({cfg.num_layers} layers, hidden "
+    layer = method.layer_option
+    print(f"{label}: GPT-1.3B ({cfg.num_layers} layers, hidden "
           f"{cfg.hidden_size}, {n_params} params, bf16 compute, fp32 params "
-          f"and Adam, flash, no remat), batch {batch_size} x seq "
-          f"{cfg.seq_len} in {num_micro_batches} microbatches, 2 stages on "
-          f"{stage_devices()}, 1f1b; launches per step fwd "
+          f"and Adam, flash), {layer}, batch {batch_size} x seq "
+          f"{cfg.seq_len} in {num_micro_batches} microbatches, "
+          f"{ex.num_fwd_stages} stages on {list(method.devices.devices.flat)}"
+          f", {method.pipeline_schedule}; launches per step fwd "
           f"{counts[0] // steps} dq {counts[1] // steps} dkv "
           f"{counts[2] // steps}; losses "
           f"{['%.4f' % x for x in losses]}; first loss vs ShardParallel "
-          f"{ref_loss:.4f}: {ref_rel:.3e} relative (tol 1e-2)")
-    print(f"pipeshard compile [{card}]: trace {ex.trace_seconds:.3f} s, "
+          f"{ref_loss:.4f}: {ref_rel:.3e} relative (tol {ref_tol:.0e})")
+    print(f"{label} compile [{card}]: auto donation's fake pass "
+          f"{ex.donation_seconds:.3f} s, trace {ex.trace_seconds:.3f} s, "
           f"slicing, stage graphs and program {ex.compile_seconds:.3f} s, "
           f"first call "
           f"{first_s:.3f} s; stage nodes " + ", ".join(
@@ -962,19 +1049,20 @@ def phase_pipeshard(shard_profile):
               [a for a in ex.apply_execs if a is not None]) +
           f"; instructions {ex.get_instruction_counts()}; executed "
           f"resharding bytes per step {ex.executed_resharding_bytes}")
-    print("pipeshard schedule:\n" + ex.get_schedule_text())
+    print(f"{label} schedule:\n" + ex.get_schedule_text())
     peak_bytes = ex.get_total_allocation_size()
-    print(f"pipeshard metrics [{card}]: step {latency:.5f} s, "
+    print(f"{label} metrics [{card}]: step {latency:.5f} s, "
           f"{tokens_per_sec:.1f} tokens/s, {tflops:.3f} TFLOPS "
           f"(compute_gpt_tflops over {n_cards} card(s)), MFU {mfu:.4f} of "
           f"{peak} TFLOP/s bf16, peak allocated "
-          f"{peak_bytes / 2**30:.3f} GiB; host {host:.5f} s per step until "
-          f"the step call returns; Python's full garbage collections in the "
+          f"{peak_bytes / 2**30:.3f} GiB ({held / 2**30:.3f} GiB of it held "
+          f"before the phase); host {host:.5f} s per step until the step "
+          f"call returns; Python's full garbage collections in the "
           f"{n_iter} timed steps: {len(gc_s)}, {sum(gc_s):.5f} s")
     state, profile = profile_steps(train_step, state, batch, 2, latency,
-                                   label="pipeshard")
+                                   label=label)
     if profile and shard_profile.get("busy_share") is not None:
-        print(f"pipeshard vs ShardParallel (phase 6) [{card}]: device time "
+        print(f"{label} vs ShardParallel (phase 6) [{card}]: device time "
               f"per step {profile['device_s_per_step']:.5f} vs "
               f"{shard_profile['device_s_per_step']:.5f} s, device share of "
               f"the step {profile['device_share']:.4f} vs "
@@ -983,7 +1071,132 @@ def phase_pipeshard(shard_profile):
               f"{shard_profile['busy_share']:.4f}; step {latency:.5f} vs "
               f"{shard_profile['latency']:.5f} s")
     counts = launch_counts()   # the timed and the profiled steps
-    del state, train_step, ex
+    del state, train_step
+    torch.cuda.empty_cache()
+    return counts, ex
+
+
+def apply_grad_peaks(cfg, batch, steps=3):
+    """The peak of phase 8's step without and with the in-place apply-grad
+    (a donated state input that one apply-grad graph reads is written in
+    place by it or freed right after it), in that order, each from the seed
+    state after the same collection, built in this process.  Without it
+    the apply-grad graphs are built with no donated inputs, so donated
+    storage is released only after the whole step.  Returns ``{variant:
+    (peak bytes of the last of ``steps`` steps, bytes held before,
+    losses)}``; checks that both give the same losses, bit for bit."""
+    from alpa_tpu_torch.pipeline_parallel import pipeshard_executable as pe
+    init = pe.StageExecutable.__init__
+
+    def undonated(self, comp, mesh_id, device, root, donate=()):
+        init(self, comp, mesh_id, device, root)
+
+    out = {}
+    for variant in ("without", "with"):
+        method = pipeshard_method(4)
+        cards = sorted(set(str(d) for d in method.devices.devices.flat))
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = max(torch.cuda.memory_allocated(d) for d in cards)
+        state = train_state(cfg)
+        step = make_train_step(method, donate_argnums="auto")
+        if variant == "without":
+            pe.StageExecutable.__init__ = undonated
+        try:
+            state, loss = step(state, batch)   # builds the executable
+        finally:
+            pe.StageExecutable.__init__ = init
+        losses = [float(loss)]
+        for _ in range(steps - 1):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        out[variant] = (step.get_last_executable().get_total_allocation_size(),
+                        held, losses)
+        del state, step
+        torch.cuda.empty_cache()
+    check(out["without"][2] == out["with"][2],
+          f"the in-place apply-grad changed the losses: {out}")
+    return out
+
+
+def phase_pipeshard(shard_profile):
+    """GPT-1.3B at full width and depth through PipeshardParallel with manual
+    layers (a boundary every 12 blocks), 2 stages, 4 microbatches; then its
+    peak without and with the in-place apply-grad (``apply_grad_peaks``).
+    Returns the (fwd, dq, dkv) launches of the timed run and the
+    ShardParallel reference loss."""
+    cfg = pipeshard_config(pipeline_boundary_every=12)
+    batch = lm_batch(cfg, 8)
+    ref_loss = shard_first_loss(cfg, batch)
+    counts, _ = timed_pipeshard("pipeshard", cfg, pipeshard_method(4), batch,
+                                ref_loss, 1e-2, shard_profile)
+    peaks = apply_grad_peaks(cfg, batch)
+    (off, off_held, losses), (on, on_held, _) = peaks["without"], peaks["with"]
+    print(f"pipeshard apply-grad peaks [{card_line()}]: step "
+          f"{len(losses)} of the seed state, peak allocated without the "
+          f"in-place apply-grad {off / 2**30:.3f} GiB ({off_held / 2**30:.3f}"
+          f" GiB held before), with it {on / 2**30:.3f} GiB "
+          f"({on_held / 2**30:.3f} GiB held before): "
+          f"{(off - on) / 2**30:.3f} GiB less; losses bit-identical "
+          f"{['%.6f' % x for x in losses]}")
+    return counts, ref_loss
+
+
+def phase_pipeshard_auto(shard_profile, ref_loss=None):
+    """The README's headline form at full width and depth: GPT-1.3B with no
+    boundaries, ``AutoLayerOption(layer_num=8, remat_layer=True)``, 2
+    uniform stages, 4 microbatches, 1F1B; each block's flash forward runs
+    twice (the recompute).  Prints the layer cuts; then one step under
+    ``get_3d_parallel_method`` (dp = op = 1, pp = 2) and one under
+    ``AutoStageOption`` on one device, each first loss held to
+    ShardParallel's.  Returns the (fwd, dq, dkv) launches of the timed
+    run."""
+    cfg = pipeshard_config()
+    batch = lm_batch(cfg, 8)
+    if ref_loss is None:
+        ref_loss = shard_first_loss(cfg, batch)
+    label = "pipeshard auto"
+    counts, ex = timed_pipeshard(label, cfg, auto_pipeshard_method(4, 8),
+                                 batch, ref_loss, 1e-6, shard_profile,
+                                 forward_runs=2)
+    flash = torch.ops.alpa_tpu_torch.flash_fwd.default
+    cuts = [(sum(n.target is flash for n in c.nodes),
+             sum(node_flops(n) for n in c.nodes)) for c in ex.fwd_layer_comps]
+    check(len(cuts) == 8 and sum(b for b, _ in cuts) == cfg.num_layers,
+          f"{label}: layer cuts {cuts}")
+    print(f"{label} layers: (blocks, forward flops per microbatch by "
+          f"node_flops) {cuts}; stages {len(ex.fwd_layer_comps)} layers in "
+          f"{ex.num_fwd_stages}")
+    del ex
+
+    method = get_3d_parallel_method(num_micro_batches=4, data_parallel=1,
+                                    operator_parallel=1, pipeline_parallel=2,
+                                    devices=stage_devices())
+    loss, ex = first_loss(method, cfg, batch)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"{label} get_3d_parallel_method(dp=1, op=1, pp=2): "
+          f"{method.layer_option}, first loss {loss:.6f}, {rel:.3e} relative "
+          f"to ShardParallel (tol 1e-6); trace {ex.trace_seconds:.3f} s")
+    check(rel <= 1e-6, f"{label}: 3D method's first loss {loss} vs "
+          f"{ref_loss}")
+    del ex
+
+    method = auto_pipeshard_method(4, 8, devices=stage_devices()[:1],
+                                   stage_option=AutoStageOption())
+    loss, ex = first_loss(method, cfg, batch)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    info = ex.stage_dp_info
+    print(f"{label} AutoStageOption on one card [{card_line()}]: partition "
+          f"{info['partition']} of {len(ex.fwd_layer_comps)} layers, solver "
+          f"{info['solver']}, solve {info['solve_seconds']:.6f} s, the stage "
+          f"DP with its cost tensor {info['seconds']:.6f} s; first loss "
+          f"{loss:.6f}, {rel:.3e} relative to ShardParallel (tol 1e-6)")
+    check(info["solver"].startswith("native") and
+          info["partition"] == [(0, 8, (1, 1))],
+          f"{label}: stage DP {info}")
+    check(rel <= 1e-6, f"{label}: AutoStageOption's first loss {loss} vs "
+          f"{ref_loss}")
+    del ex
     torch.cuda.empty_cache()
     return counts
 
@@ -1035,18 +1248,23 @@ def main() -> int:
             (fwd_train["ms"], *(e["ms"] for e in bwd_entries)))
         phase_train_fidelity()
         phase_pipeshard_fidelity()
-        pipe = phase_pipeshard(shard_profile)
+        phase_pipeshard_auto_fidelity()
+        pipe, ref_loss = phase_pipeshard(shard_profile)
+        auto = phase_pipeshard_auto(shard_profile, ref_loss)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    fwd_entry["launches"] = serving + train_fwd + pipe[0]
+    fwd_entry["launches"] = serving + train_fwd + pipe[0] + auto[0]
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "training": train_fwd,
-                                     "pipeshard": pipe[0]}
+                                     "pipeshard": pipe[0],
+                                     "pipeshard_auto": auto[0]}
     fwd_entry["at_training_shape"] = fwd_train
-    for entry, n, p in zip(bwd_entries, (train_dq, train_dkv), pipe[1:]):
-        entry["launches"] = n + p
-        entry["launches_by_path"] = {"training": n, "pipeshard": p}
+    for entry, n, p, a in zip(bwd_entries, (train_dq, train_dkv), pipe[1:],
+                              auto[1:]):
+        entry["launches"] = n + p + a
+        entry["launches_by_path"] = {"training": n, "pipeshard": p,
+                                     "pipeshard_auto": a}
     print(card_line())
     print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {

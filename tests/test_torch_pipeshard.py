@@ -38,8 +38,7 @@ from alpa_tpu.pipeline_parallel.primitive_def import \
 from alpa_tpu.pipeline_parallel.primitive_def import pipeline_p
 from alpa_tpu.pipeline_parallel.runtime_emitter import \
     partition_streams as jax_partition_streams
-from alpa_tpu_torch import (AutoLayerOption, AutoStageOption,
-                            ManualLayerOption, ManualStageOption,
+from alpa_tpu_torch import (ManualLayerOption, ManualStageOption,
                             PipeshardParallel, UniformStageOption)
 from alpa_tpu_torch import testing as ttesting
 from alpa_tpu_torch.model import gpt_model as tgm
@@ -48,8 +47,6 @@ from alpa_tpu_torch.model.convert import (gpt_params_from_flax,
                                           mlp_params_from_flax)
 from alpa_tpu_torch.pipeline_parallel import compile_executable as tce
 from alpa_tpu_torch.pipeline_parallel import primitive_def
-from alpa_tpu_torch.pipeline_parallel.layer_construction import \
-    FollowLayerOption
 from alpa_tpu_torch.pipeline_parallel.runtime_emitter import \
     PipelineInstType
 
@@ -423,15 +420,17 @@ def test_gpt_matches_jax_train_step():
 
 
 def test_donation_frees_and_marks_the_old_state_deleted():
-    """The donated state's tensors are released after the step (their
-    storage has no bytes left), and passing the state again raises."""
+    """The donated state's storage is handed on: the apply-grad graph
+    writes each new parameter into its old parameter's storage, as JAX
+    donates a state input to the one apply computation that reads it; the
+    other donated tensors are released.  Passing the state again raises."""
     _, t_state, batch = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
     pstep = alpa_tpu_torch.parallelize(_port_step,
                                        method=_port_method(2, 2, "1f1b"))
     old = t_state
+    old_ptrs = {k: p.data_ptr() for k, p in old.params.items()}
     new, _ = pstep(t_state, batch)
-    assert all(p.untyped_storage().nbytes() == 0
-               for p in old.params.values())
+    assert {k: p.data_ptr() for k, p in new.params.items()} == old_ptrs
     assert all(p.untyped_storage().nbytes() > 0
                for p in new.params.values())
     with pytest.raises(RuntimeError, match="donated"):
@@ -442,15 +441,9 @@ def test_donation_frees_and_marks_the_old_state_deleted():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(layer_option=AutoLayerOption()), "A.5"),
-    (dict(layer_option=None), "A.5"),
-    (dict(layer_option=FollowLayerOption()), "A.5"),
-    (dict(layer_option=ManualLayerOption(remat_layer=True)), "A.5"),
-    (dict(stage_option=AutoStageOption()), "A.5"),
     (dict(default_auto_sharding_option=object()), "A.3"),
     (dict(stage_input_shardings=[None]), "A.3"),
-], ids=["auto-layer", "no-layer-option", "follow-layer", "remat-layer",
-        "auto-stage", "auto-sharding", "stage-input-shardings"])
+], ids=["auto-sharding", "stage-input-shardings"])
 def test_unported_options_raise_with_their_roadmap_item(kwargs, item):
     kw = dict(devices=["cpu"] * 2, layer_option=ManualLayerOption(),
               stage_option=UniformStageOption(2))

@@ -244,3 +244,147 @@ def test_parallelize_adam_steps_match_alpa_tpu():
     for name, p in t_state.params.items():
         np.testing.assert_allclose(p.numpy(), want[name].numpy(),
                                    atol=3 * lr, rtol=0, err_msg=name)
+
+
+# ---- donation and argnums, against the JAX package ----
+
+def _mlp_states_adam():
+    """(JAX state, port state, JAX batch, numpy batch) of the MLP fixture
+    with Adam (its moments have the parameters' shapes)."""
+    from alpa_tpu import testing as jtesting
+    from alpa_tpu_torch import testing as ttesting
+
+    j_state, jb = jtesting.create_mlp_train_state_and_batch(batch_size=8)
+    j_state = flax_train_state.TrainState.create(
+        apply_fn=j_state.apply_fn, params=j_state.params,
+        tx=optax.adam(1e-3))
+    batch = {k: np.asarray(v) for k, v in jb.items()}
+    t_state, _ = ttesting.create_mlp_train_state_and_batch(
+        batch_size=8, params=jax.tree_util.tree_map(np.asarray,
+                                                    j_state.params),
+        x=batch["x"], y=batch["y"], tx=tmu.adam(1e-3))
+    return j_state, t_state, jb, batch
+
+
+def _mse(apply_fn, batch, xp):
+    return lambda p: xp.mean((apply_fn(p, batch["x"]) - batch["y"]) ** 2)
+
+
+STEP_KINDS = ("new_state_and_loss", "eval", "loss_and_grads")
+
+
+def _steps(kind):
+    """(JAX step, port step) of one kind: a train step returning the new
+    state and the loss, an eval step returning the loss, and a step
+    returning the loss and the gradients."""
+
+    def make(api, xp):
+        def step(state, batch):
+            loss_fn = _mse(state.apply_fn, batch, xp)
+            if kind == "eval":
+                return loss_fn(state.params)
+            loss, grads = api.value_and_grad(loss_fn)(state.params)
+            if kind == "loss_and_grads":
+                return loss, grads
+            return state.apply_gradients(grads=grads), loss
+        return step
+
+    return make(alpa_tpu, jnp), make(alpa_tpu_torch, torch)
+
+
+def _by_shape(avals, donated):
+    """The donation flags of the state's leaves as a sorted list of
+    (shape, donated): the two packages order a state's leaves differently
+    (flax sorts dict keys, and a Dense kernel is the transpose of a
+    Linear weight, of the same shape here)."""
+    return sorted((tuple(a), bool(d)) for a, d in zip(avals, donated))
+
+
+@pytest.mark.parametrize("kind", STEP_KINDS)
+def test_auto_donation_equals_jax(kind):
+    """``donate_argnums="auto"`` donates a state leaf where an output leaf
+    not yet claimed has its shape and dtype, as the JAX package's
+    ``_infer_donation`` does: everything for a train step, nothing for an
+    eval step, the parameters (not the Adam moments) for a step returning
+    the gradients.  An undonated state stays usable; a state with a donated
+    leaf raises when passed again."""
+    j_state, t_state, jb, batch = _mlp_states_adam()
+    j_step, t_step = _steps(kind)
+    j_pstep = alpa_tpu.parallelize(j_step, method=alpa_tpu.ShardParallel(
+        devices=[jax.devices()[0]]))
+    t_pstep = alpa_tpu_torch.parallelize(
+        t_step, method=alpa_tpu_torch.ShardParallel(devices=["cpu"]))
+    j_out = j_pstep(j_state, jb)
+    j_donated = j_pstep.get_last_executable().donated_invars
+    t_donated = t_pstep.get_donated_invars(t_state, batch)
+    # the executable carries the seconds of the fake pass
+    assert t_pstep.get_last_executable().donation_seconds > 0
+    n_state = len(jax.tree_util.tree_leaves(j_state))
+    j_shapes = [np.shape(x) for x in jax.tree_util.tree_leaves(j_state)]
+    t_leaves = torch.utils._pytree.tree_leaves(t_state)
+    t_shapes = [tuple(getattr(x, "shape", ())) for x in t_leaves]
+    assert _by_shape(t_shapes, t_donated[:len(t_leaves)]) == \
+        _by_shape(j_shapes, j_donated[:n_state])
+    assert not any(t_donated[len(t_leaves):])   # the batch
+    want = {"new_state_and_loss": len(t_leaves), "eval": 0,
+            "loss_and_grads": len(t_state.params)}[kind]
+    assert sum(t_donated) == want
+    t_out = t_pstep(t_state, batch)
+    j_loss = j_out if kind == "eval" else j_out[1 if kind ==
+                                                 "new_state_and_loss" else 0]
+    t_loss = t_out if kind == "eval" else t_out[1 if kind ==
+                                                 "new_state_and_loss" else 0]
+    np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-5)
+    if kind == "eval":
+        np.testing.assert_allclose(float(t_pstep(t_state, batch)),
+                                   float(j_loss), rtol=1e-5)
+    else:
+        with pytest.raises(RuntimeError, match="donated"):
+            t_pstep(t_state, batch)
+    if kind == "loss_and_grads":
+        # the moments were not donated: still live and unchanged
+        assert all(m.untyped_storage().nbytes() > 0 and not m.any()
+                   for m in t_state.opt_state[0]["mu"].values())
+
+
+def test_tuple_argnums_equal_jax_grad():
+    """``grad``/``value_and_grad`` with a tuple ``argnums`` return a tuple
+    of gradient trees, as ``jax.grad`` does (fp32, rtol 1e-6), also with
+    ``has_aux`` and inside a parallelized step."""
+    rng = np.random.default_rng(4)
+    w = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+         "b": rng.standard_normal(4).astype(np.float32)}
+    x = rng.standard_normal((5, 3)).astype(np.float32)
+
+    def f(w, x, xp):
+        return xp.sum(xp.tanh(x @ w["a"] + w["b"]) ** 2)
+
+    want = jax.grad(lambda w, x: f(w, x, jnp), argnums=(0, 1))(w, x)
+    tw = {k: torch.from_numpy(v) for k, v in w.items()}
+    tx = torch.from_numpy(x)
+    got = alpa_tpu_torch.grad(lambda w, x: f(w, x, torch),
+                              argnums=(0, 1))(tw, tx)
+    assert isinstance(got, tuple) and len(got) == 2
+    for g, j in ((got[0]["a"], want[0]["a"]), (got[0]["b"], want[0]["b"]),
+                 (got[1], want[1])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-6,
+                                   atol=1e-6)
+    (val, aux), grads = alpa_tpu_torch.value_and_grad(
+        lambda w, x: (f(w, x, torch), x.sum()), argnums=(1,),
+        has_aux=True)(tw, tx)
+    jval, jgrads = jax.value_and_grad(lambda w, x: f(w, x, jnp),
+                                      argnums=(1,))(w, x)
+    np.testing.assert_allclose(float(val), float(jval), rtol=1e-6)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(jgrads[0]),
+                               rtol=1e-6, atol=1e-6)
+    assert float(aux) == pytest.approx(float(x.sum()))
+
+    @alpa_tpu_torch.parallelize(
+        method=alpa_tpu_torch.ShardParallel(devices=["cpu"]))
+    def step(w, x):
+        return alpa_tpu_torch.grad(lambda w, x: f(w, x, torch),
+                                   argnums=(0, 1))(w, x)
+
+    par = step(tw, tx)
+    np.testing.assert_allclose(par[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-6, atol=1e-6)
