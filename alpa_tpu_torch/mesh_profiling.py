@@ -20,7 +20,8 @@ def _bytes(v) -> float:
     return float(max(val.numel(), 1)) * val.element_size()
 
 
-def estimate_stage_memory_split(stage_comps, num_devices: int
+def estimate_stage_memory_split(stage_comps, num_devices: int,
+                                objective: str = "training"
                                 ) -> Tuple[float, float]:
     """(per-device parameter bytes, per-device bytes of one microbatch's
     activations) of the layer computations ``stage_comps`` on a submesh of
@@ -30,10 +31,12 @@ def estimate_stage_memory_split(stage_comps, num_devices: int
     Parameters are the stage's inputs that none of its computations
     produce, each counted once; activations are the values its
     computations produce, each counted once, except those that merely pass
-    through (an input of the stage).  The parameter term carries the
-    training optimizer state (``OPT_STATE_MULT`` x the parameter bytes),
-    divided over the submesh as the JAX package's default, ZeRO "auto",
-    divides it.  Both terms divide by the submesh's devices."""
+    through (an input of the stage).  For ``objective="training"`` the
+    parameter term carries the optimizer state (``OPT_STATE_MULT`` x the
+    parameter bytes), divided over the submesh as the JAX package's
+    default, ZeRO "auto", divides it; a forward-only pipeline
+    (``"inference"``) holds none.  Both terms divide by the submesh's
+    devices."""
     produced = {v for c in stage_comps for v in c.outvars}
     stage_inputs = set()
     param_bytes = 0.0
@@ -51,5 +54,6 @@ def estimate_stage_memory_split(stage_comps, num_devices: int
             counted.add(v)
             act_bytes += _bytes(v)
     n = max(num_devices, 1)
-    opt_bytes = OPT_STATE_MULT * param_bytes / n
+    opt_bytes = (OPT_STATE_MULT * param_bytes / n if objective == "training"
+                 else 0.0)
     return param_bytes / n + opt_bytes, act_bytes / n

@@ -30,9 +30,10 @@ a scalar cache index go through the flash kernel (the JAX package's
 there); decode with a per-row index stays on ``reference_attention``, as in
 JAX.  ``pipeline_boundary_every=k`` calls ``mark_pipeline_boundary()``
 before every k-th block, as the JAX model does, for ``ManualLayerOption``;
-outside a pipeshard trace the call does nothing.  Per-block remat inside a
-pipeshard trace raises (remat layers are ROADMAP A.5).  Not in this port
-yet: ``segment_ids`` packing and the ring/ulysses attention variants.
+outside a pipeshard trace the call does nothing.  Inside a pipeshard trace
+``remat_blocks`` wraps each block in a ``remat_block`` marker pair, and the
+layer transform recomputes it (``remat_policy="dots"`` raises there).  Not
+in this port yet: ``segment_ids`` packing and the ring/ulysses attention variants.
 """
 import dataclasses
 import functools
@@ -46,7 +47,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from alpa_tpu_torch.ops.flash_attention import flash_attention
 from alpa_tpu_torch.pipeline_parallel.primitive_def import (
-    mark_pipeline_boundary, tracing_active)
+    mark_pipeline_boundary, remat_block, tracing_active)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,18 +313,23 @@ class GPTModel(nn.Module):
                          self.wpe.weight).to(cfg.dtype))
         remat = (cfg.remat_blocks and kv_caches is None and
                  torch.is_grad_enabled())
-        if remat and tracing_active():
+        marked = remat and tracing_active()
+        if marked and cfg.remat_policy is not None:
             raise NotImplementedError(
-                "per-block remat inside a pipeshard trace is not ported yet "
-                "(ROADMAP A.5.3, its second half: make_fx inlines the block "
-                "checkpoints); use remat_blocks=False with "
-                "remat_layer=True in the layer option")
+                f"remat_policy={cfg.remat_policy!r} inside a pipeshard trace "
+                "is not ported yet (ROADMAP A.5.3): use remat_policy=None, "
+                "which recomputes each block whole")
         remat_kw = _remat_kwargs(cfg) if remat else None
         new_caches = [] if kv_caches is not None else None
         for i, block in enumerate(self.h):
             if (cfg.pipeline_boundary_every and i > 0 and
                     i % cfg.pipeline_boundary_every == 0):
                 mark_pipeline_boundary()
+            if marked:
+                # the layer transform runs the block under checkpoint
+                x = remat_block(lambda y, blk=block: blk(y)[0], x,
+                                f"block_{i}")
+                continue
             if remat:
                 x = torch_checkpoint.checkpoint(
                     lambda y, blk=block: blk(y)[0], x, use_reentrant=False,

@@ -85,8 +85,12 @@ class PipeshardParallel(ParallelMethod):
     (``alpa_tpu/parallel_method.py:100``): the step is traced once, cut into
     forward and backward stages at the layer markers, and run by a static
     instruction program under ``pipeline_schedule`` ("gpipe", "1f1b",
-    "1f1b_overlap_friendly").  ``devices`` is a ``VirtualPhysicalMesh`` or a
-    device list; by default the global cluster's devices (every CUDA device,
+    "1f1b_overlap_friendly"); a function without a gradient marker is
+    forward-only and runs in forward stages under "inference".  The program
+    is dispatched as the JAX driver's "auto" mode chooses, on CUDA by
+    replaying each stage run as a CUDA graph.  ``devices`` is a
+    ``VirtualPhysicalMesh`` or a device list; by default the global
+    cluster's devices (every CUDA device,
     raising without CUDA, unless ``init`` named others).  A list may name one
     device more than once.  ``layer_option``: ``ManualLayerOption``,
     ``AutoLayerOption``, ``FollowLayerOption`` (any of them with

@@ -14,9 +14,12 @@ Counterpart of the training path of ``compile_pipeshard_executable``
   -> divide by the number of microbatches, partition apply-grad by mesh
   -> PipeshardDriverExecutable (pipeshard_executable.py)
 
-A function with no gradient marker (the JAX package's
-``_compile_inference``) raises ``NotImplementedError``: the inference path
-is ROADMAP A.5.
+A function with no gradient marker takes the inference path, the JAX
+package's ``_compile_inference``: traced again under the layer transform
+when its trace has no layer markers, sliced into forward stages only,
+staged with the stage DP's inference objective, run under the
+``"inference"`` schedule with no apply-grad, donating nothing; its batch
+outputs are joined over microbatches.
 """
 import re
 import time
@@ -37,7 +40,8 @@ from alpa_tpu_torch.pipeline_parallel.computation import (
     mark_missing_vars_in_backward_computation_pipeline_marks,
     merge_computations, pipeline_dce, slice_graph_by_full_pipeline_marks)
 from alpa_tpu_torch.pipeline_parallel.layer_construction import (
-    AutoLayerOption, LayerOption, set_current_layer_option)
+    AutoLayerOption, LayerOption, collapse_remat_markers,
+    layer_level_transform, set_current_layer_option)
 from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
     PipeshardDriverExecutable
 from alpa_tpu_torch.pipeline_parallel.primitive_def import (is_marker,
@@ -86,6 +90,8 @@ def trace_train_step(fun: Callable, fake_args, layer_option: LayerOption
             gm = make_fx(fun, tracing_mode="fake")(*fake_args)
     finally:
         set_current_layer_option(None)
+    # a model traced outside the layer transform leaves its remat markers
+    collapse_remat_markers(gm.graph)
     if any(getattr(n.target, "_schema", None) is not None and
            n.target._schema.is_mutable for n in gm.graph.nodes):
         gm = make_fx(torch.func.functionalize(gm, remove="mutations"),
@@ -112,24 +118,29 @@ def compile_pipeshard_executable(fun: Callable,
     layer_option = layer_option or AutoLayerOption(
         layer_num=min(8, virtual_mesh.num_hosts if virtual_mesh.num_hosts > 1
                       else virtual_mesh.num_devices))
-    if pipeline_schedule == "inference":
-        raise NotImplementedError(
-            "the inference schedule runs forward-only functions; the "
-            "pipeshard inference path is not ported yet (ROADMAP A.5)")
     trace_device = virtual_mesh.devices.flat[0]
     fake_args = _fake_inputs(avals, batch_invars, num_micro_batches,
                              trace_device)
     gm = trace_train_step(fun, fake_args, layer_option)
+    if not any(is_marker(n, "grad") for n in gm.graph.nodes):
+        if not any(is_marker(n, "start") for n in gm.graph.nodes):
+            # a forward-only function never passes through value_and_grad,
+            # so the layer transform is applied here
+            gm = trace_train_step(layer_level_transform(fun, layer_option),
+                                  fake_args, layer_option)
+        return _compile_inference(
+            gm, virtual_mesh, avals, batch_invars, num_micro_batches,
+            stage_option, tic, time.perf_counter() - tic)
+    if pipeline_schedule == "inference":
+        raise ValueError(
+            "pipeline_schedule='inference' runs forward-only functions; "
+            "this one computes gradients (alpa_tpu_torch.grad / "
+            "value_and_grad): use a training schedule")
     trace_seconds = time.perf_counter() - tic
     graph = gm.graph
     global_invars = [n for n in graph.nodes if n.op == "placeholder"]
     output = next(n for n in graph.nodes if n.op == "output")
 
-    if not any(is_marker(n, "grad") for n in graph.nodes):
-        raise NotImplementedError(
-            "a function without alpa_tpu_torch.grad / value_and_grad (no "
-            "gradient marker): the pipeshard inference path is not ported "
-            "yet (ROADMAP A.5)")
     grad_marker = next(n for n in reversed(graph.nodes)
                        if is_marker(n, "grad"))
     collapse_pipeline_marks(graph, keep=[grad_marker])
@@ -160,14 +171,7 @@ def compile_pipeshard_executable(fun: Callable,
         cluster_layers_and_slice_mesh(
             num_layers, virtual_mesh, stage_option, layer_comps=fwd_comps,
             num_micro_batches=num_micro_batches, schedule=pipeline_schedule)
-    mesh_devices = []
-    for s, sub in enumerate(submeshes):
-        if sub.num_devices != 1:
-            raise NotImplementedError(
-                f"stage {s} has a mesh of {sub.num_devices} devices; "
-                "intra-op sharding inside a stage is not ported yet "
-                "(ROADMAP A.3): give each stage one device")
-        mesh_devices.append(sub.devices.flat[0])
+    mesh_devices = _stage_devices(submeshes)
     num_stages = len(fwd_stage_layer_ids)
     fwd_stages = [merge_computations([fwd_comps[i] for i in ids],
                                      f"stage_{s}_fwd")
@@ -227,6 +231,63 @@ def compile_pipeshard_executable(fun: Callable,
         acc_info=acc_info)
     executable.stage_dp_info = stage_dp_info
     executable.fwd_layer_comps = fwd_comps
+    executable.trace_seconds = trace_seconds
+    executable.compile_seconds = time.perf_counter() - tic - trace_seconds
+    return executable
+
+
+def _stage_devices(submeshes) -> List[torch.device]:
+    """The one device of each stage mesh; a wider mesh raises."""
+    devices = []
+    for s, sub in enumerate(submeshes):
+        if sub.num_devices != 1:
+            raise NotImplementedError(
+                f"stage {s} has a mesh of {sub.num_devices} devices; "
+                "intra-op sharding inside a stage is not ported yet "
+                "(ROADMAP A.3): give each stage one device")
+        devices.append(sub.devices.flat[0])
+    return devices
+
+
+def _compile_inference(gm: fx.GraphModule, virtual_mesh, avals,
+                       batch_invars, num_micro_batches, stage_option, tic,
+                       trace_seconds) -> PipeshardDriverExecutable:
+    """Forward-only pipeshard compile (``_compile_inference`` of the JAX
+    package): forward stages only, the stage DP's inference objective, the
+    ``"inference"`` schedule, no apply-grad, nothing donated."""
+    graph = gm.graph
+    global_invars = [n for n in graph.nodes if n.op == "placeholder"]
+    output = next(n for n in graph.nodes if n.op == "output")
+    collapse_pipeline_marks(graph)
+    global_outvars = list(output.args[0])
+    computations = slice_graph_by_full_pipeline_marks(list(graph.nodes))
+    if not computations:
+        raise ValueError(
+            "no pipeline layers found: mark layers with "
+            "mark_pipeline_boundary() (ManualLayerOption) or use "
+            "AutoLayerOption")
+    computations = \
+        mark_missing_vars_in_backward_computation_pipeline_marks(
+            computations)
+    computations = pipeline_dce(computations, global_outvars)
+    fwd_stage_layer_ids, submeshes, stage_dp_info = \
+        cluster_layers_and_slice_mesh(
+            len(computations), virtual_mesh, stage_option,
+            layer_comps=computations, num_micro_batches=num_micro_batches,
+            objective="inference")
+    fwd_stages = [merge_computations([computations[i] for i in ids],
+                                     f"stage_{s}_fwd")
+                  for s, ids in enumerate(fwd_stage_layer_ids)]
+    _prune_stage_outvars(fwd_stages, [], global_outvars)
+    executable = PipeshardDriverExecutable(
+        mesh_devices=_stage_devices(submeshes), fwd_stages=fwd_stages,
+        bwd_stages=[], apply_comps=[], root=gm, schedule_name="inference",
+        num_micro_batches=num_micro_batches, global_invars=global_invars,
+        global_outvars=global_outvars,
+        in_dtypes=[dtype for _, dtype in avals], batch_invars=batch_invars,
+        donated_invars=(False,) * len(avals), grad_pairs=[], acc_info={})
+    executable.stage_dp_info = stage_dp_info
+    executable.fwd_layer_comps = computations
     executable.trace_seconds = trace_seconds
     executable.compile_seconds = time.perf_counter() - tic - trace_seconds
     return executable

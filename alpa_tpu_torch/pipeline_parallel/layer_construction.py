@@ -17,6 +17,14 @@ gives each backward layer its own flipped markers.  With
 ``torch.utils.checkpoint`` inside its markers, so the traced backward
 recomputes the layer's forward between that layer's backward markers
 (``_remat_by_layer``).
+
+A block the model recomputes (GPT's ``remat_blocks``) reaches the traced
+graph between ``remat_start``/``remat_end`` markers (``remat_block``).
+``trace_loss`` drops the pair and tags the nodes between with their region,
+the counterpart of the JAX package's ``checkpoint`` eqn: the auto-layer DP
+counts their flops but takes no cut point among them, and the layer-marked
+graph runs each region as one module under non-reentrant
+``torch.utils.checkpoint``, so the backward stage recomputes the block.
 """
 import dataclasses
 import operator
@@ -31,8 +39,10 @@ from torch.fx.experimental.proxy_tensor import (disable_proxy_modes_tracing,
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as torch_checkpoint
 
+from alpa_tpu_torch.pipeline_parallel.computation import marker_outputs
 from alpa_tpu_torch.pipeline_parallel.primitive_def import (
-    is_boundary, pipeline_marker, pipeshard_tracing, tracing_active)
+    is_boundary, is_marker, marker_name, pipeline_marker, pipeshard_tracing,
+    tracing_active)
 from alpa_tpu_torch.util import node_flops
 
 _MARKER = torch.ops.alpa_tpu_torch.pipeline_marker.default
@@ -107,6 +117,29 @@ def slice_nodes_by_boundary(graph: fx.Graph) -> List[List[fx.Node]]:
     return groups
 
 
+REMAT_REGION = "remat_region"
+_REMAT_MARKS = ("remat_start", "remat_end")
+
+
+def collapse_remat_markers(graph: fx.Graph):
+    """Drop the ``remat_block`` marker pairs of ``graph``, pointing each use
+    of a marker's output at its operand, and tag every node between a pair
+    with ``node.meta["remat_region"]`` (a name per region)."""
+    region, count = None, 0
+    for node in list(graph.nodes):
+        if is_marker(node, _REMAT_MARKS):
+            for i, out in marker_outputs(node).items():
+                out.replace_all_uses_with(node.args[0][i])
+                graph.erase_node(out)
+            if node.args[2] == "remat_start":
+                region, count = f"{marker_name(node)}#{count}", count + 1
+            else:
+                region = None
+            graph.erase_node(node)
+        elif region is not None and node.op == "call_function":
+            node.meta[REMAT_REGION] = region
+
+
 def _remove_dead_nodes(graph: fx.Graph):
     """Drop compute nodes nothing uses (autograd's saved-tensor detaches);
     boundaries stay."""
@@ -134,10 +167,11 @@ def compute_nodes(graph: fx.Graph) -> List[fx.Node]:
 def _segment_nodes(nodes: Sequence[fx.Node]) -> List[Tuple[int, int]]:
     """Coarsen nodes into segments that each end right after a heavy op,
     the only cut points (JAX's ``_segment_eqns``; the flash op is not one,
-    as the JAX package's ``pallas_call`` is not)."""
+    as the JAX package's ``pallas_call`` is not, and neither is a product
+    inside a remat region, as JAX's are inside its ``checkpoint`` eqn)."""
     bounds, start = [], 0
     for i, node in enumerate(nodes):
-        if node.target in HEAVY_OPS:
+        if node.target in HEAVY_OPS and REMAT_REGION not in node.meta:
             bounds.append((start, i + 1))
             start = i + 1
     if start < len(nodes):
@@ -268,13 +302,65 @@ def _layer_io(gm: fx.GraphModule, sliced: List[List[fx.Node]]):
     return io[::-1]
 
 
+class _Checkpointed(torch.nn.Module):
+    """A remat region's nodes, run under non-reentrant checkpoint when a
+    gradient flows through them."""
+
+    def __init__(self, inner: fx.GraphModule):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, *args):
+        if torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args):
+            return torch_checkpoint.checkpoint(self.inner, *args,
+                                               use_reentrant=False)
+        return self.inner(*args)
+
+
+def _copy_nodes(gm: fx.GraphModule, new: fx.Graph, group: List[fx.Node],
+                local: Dict[fx.Node, fx.Node]):
+    """Copy ``group`` into ``new`` (reading ``local``), each run of nodes of
+    one remat region as a call of a ``_Checkpointed`` submodule of
+    ``gm``."""
+    i = 0
+    while i < len(group):
+        region = group[i].meta.get(REMAT_REGION)
+        if region is None:
+            local[group[i]] = new.node_copy(group[i], lambda v: local[v])
+            i += 1
+            continue
+        j = i
+        while j < len(group) and group[j].meta.get(REMAT_REGION) == region:
+            j += 1
+        members = group[i:j]
+        inside = set(members)
+        invars = list(dict.fromkeys(v for n in members
+                                    for v in n.all_input_nodes
+                                    if v not in inside))
+        outvars = [n for n in members
+                   if any(u not in inside for u in n.users)]
+        sub = fx.Graph()
+        env = {v: sub.placeholder(v.name) for v in invars}
+        for n in members:
+            env[n] = sub.node_copy(n, lambda v: env[v])
+        sub.output([env[v] for v in outvars])
+        name = f"_remat_{len([m for m in gm.children()])}"
+        gm.add_submodule(name, _Checkpointed(fx.GraphModule(gm, sub)))
+        call = new.call_module(name, tuple(local[v] for v in invars))
+        for k, v in enumerate(outvars):
+            local[v] = new.call_function(operator.getitem, (call, k))
+        i = j
+
+
 def add_pipeline_marks_for_sliced_nodes(gm: fx.GraphModule,
                                         sliced: List[List[fx.Node]]
                                         ) -> fx.GraphModule:
     """A copy of ``gm`` with each group of nodes wrapped in a start marker
     over every value it uses from outside and an end marker over every
     value it defines that a later layer or the output uses (named
-    ``layer_<i>``)."""
+    ``layer_<i>``).  A remat region runs as one checkpointed module."""
     output = next(n for n in gm.graph.nodes if n.op == "output")
     new = fx.Graph()
     outer: Dict[fx.Node, fx.Node] = {}
@@ -288,8 +374,7 @@ def add_pipeline_marks_for_sliced_nodes(gm: fx.GraphModule,
                                   ([outer[v] for v in invars], name, "start"))
         local = {v: new.call_function(operator.getitem, (start, i))
                  for i, v in enumerate(invars)}
-        for node in group:
-            local[node] = new.node_copy(node, lambda v: local[v])
+        _copy_nodes(gm, new, group, local)
         end = new.call_function(_MARKER,
                                 ([local[v] for v in outvars], name, "end"))
         for i, v in enumerate(outvars):
@@ -313,7 +398,8 @@ def _remat_by_layer(gm: fx.GraphModule, sliced: List[List[fx.Node]]
     layer's start and end markers: the counterpart of JAX's
     ``_remat_by_layer`` (``jax.checkpoint`` per layer).  Traced with its
     backward, each layer's forward is recomputed in that layer's backward
-    section, between its flipped markers."""
+    section, between its flipped markers.  Remat regions inside a layer
+    run inline: the layer is recomputed whole."""
     io = _layer_io(gm, sliced)
     layers = []
     for group, (invars, outvars) in zip(sliced, io):
@@ -364,8 +450,8 @@ def slice_layers(gm: fx.GraphModule, layer_option: LayerOption
 
 def trace_loss(fn: Callable, *args, **kwargs):
     """``(gm, tensors, out_spec)``: ``fn`` traced by ``make_fx`` over the
-    tensor leaves of its arguments, boundaries recorded, dead nodes
-    dropped."""
+    tensor leaves of its arguments, boundaries recorded, remat regions
+    tagged (``collapse_remat_markers``), dead nodes dropped."""
     leaves, in_spec = pytree.tree_flatten((args, kwargs))
     idx = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
     out_spec = []
@@ -382,6 +468,7 @@ def trace_loss(fn: Callable, *args, **kwargs):
     tensors = [leaves[i] for i in idx]
     with disable_proxy_modes_tracing(), pipeshard_tracing():
         gm = make_fx(flat_fn)(*tensors)
+    collapse_remat_markers(gm.graph)
     _remove_dead_nodes(gm.graph)
     return gm, tensors, out_spec[0]
 

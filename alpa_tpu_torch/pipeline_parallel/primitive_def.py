@@ -20,6 +20,13 @@ trace every marker function returns its values unchanged: a
 ``alpa_tpu_torch::pipeline_boundary`` with no output.  ``make_fx`` keeps
 such a node (it records every op it dispatches), so the boundary is
 recorded as an op, not on the side.
+
+``remat_block`` wraps a block the model recomputes in the backward pass
+(GPT's ``remat_blocks``) in a ``remat_start``/``remat_end`` marker pair,
+the counterpart of the JAX package's ``checkpoint`` eqn: the layer
+transform takes the nodes between the pair as one region, which the
+auto-layer DP never cuts, and runs the region under
+``torch.utils.checkpoint``.
 """
 import itertools
 import threading
@@ -30,7 +37,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 _FLIP = {"start": "end", "end": "start", "grad": "grad",
-         "boundary": "boundary"}
+         "boundary": "boundary", "remat_start": "remat_end",
+         "remat_end": "remat_start"}
 
 
 @torch.library.custom_op("alpa_tpu_torch::pipeline_marker", mutates_args=())
@@ -126,16 +134,31 @@ def mark_pipeline_values(values, name: str, mark_type: str):
     return pytree.tree_unflatten(leaves, spec)
 
 
+def remat_block(fn, x: torch.Tensor, name: str) -> torch.Tensor:
+    """``fn(x)`` between a ``remat_start`` and a ``remat_end`` marker named
+    ``name`` (inside a pipeshard trace only): the layer transform recomputes
+    the nodes between them in the backward pass, as one region."""
+    (x,) = pipeline_marker([x], name, "remat_start")
+    (y,) = pipeline_marker([fn(x)], name, "remat_end")
+    return y
+
+
 def mark_gradient(grads):
     """Tag values as the split point of compute-grad and apply-grad."""
     return mark_pipeline_values(grads, "grad", "grad")
 
 
 def is_marker(node, mark_type=None) -> bool:
-    """Whether an fx node is a pipeline marker (of ``mark_type``)."""
-    return (node.op == "call_function" and
-            node.target is torch.ops.alpa_tpu_torch.pipeline_marker.default
-            and (mark_type is None or node.args[2] == mark_type))
+    """Whether an fx node is a pipeline marker (of ``mark_type``, a type or
+    a tuple of types)."""
+    if not (node.op == "call_function" and
+            node.target is torch.ops.alpa_tpu_torch.pipeline_marker.default):
+        return False
+    if mark_type is None:
+        return True
+    if isinstance(mark_type, tuple):
+        return node.args[2] in mark_type
+    return node.args[2] == mark_type
 
 
 def is_boundary(node) -> bool:

@@ -58,6 +58,11 @@ class PipelineSchedule:
                 (f"b{t[0]}s{t[1]}" if t else "-") for t in tick))
         return "\n".join(lines)
 
+    def overlap_window_hint(self) -> int:
+        """The default in-flight transfer window of overlap dispatch: about
+        one eagerly launched cross-mesh transfer per pipeline rank."""
+        return max(2, min(8, self.num_meshes))
+
 
 class GpipeSchedule(PipelineSchedule):
     """All forwards, then all backwards."""
@@ -157,6 +162,10 @@ class OverlapFriendlyPipeDreamSchedule(PipeDreamFlush):
 
     def _warmup_depth(self, mesh_idx: int) -> int:
         return 2 * (self.num_meshes - mesh_idx) - 1
+
+    def overlap_window_hint(self) -> int:
+        # twice the warmup keeps about twice the activations in flight
+        return max(2, min(16, 2 * self.num_meshes))
 
 
 class InferenceSchedule(PipelineSchedule):

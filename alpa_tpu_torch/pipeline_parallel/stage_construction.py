@@ -144,9 +144,11 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
                                   stage_option: Optional[StageOption],
                                   layer_comps=None,
                                   num_micro_batches: int = 1,
-                                  schedule: str = "1f1b"):
+                                  schedule: str = "1f1b",
+                                  objective: str = "training"):
     """``(forward_stage_layer_ids, submeshes, stage_dp_info)``; the info is
-    None unless the stage DP ran (``AutoStageOption``)."""
+    None unless the stage DP ran (``AutoStageOption``, with ``objective``
+    "training" or "inference")."""
     stage_option = stage_option or UniformStageOption()
     if isinstance(stage_option, ManualStageOption):
         return (stage_option.forward_stage_layer_ids,
@@ -156,7 +158,7 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
         from alpa_tpu_torch.pipeline_parallel.stage_dp import auto_stage_dp
         return auto_stage_dp(num_forward_layers, virtual_mesh, stage_option,
                              layer_comps, num_micro_batches,
-                             schedule=schedule)
+                             schedule=schedule, objective=objective)
     num_stages = stage_option.num_stages
     if num_stages is None:
         num_stages = (virtual_mesh.num_hosts if virtual_mesh.num_hosts > 1

@@ -18,8 +18,10 @@ uses only one-device submeshes is optimal for JAX too.  A partition with a
 stage of more than one device raises ``NotImplementedError`` instead of
 returning a plan JAX would not choose.  The options of the communication
 term, of measured profiling and of the cost-tensor disk cache raise as well
-(ROADMAP A.3, A.6).  The inference objective (a large B, one microbatch in
-flight) comes with the pipeshard inference path (ROADMAP A.5.4).
+(ROADMAP A.3, A.6).  A forward-only function takes the inference
+objective (JAX's ``objective="inference"``): B -> 4096, so the slowest
+stage dominates, with one microbatch in flight per stage for the memory
+check and no optimizer state in it.
 """
 import ctypes
 import dataclasses
@@ -220,11 +222,14 @@ def _check_unported_fields(stage_option):
 
 
 def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
-                  num_micro_batches, schedule: str = "1f1b"):
+                  num_micro_batches, schedule: str = "1f1b",
+                  objective: str = "training"):
     """Fill the cost tensor's compute term and run the DP: the auto branch
     of ``cluster_layers_and_slice_mesh``.  Returns ``(forward stage layer
     ids, submeshes, info)``; ``info`` has the partition, the submesh
-    choices, the per-layer flops, the solver and its seconds."""
+    choices, the per-layer flops, the solver and its seconds.
+    ``objective="inference"`` solves with B = 4096 and the "inference"
+    inflight mode (JAX's ``inference_dp`` objective)."""
     from alpa_tpu_torch.pipeline_parallel.stage_construction import (
         get_sliced_virtual_submeshes, get_submesh_choices)
     from alpa_tpu_torch.mesh_profiling import estimate_stage_memory_split
@@ -248,7 +253,7 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
                 if mem_budget > 0:
                     mem_param[i, j, m], mem_act[i, j, m] = \
                         estimate_stage_memory_split(layer_comps[i:j + 1],
-                                                    n_dev)
+                                                    n_dev, objective)
 
     # cap the DP's stage costs at tolerance x the best one-stage cost
     tol = float(stage_option.stage_imbalance_tolerance)
@@ -258,11 +263,17 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
         cap = tol * float(np.nanmin(whole or [np.inf]))
         costs = np.where(costs <= cap, costs, np.inf)
 
+    # the inference objective: the slowest stage bounds a forward-only
+    # pipeline's throughput, and each stage holds one microbatch
+    if objective == "inference":
+        b_eff, inflight_mode = 4096, "inference"
+    else:
+        b_eff, inflight_mode = num_micro_batches, schedule
     load_native()   # built at first use: not part of the solve
     solve_tic = time.perf_counter()
-    part = stage_dp_solve(costs, sizes, virtual_mesh.num_devices,
-                          num_micro_batches, mem_param, mem_act,
-                          mem_budget=mem_budget, inflight_mode=schedule)
+    part = stage_dp_solve(costs, sizes, virtual_mesh.num_devices, b_eff,
+                          mem_param, mem_act, mem_budget=mem_budget,
+                          inflight_mode=inflight_mode)
     solve_seconds = time.perf_counter() - solve_tic
     if part is None:
         raise RuntimeError(
@@ -281,6 +292,7 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
         virtual_mesh, [list(choices[m]) for _, _, m in part])
     info = {"partition": [(a, b, choices[m]) for a, b, m in part],
             "choices": choices, "layer_flops": flops, "costs": costs,
+            "objective": objective,
             "solver": "native stage_dp.cc", "solve_seconds": solve_seconds,
             "seconds": time.perf_counter() - tic}
     return fwd_ids, submeshes, info

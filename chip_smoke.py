@@ -5,6 +5,11 @@ toolkit:
 
     python3 chip_smoke.py
 
+or, on a machine with two cards or more, ``python3 chip_smoke.py
+--two-cards`` for phase 8's fidelity and dispatch checks with the two
+stages on two cards (cross-card RESHARDs, one CUDA graph pool per card,
+CUDA events across cards).
+
 Phases, each reported on its own line:
 
 1. setup: the card's name and power limit; build the flash kernels from
@@ -60,10 +65,24 @@ Phases, each reported on its own line:
    falls, the first step's loss within 1e-2 relative of one
    ``ShardParallel`` step from the same state and batch, and exactly 96
    forward, 96 dq and 96 dk/dv launches per step; step time, tokens/s,
-   TFLOPS, MFU, peak memory, trace and build time, the instruction counts
-   and the schedule, then ``torch.profiler`` over two more steps; then
-   the peak of its third step without and with the in-place apply-grad,
-   each built in this run, with bit-identical losses;
+   TFLOPS, MFU, the allocated peak of the replayed steps beside the CUDA
+   graphs' pools, trace and build time, the instruction counts and the
+   schedule, then ``torch.profiler`` over two more steps (the first step
+   runs the stage graphs as they are, the second captures each stage run
+   as a CUDA graph, later steps replay them in the default dispatch mode);
+   then the dispatch modes on the same executable, nothing traced again:
+   from the seed state, two steps uncaptured and two in each of
+   "sequential", "registers", "threaded", "overlap" and "auto", losses and
+   parameters bit-identical, with step time, host time per step,
+   resharding bytes and each mode's own profiled device share; then the
+   peak of its third step without and with the in-place apply-grad, each
+   built in this run and run uncaptured, with bit-identical losses; and
+   the replayed steps' allocated peak plus the graphs' pools beside the
+   uncaptured peak;
+8b. pipeshard remat blocks: phase 8 with ``remat_blocks=True`` (GPT's
+   per-block remat inside the pipeshard trace): first loss within 1e-2 of
+   ``ShardParallel``'s on the same config, 192 forward launches per step,
+   step and peak beside phase 8's;
 9. pipeshard auto-layer fidelity: the fidelity check of phase 8 for 4
    layers without boundaries under ``AutoLayerOption(layer_num=4,
    remat_layer=True)``;
@@ -75,7 +94,12 @@ Phases, each reported on its own line:
    layer's backward), with the layer cuts (blocks and flops per layer);
    then one step under ``get_3d_parallel_method(dp=1, op=1, pp=2)`` and one
    under ``AutoStageOption`` on one card (the stage DP's partition, solver
-   and solve time), each first loss within 1e-6 of ``ShardParallel``'s.
+   and solve time), each first loss within 1e-6 of ``ShardParallel``'s;
+11. pipeshard infer: a forward-only ``parallelize``d function returning
+   GPT-1.3B's logits under ``PipeshardParallel`` (2 stages x 4
+   microbatches, the ``"inference"`` schedule, batch 8): logits against the
+   eager forward at bf16 tolerance, 96 forward and no backward launch per
+   call, call time, host time, device share and tokens/s.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
@@ -679,21 +703,34 @@ def phase_training(kernel_ms):
 
 def profile_steps(train_step, state, batch, steps, latency,
                   label="training"):
-    """``torch.profiler`` over ``steps`` training steps: the ten heaviest
-    kernels by device time per step, the flash kernels' share, and the
-    device's busy share, both under the profiler (the union of kernel
-    intervals over the span from the first kernel's start to the last
-    one's end) and as device time per step over ``latency``, the step time
-    measured without it.  Returns the state and the device time per step
-    with those two shares."""
+    """``profile_calls`` over ``steps`` training steps; returns the state and
+    the profile."""
+    box = [state]
+
+    def run():
+        box[0], loss = train_step(box[0], batch)
+        return loss
+
+    profile = profile_calls(run, steps, latency, label)
+    return box[0], profile
+
+
+def profile_calls(run, steps, latency, label, top=10):
+    """``torch.profiler`` over ``steps`` calls of ``run`` (one step each,
+    returning a tensor to wait on): the ``top`` heaviest kernels by device
+    time per step, the flash kernels' share, and the device's busy share, both
+    under the profiler (the union of kernel intervals over the span from
+    the first kernel's start to the last one's end) and as device time per
+    step over ``latency``, the step time measured without it.  Returns the
+    device time per step with those two shares."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
         tic = time.perf_counter()
         for _ in range(steps):
-            state, loss = train_step(state, batch)
-        float(loss)
+            out = run()
+        out.float().sum().item()
         wall = time.perf_counter() - tic
     cuda = torch.autograd.DeviceType.CUDA
     kernels = sorted((e for e in prof.key_averages() if e.device_type == cuda),
@@ -701,7 +738,7 @@ def profile_steps(train_step, state, batch, steps, latency,
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us == 0:
         print(f"{label} profile: profiler: no device time")
-        return state, None
+        return None
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == cuda)
     busy_us, reach = 0.0, spans[0][0]
@@ -712,23 +749,28 @@ def profile_steps(train_step, state, batch, steps, latency,
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key)
     per_step = total_us / 1e6 / steps
+    busy_step = busy_us / 1e6 / steps
     print(f"{label} profile [{card_line()}]: {steps} steps, host wall "
           f"{wall:.5f} s with the profiler on; device time {per_step:.5f} s "
-          f"per step in {len(kernels)} kernels by name, "
+          f"per step in {len(kernels)} kernels by name (a sum of kernel "
+          f"times, which kernels running at once on two streams inflate), "
           f"{per_step / latency:.4f} of the step time without the profiler; "
-          f"busy share {busy_us / span_us:.4f} of the device span "
-          f"{span_us / 1e6:.5f} s with it; flash kernels "
+          f"busy time (the union of kernel intervals) {busy_step:.5f} s per "
+          f"step, {busy_step / latency:.4f} of that step time; busy share "
+          f"{busy_us / span_us:.4f} of the device span "
+          f"{span_us / 1e6:.5f} s with the profiler; flash kernels "
           f"{flash_us / 1e6 / steps:.5f} s per step, "
           f"{flash_us / total_us:.4f} of the device time")
-    for rank, e in enumerate(kernels[:10], 1):
+    for rank, e in enumerate(kernels[:top], 1):
         print(f"{label} profile kernel {rank}: "
               f"{e.self_device_time_total / 1e3 / steps:.3f} ms per step, "
               f"{e.count // steps} launches per step, "
               f"{e.self_device_time_total / total_us:.4f} of the device "
               f"time: {e.key[:120]}")
-    return state, {"device_s_per_step": per_step,
-                   "device_share": per_step / latency,
-                   "busy_share": busy_us / span_us}
+    return {"device_s_per_step": per_step,
+            "device_share": per_step / latency,
+            "busy_s_per_step": busy_step,
+            "busy_share": busy_us / span_us}
 
 
 def fidelity_run(cfg, batch, steps):
@@ -924,8 +966,7 @@ def pipeshard_fidelity(label, cfg, method):
 
 def pipeshard_config(**kw):
     """GPT-1.3B at full width and depth for the pipeshard phases: bf16
-    compute, flash, no per-block remat (not ported inside a pipeshard
-    trace)."""
+    compute, flash, no per-block remat unless ``kw`` asks for it."""
     return config_from_spec("1.3B", dtype=torch.bfloat16,
                             attention_impl="flash", **kw)
 
@@ -955,17 +996,24 @@ def first_loss(method, cfg, batch):
 
 
 def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
-                    forward_runs=1):
+                    forward_runs=1, keep=False):
     """Train ``cfg`` through the pipeshard ``method`` from the seed state: 3
-    warm-up and 5 timed steps, then ``torch.profiler`` over 2 more.  Checks
+    warm-up steps (the first runs the stage graphs as they are, the second
+    captures them as CUDA graphs) and 5 timed steps, which replay them in
+    the default dispatch mode, then ``torch.profiler`` over 2 more.  Checks
     a finite, falling loss, the first loss against ``ref_loss`` (relative
     ``ref_tol``) and the flash launches per step (``forward_runs`` forward
-    launches per block and microbatch, one of each backward kernel); prints
-    the step's metrics.  Returns the (fwd, dq, dkv) launches of the run and
-    the executable."""
+    launches per block and microbatch, one of each backward kernel,
+    counting the launches inside the replays); prints the step's metrics.
+    Returns a dict: the (fwd, dq, dkv) launches of the run, the executable,
+    the step time, host time and peak, the profile, and with ``keep`` the
+    step and its state."""
     batch_size, num_micro_batches = 8, method.num_micro_batches
     warmup, n_iter = 3, 5
     cards = sorted(set(str(d) for d in method.devices.devices.flat))
+    # the batch on the card, as a prefetching loader leaves it: a host
+    # array's copy would wait for the previous step and hide the host time
+    batch = {k: torch.as_tensor(v, device=cards[0]) for k, v in batch.items()}
     # what earlier phases still hold (objects in reference cycles wait for
     # a collection) would count in this phase's peak
     gc.collect()
@@ -989,6 +1037,10 @@ def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
     for _ in range(warmup - 1):
         state, loss = train_step(state, batch)
         losses.append(float(loss))
+    # the peak of the replayed steps (a replay allocates nothing: the
+    # graphs' working memory is in their pools, reported beside it)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     gc_s = []
 
     def on_gc(phase, info):
@@ -1008,9 +1060,12 @@ def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
         latency = (time.perf_counter() - tic) / n_iter
     finally:
         gc.callbacks.remove(on_gc)
+    # the host time of a step call on an idle card: in the pipelined steps
+    # above the host also waits once the launch queue is full
+    state, idle_host = idle_host_seconds(train_step, state, batch)
     counts = launch_counts()
     losses = [float(x) for x in losses]
-    steps = warmup + n_iter
+    steps = warmup + n_iter + IDLE_CALLS
     want = num_micro_batches * cfg.num_layers
     want = (forward_runs * want, want, want)
     check(counts == tuple(w * steps for w in want),
@@ -1051,14 +1106,26 @@ def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
           f"resharding bytes per step {ex.executed_resharding_bytes}")
     print(f"{label} schedule:\n" + ex.get_schedule_text())
     peak_bytes = ex.get_total_allocation_size()
+    reserved = max(torch.cuda.max_memory_reserved(d) for d in cards)
+    pool = ex.get_graph_pool_bytes()
+    stats = ex.last_dispatch_stats
     print(f"{label} metrics [{card}]: step {latency:.5f} s, "
           f"{tokens_per_sec:.1f} tokens/s, {tflops:.3f} TFLOPS "
           f"(compute_gpt_tflops over {n_cards} card(s)), MFU {mfu:.4f} of "
-          f"{peak} TFLOP/s bf16, peak allocated "
-          f"{peak_bytes / 2**30:.3f} GiB ({held / 2**30:.3f} GiB of it held "
-          f"before the phase); host {host:.5f} s per step until the step "
-          f"call returns; Python's full garbage collections in the "
-          f"{n_iter} timed steps: {len(gc_s)}, {sum(gc_s):.5f} s")
+          f"{peak} TFLOP/s bf16; dispatch mode {stats['mode']}, stage graphs "
+          f"replayed as CUDA graphs: {stats['graphs']} (captured "
+          f"{ex.capture_count} time(s)); allocated peak over the timed "
+          f"steps {peak_bytes / 2**30:.3f} GiB ({held / 2**30:.3f} GiB of "
+          f"it held before the phase), the graphs' pools reserve "
+          f"{(pool or 0) / 2**30:.3f} GiB beside it; host {host:.5f} s per "
+          f"step until the step call returns in the timed steps, "
+          f"{idle_host:.5f} s for a call on an idle card; Python's full "
+          f"garbage "
+          f"collections in the {n_iter} timed steps: {len(gc_s)}, "
+          f"{sum(gc_s):.5f} s")
+    check(stats["graphs"] and ex.capture_count == 1,
+          f"{label}: the timed steps did not replay one capture: {stats}, "
+          f"{ex.capture_count} captures")
     state, profile = profile_steps(train_step, state, batch, 2, latency,
                                    label=label)
     if profile and shard_profile.get("busy_share") is not None:
@@ -1070,21 +1137,30 @@ def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
               f"profiler {profile['busy_share']:.4f} vs "
               f"{shard_profile['busy_share']:.4f}; step {latency:.5f} vs "
               f"{shard_profile['latency']:.5f} s")
-    counts = launch_counts()   # the timed and the profiled steps
-    del state, train_step
-    torch.cuda.empty_cache()
-    return counts, ex
+    out = {"counts": launch_counts(),   # the timed and profiled steps
+           "ex": ex, "latency": latency, "host": host,
+           "idle_host": idle_host, "peak": peak_bytes, "reserved": reserved,
+           "pool": pool, "profile": profile, "held": held}
+    if keep:
+        out.update(step=train_step, state=state)
+    else:
+        del state, train_step
+        torch.cuda.empty_cache()
+    return out
 
 
 def apply_grad_peaks(cfg, batch, steps=3):
     """The peak of phase 8's step without and with the in-place apply-grad
     (a donated state input that one apply-grad graph reads is written in
     place by it or freed right after it), in that order, each from the seed
-    state after the same collection, built in this process.  Without it
-    the apply-grad graphs are built with no donated inputs, so donated
-    storage is released only after the whole step.  Returns ``{variant:
-    (peak bytes of the last of ``steps`` steps, bytes held before,
-    losses)}``; checks that both give the same losses, bit for bit."""
+    state after the same collection, built in this process, with the stage
+    graphs run uncaptured (the private switch ``_capture = False``) so that
+    the allocator sees every value.  Without it the apply-grad graphs are
+    built with no donated inputs, so donated storage is released only after
+    the whole step.  Returns ``{variant: (peak bytes of the last of
+    ``steps`` steps, bytes held before, losses, the allocator's reserved
+    peak over that step)}``; checks that both give the same losses, bit
+    for bit."""
     from alpa_tpu_torch.pipeline_parallel import pipeshard_executable as pe
     init = pe.StageExecutable.__init__
 
@@ -1103,43 +1179,300 @@ def apply_grad_peaks(cfg, batch, steps=3):
         if variant == "without":
             pe.StageExecutable.__init__ = undonated
         try:
-            state, loss = step(state, batch)   # builds the executable
+            ex, _ = step.get_executable(state, batch)   # builds it
         finally:
             pe.StageExecutable.__init__ = init
-        losses = [float(loss)]
-        for _ in range(steps - 1):
+        ex._capture = False
+        losses = []
+        for i in range(steps):
+            if i == steps - 1:
+                for d in cards:
+                    torch.cuda.reset_peak_memory_stats(d)
             state, loss = step(state, batch)
             losses.append(float(loss))
-        out[variant] = (step.get_last_executable().get_total_allocation_size(),
-                        held, losses)
-        del state, step
+        out[variant] = (ex.get_total_allocation_size(), held, losses,
+                        max(torch.cuda.max_memory_reserved(d)
+                            for d in cards))
+        del state, step, ex
         torch.cuda.empty_cache()
     check(out["without"][2] == out["with"][2],
           f"the in-place apply-grad changed the losses: {out}")
     return out
 
 
+IDLE_CALLS = 2
+
+
+def idle_host_seconds(train_step, state, batch):
+    """The mean host time of ``IDLE_CALLS`` step calls, each started on an
+    idle card: what dispatching a step costs the host.  Returns the state
+    and the seconds."""
+    total = 0.0
+    for _ in range(IDLE_CALLS):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        state, _ = train_step(state, batch)
+        total += time.perf_counter() - tic
+    torch.cuda.synchronize()
+    return state, total / IDLE_CALLS
+
+
+def reset_state_(state, seed_params):
+    """Put ``state`` back to the seed state in place: the seed parameters,
+    zero Adam moments and counts."""
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(seed_params[k])
+        for x in torch.utils._pytree.tree_leaves(state.opt_state):
+            if isinstance(x, torch.Tensor):
+                x.zero_()
+        if isinstance(state.step, torch.Tensor):
+            state.step.zero_()
+            return state
+    return dataclasses.replace(state, step=0)
+
+
+DISPATCH_MODES = ("sequential", "registers", "threaded", "overlap", "auto")
+
+
+def phase_dispatch(cfg, batch, run, label="pipeshard dispatch"):
+    """The dispatch modes on phase 8's executable (``run``: what
+    ``timed_pipeshard`` kept), nothing traced again: from the seed state,
+    put back in place each time, two steps with the stage graphs run
+    uncaptured (the private switch ``_capture = False``, on the current
+    stream), then two in each mode replaying the CUDA graphs (the private
+    switch ``_pipeline_dispatch_mode``).  Losses and parameters must be
+    bit-identical across modes and to the uncaptured steps, and the step
+    must not be captured again.  Then 3 more steps per mode, timed: step
+    time, host time per step, executed resharding bytes, and ``torch.
+    profiler`` over 2 more in that mode: its own busy time per step and
+    device share."""
+    from alpa_tpu_torch.global_env import global_config
+    # the state leaves ``run``: no old reference keeps the buffers phase 8's
+    # last step handed back
+    step, state, ex = run["step"], run.pop("state"), run["ex"]
+    cards = sorted(set(str(d) for d in ex.mesh_devices))
+    batch = {k: torch.as_tensor(v, device=cards[0]) for k, v in batch.items()}
+    model = GPTModel(cfg, device=cards[0], param_dtype=torch.float32)
+    init_random_(model, SEED)
+    seed = {k: p.detach() for k, p in model.named_parameters()}
+    del model
+    ref = None
+    card = card_line()
+    box = [None]
+
+    def one_step():
+        box[0], loss = step(box[0], batch)
+        return loss
+
+    try:
+        for mode in ("uncaptured",) + DISPATCH_MODES:
+            global_config._pipeline_dispatch_mode = (
+                "sequential" if mode == "uncaptured" else mode)
+            ex._capture = mode != "uncaptured"
+            state = reset_state_(state, seed)
+            losses = []
+            for _ in range(2):
+                state, loss = step(state, batch)
+                losses.append(float(loss))
+            ran = ex.last_dispatch_stats["mode"]
+            if ref is None:
+                ref = (losses, {k: p.clone() for k, p in state.params.items()})
+                same = True
+            else:
+                same = losses == ref[0] and all(
+                    torch.equal(p, ref[1][k]) for k, p in state.params.items())
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(3):
+                state, loss = step(state, batch)
+            host = (time.perf_counter() - tic) / 3
+            float(loss)
+            latency = (time.perf_counter() - tic) / 3
+            moved = ex.executed_resharding_bytes
+            state, idle_host = idle_host_seconds(step, state, batch)
+            box[0], state = state, None
+            profile = profile_calls(one_step, 2, latency,
+                                    f"{label} {mode}", top=0)
+            state, box[0] = box[0], None
+            busy = profile["busy_s_per_step"] if profile else None
+            share = (f"busy time {busy:.5f} s per step, device share "
+                     f"{busy / latency:.4f}" if profile
+                     else "device share not measured")
+            print(f"{label} [{card}]: {mode} (ran as {ran}, "
+                  f"stage graphs replayed as CUDA graphs: "
+                  f"{ex.last_dispatch_stats['graphs']}): losses {losses}, "
+                  f"losses and parameters bit-identical to the uncaptured "
+                  f"steps: {same}; step {latency:.5f} s, host {host:.5f} s "
+                  f"per step until the call returns, {idle_host:.5f} s for a "
+                  f"call on an idle card; executed resharding bytes per step "
+                  f"{moved}; {share} (this mode's own profile over this "
+                  f"step time)")
+            check(same, f"dispatch mode {mode}: losses {losses} or "
+                  f"parameters differ from the uncaptured steps {ref[0]}")
+            check(ran == ("overlap" if mode == "auto" else
+                          "sequential" if mode == "uncaptured" else mode),
+                  f"dispatch mode {mode} ran as {ran}")
+    finally:
+        global_config._pipeline_dispatch_mode = "auto"
+        ex._capture = True
+    check(ex.capture_count == 1 and ex.recapture_count == 0,
+          f"the dispatch phase captured phase 8's step again "
+          f"({ex.capture_count} captures)")
+    del seed, ref
+
+
 def phase_pipeshard(shard_profile):
     """GPT-1.3B at full width and depth through PipeshardParallel with manual
-    layers (a boundary every 12 blocks), 2 stages, 4 microbatches; then its
-    peak without and with the in-place apply-grad (``apply_grad_peaks``).
-    Returns the (fwd, dq, dkv) launches of the timed run and the
-    ShardParallel reference loss."""
+    layers (a boundary every 12 blocks), 2 stages, 4 microbatches; then the
+    dispatch modes on its executable (``phase_dispatch``); then its peak
+    without and with the in-place apply-grad (``apply_grad_peaks``).
+    Returns phase 8's run (``timed_pipeshard``, without step and state) and
+    the ShardParallel reference loss."""
     cfg = pipeshard_config(pipeline_boundary_every=12)
     batch = lm_batch(cfg, 8)
     ref_loss = shard_first_loss(cfg, batch)
-    counts, _ = timed_pipeshard("pipeshard", cfg, pipeshard_method(4), batch,
-                                ref_loss, 1e-2, shard_profile)
+    run = timed_pipeshard("pipeshard", cfg, pipeshard_method(4), batch,
+                          ref_loss, 1e-2, shard_profile, keep=True)
+    phase_dispatch(cfg, batch, run)
+    del run["step"], run["ex"]
+    torch.cuda.empty_cache()
     peaks = apply_grad_peaks(cfg, batch)
-    (off, off_held, losses), (on, on_held, _) = peaks["without"], peaks["with"]
+    (off, off_held, losses, _), (on, on_held, _, on_reserved) = (
+        peaks["without"], peaks["with"])
     print(f"pipeshard apply-grad peaks [{card_line()}]: step "
-          f"{len(losses)} of the seed state, peak allocated without the "
-          f"in-place apply-grad {off / 2**30:.3f} GiB ({off_held / 2**30:.3f}"
-          f" GiB held before), with it {on / 2**30:.3f} GiB "
-          f"({on_held / 2**30:.3f} GiB held before): "
+          f"{len(losses)} of the seed state, stage graphs uncaptured, peak "
+          f"allocated without the in-place apply-grad {off / 2**30:.3f} GiB "
+          f"({off_held / 2**30:.3f} GiB held before), with it "
+          f"{on / 2**30:.3f} GiB ({on_held / 2**30:.3f} GiB held before): "
           f"{(off - on) / 2**30:.3f} GiB less; losses bit-identical "
           f"{['%.6f' % x for x in losses]}")
-    return counts, ref_loss
+    # a replay allocates nothing: the graphs' working memory is their pools
+    graphs = run["peak"] + (run["pool"] or 0)
+    print(f"pipeshard memory [{card_line()}]: replayed steps (CUDA graphs) "
+          f"allocated peak {run['peak'] / 2**30:.3f} GiB + the graphs' pools "
+          f"{(run['pool'] or 0) / 2**30:.3f} GiB = {graphs / 2**30:.3f} GiB "
+          f"({run['held'] / 2**30:.3f} GiB held before); uncaptured steps "
+          f"(the peak with the in-place apply-grad above) {on / 2**30:.3f} "
+          f"GiB ({on_held / 2**30:.3f} GiB held before); graphs minus "
+          f"uncaptured, net of what each held before: "
+          f"{(graphs - run['held'] - on + on_held) / 2**30:+.3f} GiB; the "
+          f"allocator's reserved peak (its segments, the pools' included, "
+          f"with what each leaves unused inside them) "
+          f"{run['reserved'] / 2**30:.3f} GiB over the replayed steps vs "
+          f"{on_reserved / 2**30:.3f} GiB over the uncaptured step")
+    return run, ref_loss
+
+
+def phase_pipeshard_remat_blocks(shard_profile, phase8):
+    """GPT-1.3B with per-block remat (``remat_blocks=True``, ``bench.py``'s
+    setting) inside a pipeshard trace: manual layers (a boundary every 12
+    blocks), 2 stages, 4 microbatches, 1F1B, as phase 8 measures it; the
+    first loss within 1e-2 relative of ShardParallel's on the same config;
+    each block's forward runs twice (192/96/96 launches per step).  Prints
+    the peak and step beside phase 8's."""
+    cfg = pipeshard_config(pipeline_boundary_every=12, remat_blocks=True)
+    batch = lm_batch(cfg, 8)
+    ref_loss = shard_first_loss(cfg, batch)
+    label = "pipeshard remat blocks"
+    run = timed_pipeshard(label, cfg, pipeshard_method(4), batch, ref_loss,
+                          1e-2, shard_profile, forward_runs=2)
+    print(f"{label} vs phase 8 [{card_line()}]: step {run['latency']:.5f} "
+          f"vs {phase8['latency']:.5f} s, allocated peak "
+          f"{run['peak'] / 2**30:.3f} vs {phase8['peak'] / 2**30:.3f} GiB, "
+          f"graph pools {(run['pool'] or 0) / 2**30:.3f} vs "
+          f"{(phase8['pool'] or 0) / 2**30:.3f} GiB")
+    return run["counts"]
+
+
+def phase_pipeshard_infer():
+    """The inference path at full width and depth: a forward-only function
+    returning GPT-1.3B's logits (bf16, flash, manual layers at a boundary
+    every 12 blocks), ``parallelize``d under PipeshardParallel with 2 stages
+    x 4 microbatches and the ``"inference"`` schedule, batch 8, one card:
+    the logits of every call against the same ``GPTModel`` forward run
+    eagerly (bf16 tolerance, atol 1e-2 and rtol 1e-2); exactly 24 x 4
+    forward launches and no backward launch per call.  3 warm-up calls
+    (the first runs the stage graphs as they are, the second captures
+    them), 5 timed, then ``torch.profiler`` over 2 more: call time, host
+    time, device share, tokens/s."""
+    label = "pipeshard infer"
+    cfg = pipeshard_config(pipeline_boundary_every=12)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTModel(cfg, device="cuda", param_dtype=torch.float32)
+    init_random_(model, SEED)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    apply = make_apply_fn(model)
+    batch = {"input_ids": torch.as_tensor(lm_batch(cfg, 8)["input_ids"],
+                                          device="cuda")}
+    method = PipeshardParallel(devices=stage_devices(), num_micro_batches=4,
+                               layer_option=ManualLayerOption(),
+                               stage_option=UniformStageOption(num_stages=2),
+                               pipeline_schedule="inference")
+    forward = alpa_tpu_torch.parallelize(
+        lambda p, b: apply(p, b["input_ids"]), method=method)
+    with torch.no_grad():
+        want = apply(params, batch["input_ids"])
+    tol = TOL[torch.bfloat16]
+    reset_launch_counts()
+    tic = time.perf_counter()
+    out = forward(params, batch)
+    first_s = time.perf_counter() - tic
+    ex = forward.get_last_executable()
+    errs = [max_violation(out, want, **tol)]
+    for _ in range(2):
+        errs.append(max_violation(forward(params, batch), want, **tol))
+    n_iter = 5
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n_iter):
+        out = forward(params, batch)
+    host = (time.perf_counter() - tic) / n_iter
+    float(out[0, 0, 0])
+    latency = (time.perf_counter() - tic) / n_iter
+    errs.append(max_violation(out, want, **tol))
+    counts = launch_counts()
+    calls = 3 + n_iter
+    want_counts = (cfg.num_layers * 4 * calls, 0, 0)
+    diff = float((out.float() - want.float()).abs().max())
+    card = card_line()
+    stats = ex.last_dispatch_stats
+    print(f"{label}: GPT-1.3B logits ({cfg.num_layers} layers, bf16, flash, "
+          f"manual layers), batch 8 x seq {cfg.seq_len} in 4 microbatches, "
+          f"{ex.num_fwd_stages} stages on {list(method.devices.devices.flat)}"
+          f", schedule inference, nothing donated: "
+          f"{not any(forward.get_donated_invars(params, batch))}; launches "
+          f"(fwd, dq, dkv) {counts} over {calls} calls; max |logits - eager "
+          f"forward| {diff:.3e} (max |logit| "
+          f"{float(want.float().abs().max()):.3f}), tolerance violations per "
+          f"call {errs} (atol {tol['atol']}, rtol {tol['rtol']}); trace "
+          f"{ex.trace_seconds:.3f} s, first call {first_s:.3f} s")
+    check(counts == want_counts, f"{label}: launches {counts} over {calls} "
+          f"calls, want {want_counts}")
+    check(max(errs) <= 0, f"{label}: logits differ from the eager forward "
+          f"by {diff}")
+    check(stats["graphs"] and ex.capture_count == 1,
+          f"{label}: the timed calls did not replay one capture: {stats}")
+    box = []
+
+    def run():
+        box[:] = [forward(params, batch)]
+        return box[0]
+
+    profile = profile_calls(run, 2, latency, label)
+    share = (f"{profile['busy_s_per_step'] / latency:.4f}" if profile
+             else "not measured")
+    print(f"{label} metrics [{card}]: call {latency:.5f} s, "
+          f"{8 * cfg.seq_len / latency:.1f} tokens/s, host {host:.5f} s per "
+          f"call until it returns, device share {share} (busy time over "
+          f"the call time); dispatch mode "
+          f"{stats['mode']}; graph pools "
+          f"{(ex.get_graph_pool_bytes() or 0) / 2**30:.3f} GiB")
+    counts = launch_counts()
+    del forward, ex, out, want, box, params, model
+    torch.cuda.empty_cache()
+    return counts[0]
 
 
 def phase_pipeshard_auto(shard_profile, ref_loss=None):
@@ -1156,9 +1489,10 @@ def phase_pipeshard_auto(shard_profile, ref_loss=None):
     if ref_loss is None:
         ref_loss = shard_first_loss(cfg, batch)
     label = "pipeshard auto"
-    counts, ex = timed_pipeshard(label, cfg, auto_pipeshard_method(4, 8),
-                                 batch, ref_loss, 1e-6, shard_profile,
-                                 forward_runs=2)
+    run = timed_pipeshard(label, cfg, auto_pipeshard_method(4, 8), batch,
+                          ref_loss, 1e-6, shard_profile, forward_runs=2)
+    counts, ex = run["counts"], run["ex"]
+    del run
     flash = torch.ops.alpa_tpu_torch.flash_fwd.default
     cuts = [(sum(n.target is flash for n in c.nodes),
              sum(node_flops(n) for n in c.nodes)) for c in ex.fwd_layer_comps]
@@ -1232,13 +1566,44 @@ def build_kernels():
                 print(f"setup: {lib.name}: {name}: {regs}; {spill}")
 
 
-def main() -> int:
+def two_cards():
+    """``--two-cards``: phase 8's checks with its two stages on two cards
+    (cross-card RESHARDs, a pool per card, CUDA events across cards): the
+    pipeshard fidelity phase, then phase 8 and its dispatch modes
+    (``phase_dispatch``: every mode bit-identical to the uncaptured steps,
+    resharding bytes per step)."""
+    check(torch.cuda.device_count() >= 2,
+          f"--two-cards needs two cards, found {torch.cuda.device_count()}")
+    phase_pipeshard_fidelity()
+    cfg = pipeshard_config(pipeline_boundary_every=12)
+    batch = lm_batch(cfg, 8)
+    ref_loss = shard_first_loss(cfg, batch)
+    run = timed_pipeshard("pipeshard two cards", cfg, pipeshard_method(4),
+                          batch, ref_loss, 1e-2, {}, keep=True)
+    phase_dispatch(cfg, batch, run, label="pipeshard two cards dispatch")
+
+
+def main(args) -> int:
+    if args not in ([], ["--two-cards"]):
+        print("usage: chip_smoke.py [--two-cards]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     print(f"setup: {card_line()}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     build_kernels()
+    if args:
+        try:
+            two_cards()
+        except SmokeFailure as e:
+            print(f"FAIL: {e}", file=sys.stderr)
+            return 1
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     try:
         fwd_entry, fwd_train = phase_kernel()
         bwd_entries = phase_bwd_kernel()
@@ -1249,22 +1614,30 @@ def main() -> int:
         phase_train_fidelity()
         phase_pipeshard_fidelity()
         phase_pipeshard_auto_fidelity()
-        pipe, ref_loss = phase_pipeshard(shard_profile)
+        phase8, ref_loss = phase_pipeshard(shard_profile)
+        pipe = phase8["counts"]
+        remat = phase_pipeshard_remat_blocks(shard_profile, phase8)
         auto = phase_pipeshard_auto(shard_profile, ref_loss)
+        infer = phase_pipeshard_infer()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    fwd_entry["launches"] = serving + train_fwd + pipe[0] + auto[0]
+    fwd_entry["launches"] = (serving + train_fwd + pipe[0] + remat[0] +
+                             auto[0] + infer)
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "training": train_fwd,
                                      "pipeshard": pipe[0],
-                                     "pipeshard_auto": auto[0]}
+                                     "pipeshard_remat_blocks": remat[0],
+                                     "pipeshard_auto": auto[0],
+                                     "pipeshard_infer": infer}
     fwd_entry["at_training_shape"] = fwd_train
-    for entry, n, p, a in zip(bwd_entries, (train_dq, train_dkv), pipe[1:],
-                              auto[1:]):
-        entry["launches"] = n + p + a
+    for entry, n, p, r, a in zip(bwd_entries, (train_dq, train_dkv),
+                                 pipe[1:], remat[1:], auto[1:]):
+        entry["launches"] = n + p + r + a
         entry["launches_by_path"] = {"training": n, "pipeshard": p,
-                                     "pipeshard_auto": a}
+                                     "pipeshard_remat_blocks": r,
+                                     "pipeshard_auto": a,
+                                     "pipeshard_infer": 0}
     print(card_line())
     print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {
@@ -1274,4 +1647,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

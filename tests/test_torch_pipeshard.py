@@ -458,26 +458,41 @@ def _raises_at_compile(method, step, state, batch, item):
 
 
 def test_inference_schedule_and_forward_only_function_raise():
+    """The inference schedule with a gradient step raises ``ValueError``
+    (it runs forward-only functions); a forward-only function under 1F1B
+    takes the inference path (forward stages only, the "inference"
+    schedule) and returns the serial forward (rtol 1e-6)."""
     _, t_state, batch = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
-    _raises_at_compile(_port_method(2, 1, "inference"), _port_step,
-                       t_state, batch, "A.5")
+    with pytest.raises(ValueError, match="forward-only"):
+        alpa_tpu_torch.parallelize(
+            _port_step, method=_port_method(2, 1, "inference"))(t_state,
+                                                                batch)
 
     def forward(state, batch):
         return state.apply_fn(state.params, batch["x"])
 
-    _raises_at_compile(_port_method(2, 1, "1f1b"), forward, t_state, batch,
-                       "A.5")
+    step = alpa_tpu_torch.parallelize(forward,
+                                      method=_port_method(2, 2, "1f1b"))
+    out = step(t_state, batch)
+    with torch.no_grad():
+        want = t_state.apply_fn(t_state.params, torch.from_numpy(batch["x"]))
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6)
+    ex = step.get_last_executable()
+    assert not ex.has_bwd and ex.get_instruction_counts()["RUN"] == 4
 
 
 def test_multi_device_stage_and_gpt_remat_raise():
+    """A stage mesh of two devices raises citing ROADMAP A.3; GPT's per-block
+    remat inside a pipeshard trace runs, except with the "dots" policy,
+    which raises citing A.5.3."""
     _, t_state, batch = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
     two_per_stage = PipeshardParallel(
         devices=["cpu"] * 4, layer_option=ManualLayerOption(),
         stage_option=ManualStageOption([[0], [1]], [(1, 2), (1, 2)]))
     _raises_at_compile(two_per_stage, _port_step, t_state, batch, "A.3")
 
-    cfg = tgm.GPTConfig(remat_blocks=True, pipeline_boundary_every=2,
-                        **GPT_SHAPE)
+    cfg = tgm.GPTConfig(remat_blocks=True, remat_policy="dots",
+                        pipeline_boundary_every=2, **GPT_SHAPE)
     model = tgm.GPTModel(cfg, device="cpu", param_dtype=torch.float32)
     state = tmu.TrainState.create(apply_fn=tmu.make_apply_fn(model),
                                   params=dict(model.named_parameters()),
@@ -490,7 +505,7 @@ def test_multi_device_stage_and_gpt_remat_raise():
         return state.apply_gradients(grads=grads), loss
 
     _raises_at_compile(_port_method(2, 1, "1f1b"), step, state,
-                       {"input_ids": ids, "labels": ids}, "A.5")
+                       {"input_ids": ids, "labels": ids}, "A.5.3")
 
 
 def test_manual_stage_option_groups_layers_as_jax():

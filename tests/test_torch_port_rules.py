@@ -337,3 +337,89 @@ def test_pipeshard_without_devices_raises_without_cuda(monkeypatch):
     state, loss = get_mlp_train_step(method(["cpu"] * 2),
                                      use_value_and_grad=True)(state, batch)
     assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+def test_dispatch_modules_are_under_the_import_checks():
+    """The modules of the dispatch modes and the inference path are among
+    the files the import and ``torch.compile`` checks above walk."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("alpa_tpu_torch/global_env.py",
+                   "alpa_tpu_torch/pipeline_parallel/runtime_emitter.py",
+                   "alpa_tpu_torch/pipeline_parallel/pipeshard_executable.py",
+                   "alpa_tpu_torch/pipeline_parallel/compile_executable.py",
+                   "alpa_tpu_torch/pipeline_parallel/layer_construction.py"):
+        assert module in names
+
+
+def _cpu_pipeshard_step():
+    from alpa_tpu_torch.testing import (create_mlp_train_state_and_batch,
+                                        get_mlp_train_step)
+    state, batch = create_mlp_train_state_and_batch(
+        batch_size=4, input_dim=8, hidden_dim=8, output_dim=8, num_layers=2,
+        manual_pipeline_layer=True)
+    step = get_mlp_train_step(alpa_tpu_torch.PipeshardParallel(
+        devices=["cpu"] * 2, num_micro_batches=2,
+        layer_option=alpa_tpu_torch.ManualLayerOption(),
+        stage_option=alpa_tpu_torch.UniformStageOption(2)),
+        use_value_and_grad=True)
+    return step, state, batch
+
+
+def test_failed_capture_raises_instead_of_running_eagerly(monkeypatch):
+    """A RUN whose stage graph would be captured (a CUDA executable past
+    its first call; the CUDA calls mocked on the CPU) and whose capture
+    fails raises ``RuntimeError``: the stage is not run eagerly in its
+    place, and no half-captured step is kept."""
+    from alpa_tpu_torch.pipeline_parallel import pipeshard_executable as pe
+    step, state, batch = _cpu_pipeshard_step()
+    ex, flat = step.get_executable(state, batch)
+    captures = []
+
+    class FailingCapture:
+        def __init__(self, graph, pool=None, stream=None):
+            del graph, pool, stream
+
+        def __enter__(self):
+            captures.append(1)
+
+        def __exit__(self, *exc):
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+
+    def eager(*args, **kwargs):
+        raise AssertionError("a stage ran eagerly after a failed capture")
+
+    for name, fake in (("synchronize", lambda *a: None),
+                       ("graph_pool_handle", lambda: (0, 0)),
+                       ("Stream", lambda *a: None),
+                       ("Event", lambda *a: None),
+                       ("CUDAGraph", lambda: None),
+                       ("graph", FailingCapture)):
+        monkeypatch.setattr(torch.cuda, name, fake)
+    monkeypatch.setattr(ex, "_run_eager", eager)
+    ex._use_graphs = ex._warm = True
+    with pytest.raises(RuntimeError, match="not run eagerly"):
+        ex.launch_on_driver(*flat)
+    assert captures == [1] and ex._captured is None
+    assert isinstance(pe.CapturedRun, type)
+
+
+def test_launch_leaves_the_peak_memory_statistics_alone(monkeypatch):
+    """A pipeshard launch no longer resets the allocator's peak statistics
+    (a replay allocates nothing, so a per-call reset would hide the
+    graphs' memory): no call of ``reset_peak_memory_stats`` in the
+    driver, and none at run time."""
+    from alpa_tpu_torch.pipeline_parallel import pipeshard_executable as pe
+    tree = ast.parse(pathlib.Path(pe.__file__).read_text())
+    assert not any(isinstance(n, ast.Attribute) and
+                   n.attr == "reset_peak_memory_stats"
+                   for n in ast.walk(tree))
+
+    def reset(*args, **kwargs):
+        raise AssertionError("reset_peak_memory_stats called")
+
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset)
+    step, state, batch = _cpu_pipeshard_step()
+    for _ in range(2):
+        state, loss = step(state, batch)
+    assert torch.isfinite(loss)
