@@ -1,13 +1,20 @@
-"""Process-global knobs of the pipeshard runtime.
+"""Process-global knobs of the pipeshard runtime and of serving.
 
-The port's own copy of the two knobs of ``alpa_tpu/global_env.py`` that
-its pipeshard driver reads, with the JAX package's names, environment
-variables and defaults:
+The port's own copy of the knobs of ``alpa_tpu/global_env.py`` that its
+pipeshard runtime and its serving stack read, with the JAX package's names,
+environment variables and defaults:
 
 * ``overlap_resharding``: whether dispatch may take the overlap mode, which
   launches cross-mesh RESHARDs as soon as their producers retire.
 * ``debug_dispatch_races``: threaded dispatch reports every instruction's
   value accesses to a race checker, which raises on a conflict.
+* ``kv_paged``: controller replicas build their streaming engines over a
+  ``serve.kv_cache.KVBlockPool``.
+* ``kv_block_size``: tokens per KV block (16); it must divide ``seq_len``.
+* ``kv_cache_blocks``: the pool's capacity in blocks; 0 sizes it for two
+  engine batches of sequences.
+* ``kv_prefix_reuse``: full prompt and output blocks are published to a
+  hash-chain index, so admissions sharing a token prefix skip them.
 
 The dispatch mode is the JAX driver's "auto" choice: overlap where it is
 eligible, else register-file replay.  ``_pipeline_dispatch_mode`` is a
@@ -26,7 +33,7 @@ def _env_bool(name: str, default: bool) -> bool:
 
 
 class GlobalConfig:
-    """The dispatch knobs, seeded from the environment."""
+    """The dispatch and serving knobs, seeded from the environment."""
 
     def __init__(self):
         self._pipeline_dispatch_mode = "auto"
@@ -34,6 +41,12 @@ class GlobalConfig:
             "ALPA_TPU_OVERLAP_RESHARDING", True)
         self.debug_dispatch_races = _env_bool(
             "ALPA_TPU_DEBUG_DISPATCH_RACES", False)
+        self.kv_paged = _env_bool("ALPA_TPU_KV_PAGED", False)
+        self.kv_block_size = int(os.environ.get("ALPA_TPU_KV_BLOCK_SIZE",
+                                                "16"))
+        self.kv_cache_blocks = int(os.environ.get(
+            "ALPA_TPU_KV_CACHE_BLOCKS", "0"))
+        self.kv_prefix_reuse = _env_bool("ALPA_TPU_KV_PREFIX_REUSE", True)
 
 
 global_config = GlobalConfig()

@@ -32,8 +32,13 @@ JAX.  ``pipeline_boundary_every=k`` calls ``mark_pipeline_boundary()``
 before every k-th block, as the JAX model does, for ``ManualLayerOption``;
 outside a pipeshard trace the call does nothing.  Inside a pipeshard trace
 ``remat_blocks`` wraps each block in a ``remat_block`` marker pair, and the
-layer transform recomputes it (``remat_policy="dots"`` raises there).  Not
-in this port yet: ``segment_ids`` packing and the ring/ulysses attention variants.
+layer transform recomputes it (``remat_policy="dots"`` raises there).
+
+``segment_ids`` packs several sequences into one row: tokens attend only
+within their own segment (a block-diagonal mask over the causal one, as an
+additive bias on ``reference_attention``; the flash kernel takes no bias
+operand, so a packed forward stays on the plain path, as in JAX).  Not in
+this port yet: the ring/ulysses attention variants.
 """
 import dataclasses
 import functools
@@ -120,14 +125,18 @@ def config_from_opt_spec(name: str, **kwargs) -> GPTConfig:
                      num_heads=heads, **defaults)
 
 
-def reference_attention(q, k, v, *, causal: bool, offset=0):
+def reference_attention(q, k, v, *, causal: bool, offset=0, bias=None):
     """Plain einsum attention.  q: (B, Sq, H, D); k/v: (B, Sk, H, D).
 
     Scores are computed in q's dtype and softmaxed in fp32; masked scores
     are -1e9.  ``offset`` shifts query positions: an int applies to every
-    row, a (B,) tensor gives per-row offsets."""
+    row, a (B,) tensor gives per-row offsets.  ``bias`` is an additive
+    score bias broadcastable to (B, H, Sq, Sk), added in fp32 (the packed
+    prefill's segment mask)."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     scores = scores / math.sqrt(q.shape[-1])
+    if bias is not None:
+        scores = scores + bias.float()
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         q_pos = torch.arange(sq, device=q.device)[:, None]
@@ -192,7 +201,7 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(h, 3 * h, **kw)
         self.out = nn.Linear(h, h, **kw)
 
-    def forward(self, x, kv_cache=None):
+    def forward(self, x, kv_cache=None, attn_bias=None):
         cfg = self.config
         nh = cfg.num_heads
         hd = cfg.hidden_size // nh
@@ -203,13 +212,17 @@ class SelfAttention(nn.Module):
         if kv_cache is not None:
             index = kv_cache[2]
             k_use, v_use, new_cache = update_kv_cache(kv_cache, k, v)
-            if isinstance(index, int) and cfg.attention_impl == "flash":
+            if (isinstance(index, int) and cfg.attention_impl == "flash"
+                    and attn_bias is None):
                 # prefill at a scalar index: the flash kernel's q_offset
                 out = flash_attention(q, k_use, v_use, causal=True,
                                       offset=index)
             else:
                 out = reference_attention(q, k_use, v_use, causal=True,
-                                          offset=index)
+                                          offset=index, bias=attn_bias)
+        elif attn_bias is not None:
+            out = reference_attention(q, k, v, causal=cfg.causal,
+                                      bias=attn_bias)
         else:
             out = get_attention_fn(cfg)(q, k, v, causal=cfg.causal)
         return _dense(self.out, out.flatten(-2), cfg.dtype), new_cache
@@ -244,8 +257,9 @@ class TransformerBlock(nn.Module):
         self.ln2 = nn.LayerNorm(h, eps=eps, **kw)
         self.mlp = MLPBlock(config, device, param_dtype)
 
-    def forward(self, x, kv_cache=None):
-        attn_out, new_cache = self.attn(self.ln1(x.float()), kv_cache)
+    def forward(self, x, kv_cache=None, attn_bias=None):
+        attn_out, new_cache = self.attn(self.ln1(x.float()), kv_cache,
+                                        attn_bias)
         x = x + attn_out.to(x.dtype)
         x = x + self.mlp(self.ln2(x.float())).to(x.dtype)
         return x, new_cache
@@ -297,15 +311,20 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, position_ids=None, kv_caches=None,
                 segment_ids=None, return_hidden=False):
         """``return_hidden=True`` returns the final (B, S, H) fp32 hidden
-        states instead of logits, for ``chunked_cross_entropy_loss``."""
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "packed sequences (segment_ids) are not ported yet")
+        states instead of logits, for ``chunked_cross_entropy_loss``.
+
+        ``segment_ids`` (B, S): packed sequences, each token attending only
+        within its own segment; ids < 0 mark padding that attends to
+        nothing.  With caches, the chunk is written at their scalar index,
+        and the keys before it (a shared prefix) are visible to every
+        segment.  Pass per-segment ``position_ids``."""
         cfg = self.config
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(
                 s, device=input_ids.device).expand(b, s)
+        seg_bias = (None if segment_ids is None else
+                    _segment_bias(segment_ids, kv_caches))
         # rows are gathered, then cast: the same numbers as flax's cast of
         # the whole table, without writing a cast copy of it
         x = (F.embedding(input_ids, self.wte.weight).to(cfg.dtype) +
@@ -314,6 +333,9 @@ class GPTModel(nn.Module):
         remat = (cfg.remat_blocks and kv_caches is None and
                  torch.is_grad_enabled())
         marked = remat and tracing_active()
+        if marked and seg_bias is not None:
+            raise NotImplementedError(
+                "segment_ids inside a pipeshard trace are not ported yet")
         if marked and cfg.remat_policy is not None:
             raise NotImplementedError(
                 f"remat_policy={cfg.remat_policy!r} inside a pipeshard trace "
@@ -332,11 +354,12 @@ class GPTModel(nn.Module):
                 continue
             if remat:
                 x = torch_checkpoint.checkpoint(
-                    lambda y, blk=block: blk(y)[0], x, use_reentrant=False,
-                    **remat_kw)
+                    lambda y, blk=block: blk(y, attn_bias=seg_bias)[0], x,
+                    use_reentrant=False, **remat_kw)
                 continue
             x, new_cache = block(
-                x, kv_caches[i] if kv_caches is not None else None)
+                x, kv_caches[i] if kv_caches is not None else None,
+                seg_bias)
             if new_caches is not None:
                 new_caches.append(new_cache)
         x = self.ln_f(x.float())
@@ -349,6 +372,29 @@ class GPTModel(nn.Module):
         if new_caches is not None:
             return logits, new_caches
         return logits
+
+
+def _segment_bias(segment_ids, kv_caches):
+    """(B, 1, S, keys) fp32: 0 where a query may see a key of its own
+    segment (or, with caches, a key before the chunk's write index), -1e9
+    elsewhere."""
+    seg = segment_ids
+    if kv_caches is None:
+        same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)
+    else:
+        start = kv_caches[0][2]
+        if not isinstance(start, int):
+            raise ValueError("packed sequences need a scalar (int) cache "
+                             "index")
+        b, s = seg.shape
+        cache_len = kv_caches[0][0].shape[1]
+        seg_k = torch.full((b, cache_len), -2, dtype=seg.dtype,
+                           device=seg.device)
+        seg_k[:, start:start + s] = seg
+        prefix_k = torch.arange(cache_len, device=seg.device) < start
+        same = (((seg[:, :, None] == seg_k[:, None, :]) |
+                 prefix_k[None, None, :]) & (seg[:, :, None] >= 0))
+    return torch.where(same, 0.0, -1e9).float()[:, None]
 
 
 def init_kv_caches(config: GPTConfig, batch_size: int, dtype=None,

@@ -16,3 +16,14 @@ def get_device(device=None) -> torch.device:
             "CUDA is not available; the port runs on the GPU by default. "
             "Pass device='cpu' to run on the CPU explicitly.")
     return dev
+
+
+def to_device(tensor: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``.  On CUDA the copy goes through pinned
+    memory without blocking the host: a plain copy would wait for every
+    kernel queued before it (a serving engine queues its next prefill or
+    block write while the decode tick still runs)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tensor.to(device)
+    return tensor.pin_memory().to(device, non_blocking=True)

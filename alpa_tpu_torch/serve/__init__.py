@@ -1,7 +1,11 @@
-"""Model serving: generation loop + HTTP controller (counterpart of
-``alpa_tpu/serve``)."""
+"""Model serving: generation loop, continuous-batching engine, paged KV
+and HTTP controller (counterpart of ``alpa_tpu/serve``)."""
 from alpa_tpu_torch.serve.generation import (GenerationConfig, Generator,
-                                             get_model)
+                                             PrefixHandle, get_model)
 from alpa_tpu_torch.serve.controller import (Controller, ControllerServer,
                                              RequestBatcher, run_controller)
-from alpa_tpu_torch.serve.scheduler import FIFOQueue
+from alpa_tpu_torch.serve.engine import ContinuousBatchingEngine
+from alpa_tpu_torch.serve.kv_cache import KVBlockPool, KVPoolExhaustedError
+from alpa_tpu_torch.serve.packed import PackedPrefill, pack_prompts
+from alpa_tpu_torch.serve.scheduler import (FIFOQueue, NestedScheduler,
+                                            WeightedFairQueue)

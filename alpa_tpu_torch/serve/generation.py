@@ -6,11 +6,17 @@ kept only so that prefill shapes stay few and stable.  Sampling draws from
 a ``torch.Generator`` in place of ``jax.random`` keys, so sampled tokens
 differ from the JAX package's; greedy decoding matches it.
 
-Not ported yet: speculative decoding, beam search, ``cache_prefix`` and
+``cache_prefix`` precomputes a shared prompt prefix into a
+``PrefixHandle``; ``generate(..., prefix=)`` and the engine prefill only
+each request's suffix over a copy of its caches.  The port's caches are
+written in place (``update_kv_cache``), so a suffix is never prefilled
+over the handle's own tensors.
+
+Not ported yet: speculative decoding, beam search and
 ``parallel_method``.
 """
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,7 +25,21 @@ from alpa_tpu_torch.model.gpt_model import (GPTConfig, GPTModel,
                                             config_from_opt_spec,
                                             config_from_spec,
                                             init_kv_caches, init_random_)
-from alpa_tpu_torch.platform import get_device
+from alpa_tpu_torch.platform import get_device, to_device
+
+
+@dataclasses.dataclass
+class PrefixHandle:
+    """Precomputed KV of a shared prompt prefix (system prompt caching):
+    B=1 caches holding ``length`` tokens at the scalar write index
+    ``length``.  Made by ``Generator.cache_prefix``; ``last_logits`` are
+    the prefix's final-token logits, so an empty suffix generates straight
+    from it.  ``model`` guards against a handle of another model.  Its
+    caches are only read: every user copies them first."""
+    caches: Any
+    length: int
+    last_logits: Any
+    model: Any = dataclasses.field(repr=False, default=None)
 
 
 @dataclasses.dataclass
@@ -98,35 +118,51 @@ class Generator:
         ids = np.zeros((len(prompts), width), np.int64)
         for i, p in enumerate(prompts):
             ids[i, :len(p)] = p
-        return torch.from_numpy(ids).to(self.device)
+        return to_device(torch.from_numpy(ids), self.device)
 
-    def _run_bucketed_prefill(self, prompts, lengths):
-        """Right-pad to the bucket ladder and prefill at cache index 0."""
+    def _run_bucketed_prefill(self, prompts, lengths, caches=None):
+        """Right-pad to the bucket ladder and prefill at cache index 0,
+        into ``caches`` (written in place) or new ones."""
         b = len(prompts)
         ids = self._ids(prompts, self._bucket_len(int(lengths.max())))
-        caches = init_kv_caches(self.config, b, device=self.device)
+        if caches is None:
+            caches = init_kv_caches(self.config, b, device=self.device)
         self.prefill_calls += 1
         logits, caches = self.model(ids, None, caches)
         last = logits[torch.arange(b, device=self.device), lengths - 1]
         # per-row cache indices: each row continues at its own length
         return last, [(kc, vc, lengths) for (kc, vc, _i) in caches]
 
-    def _run_chunked_prefill(self, prompts, lengths):
+    def _run_chunked_prefill(self, prompts, lengths, b=None, caches=None,
+                             start=0, init_last=None):
         """Stream the prompts through fixed-size chunks; the chunk start
-        rides the caches' scalar write index."""
-        b, c = len(prompts), self.prefill_chunk
-        s_max = int(lengths.max())
+        rides the caches' scalar write index.
+
+        ``caches``/``start``: continue from precomputed K/V (a prefix),
+        written in place from position ``start`` (their int index); the
+        ``prompts`` are then suffixes and ``lengths`` total lengths.
+        ``init_last`` seeds the final-logit accumulator (the prefix's last
+        logits, kept by rows whose suffix is empty)."""
+        b = len(prompts) if b is None else b
+        c = self.prefill_chunk
+        s_max = int(max(len(p) for p in prompts))
+        if s_max == 0 and caches is not None:
+            # every suffix is empty: the prefix's logits seed decode
+            return init_last, [(kc, vc, lengths) for (kc, vc, _i) in caches]
         n_chunks = max(1, -(-s_max // c))
-        if n_chunks * c > self.config.seq_len:
+        if start + n_chunks * c > self.config.seq_len:
             raise ValueError(
-                f"chunked prefill of {s_max} tokens pads to {n_chunks * c},"
-                f" exceeding the KV capacity (seq_len "
-                f"{self.config.seq_len}); use a chunk size dividing seq_len "
-                f"or a shorter prompt")
+                f"chunked prefill of {s_max} tokens at offset {start} pads "
+                f"to {start + n_chunks * c}, exceeding the KV capacity "
+                f"(seq_len {self.config.seq_len}); use a chunk size dividing "
+                f"seq_len or a shorter prompt")
         ids = self._ids(prompts, n_chunks * c)
-        caches = init_kv_caches(self.config, b, device=self.device)
-        last = torch.zeros((b, self.config.vocab_size),
-                           dtype=self.config.dtype, device=self.device)
+        if caches is None:
+            caches = init_kv_caches(self.config, b, device=self.device)
+        last = init_last
+        if last is None:
+            last = torch.zeros((b, self.config.vocab_size),
+                               dtype=self.config.dtype, device=self.device)
         rows = torch.arange(b, device=self.device)
         for ci in range(n_chunks):
             start = caches[0][2]                      # scalar chunk start
@@ -141,6 +177,28 @@ class Generator:
         # per-row decode positions take over from the scalar chunk index
         return last, [(kc, vc, lengths) for (kc, vc, _i) in caches]
 
+    def cache_prefix(self, prefix_ids) -> PrefixHandle:
+        """Precompute the KV of a shared prefix (chunked mode only: the
+        chunk step is what resumes suffixes at any cache offset)."""
+        if not self.prefill_chunk:
+            raise ValueError(
+                "cache_prefix requires Generator(prefill_chunk=...)")
+        p = np.asarray(prefix_ids, np.int64).reshape(-1)
+        with torch.inference_mode():
+            lengths = torch.tensor([len(p)], device=self.device)
+            last, caches = self._run_chunked_prefill([p], lengths)
+        # the scalar index again: suffix chunks continue from it
+        caches = [(kc, vc, len(p)) for (kc, vc, _i) in caches]
+        return PrefixHandle(caches=caches, length=len(p), last_logits=last,
+                            model=self.model)
+
+    def check_prefix(self, prefix: PrefixHandle):
+        if not self.prefill_chunk:
+            raise ValueError("prefix caching requires "
+                             "Generator(prefill_chunk=...)")
+        if prefix.model is not self.model:
+            raise ValueError("PrefixHandle was built for another model")
+
     def _decode(self, token, index, caches):
         self.decode_calls += 1
         logits, caches = self.model(token[:, None], index[:, None], caches)
@@ -148,7 +206,8 @@ class Generator:
 
     def generate(self, input_ids,
                  generation_config: Optional[GenerationConfig] = None,
-                 rng: Optional[torch.Generator] = None):
+                 rng: Optional[torch.Generator] = None,
+                 prefix: Optional[PrefixHandle] = None):
         """Generate for a batch of (possibly mixed-length) prompts.
 
         ``input_ids``: (B, S) array, or a list of 1-D prompts of varying
@@ -157,15 +216,19 @@ class Generator:
         1-D arrays (prompt + generation, truncated at eos).  ``rng`` is a
         ``torch.Generator`` on this generator's device (default: seed 0).
 
+        ``prefix``: a ``cache_prefix`` handle.  Its KV is copied across the
+        batch and only each request's suffix (``input_ids``) is prefilled;
+        returned rows hold suffix + generation.
+
         Runs under ``torch.inference_mode()``, entered here because the
         mode is thread-local and the batcher calls from its own thread.
         """
         with torch.inference_mode():
             return self._generate(input_ids,
                                   generation_config or GenerationConfig(),
-                                  rng)
+                                  rng, prefix)
 
-    def _generate(self, input_ids, cfg: GenerationConfig, rng):
+    def _generate(self, input_ids, cfg: GenerationConfig, rng, prefix):
         if rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
         if isinstance(input_ids, (list, tuple)):
@@ -177,14 +240,25 @@ class Generator:
                 arr = arr[None]
             prompts = list(arr)
         b = len(prompts)
-        lengths_np = np.array([len(p) for p in prompts], np.int64)
+        plen = 0
+        if prefix is not None:
+            self.check_prefix(prefix)
+            plen = prefix.length
+        lengths_np = np.array([plen + len(p) for p in prompts], np.int64)
         s_max = int(lengths_np.max())
         if s_max + cfg.max_new_tokens > self.config.seq_len:
             raise ValueError(
                 f"prompt {s_max} + max_new_tokens {cfg.max_new_tokens} "
                 f"exceeds seq_len {self.config.seq_len}")
         lengths = torch.from_numpy(lengths_np).to(self.device)
-        if self.prefill_chunk:
+        if prefix is not None:
+            # a copy of the prefix K/V per row: the prefill writes in place
+            init = [(kc.repeat(b, 1, 1, 1), vc.repeat(b, 1, 1, 1), idx)
+                    for (kc, vc, idx) in prefix.caches]
+            logits, caches = self._run_chunked_prefill(
+                prompts, lengths, b, caches=init, start=plen,
+                init_last=prefix.last_logits.repeat(b, 1))
+        elif self.prefill_chunk:
             logits, caches = self._run_chunked_prefill(prompts, lengths)
         else:
             logits, caches = self._run_bucketed_prefill(prompts, lengths)

@@ -130,7 +130,10 @@ from alpa_tpu_torch.model.model_util import (TrainState, adam, gpt_lm_loss,
                                              make_apply_fn)
 from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.ops import flash_attention as fa
-from alpa_tpu_torch.serve import GenerationConfig, get_model, run_controller
+from alpa_tpu_torch.global_env import global_config
+from alpa_tpu_torch.serve import (ContinuousBatchingEngine, GenerationConfig,
+                                  Generator, KVBlockPool, get_model,
+                                  run_controller)
 from alpa_tpu_torch.telemetry.perf import GPU_SPECS, compute_mfu
 from alpa_tpu_torch.util import compute_gpt_tflops, node_flops
 
@@ -138,6 +141,19 @@ SEED = 0
 LR = 1e-4   # Adam's learning rate in every training phase
 PROMPT_LENGTHS = (37, 128, 300, 511)
 NEW_TOKENS = 32
+# phase 4b: a 256-token system prompt, 16 streamed requests with suffixes
+# of 32-480 tokens and 64 greedy new tokens, on the controller's engine of
+# 4 rows (JAX's default), chunked prefill of 128 tokens
+ENGINE_PREFIX = 256
+ENGINE_REQUESTS = 16
+ENGINE_NEW_TOKENS = 64
+ENGINE_ROWS = 4
+ENGINE_CHUNK = 128
+# two bf16 paths through 24 layers (a solo B=1 decode against the engine's
+# B=4 tick) may order a near-tie differently: a divergence is accepted
+# only where the two tokens' logits lie within this many logit units of
+# each other and of the top (8 bf16 ulps at |logit| in [4, 8))
+NEAR_TIE = 0.25
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 SPEC = GPU_SPECS["h100-sxm"]
@@ -464,7 +480,7 @@ def post(port, body):
         return json.loads(resp.read())["output_ids"][0]
 
 
-def concurrent_completions(port, prompts, new_tokens):
+def concurrent_completions(port, prompts, new_tokens, model="opt-1.3b"):
     """POST every prompt at once from its own thread; (outputs, seconds
     per request, wall seconds)."""
     outs, secs = [None] * len(prompts), [None] * len(prompts)
@@ -475,7 +491,7 @@ def concurrent_completions(port, prompts, new_tokens):
         barrier.wait()
         tic = time.perf_counter()
         try:
-            outs[i] = post(port, {"model": "opt-1.3b",
+            outs[i] = post(port, {"model": model,
                                   "prompt_ids": prompts[i].tolist(),
                                   "max_new_tokens": new_tokens})
         except Exception as e:  # pylint: disable=broad-except
@@ -514,7 +530,7 @@ def phase_serving():
                            "max_new_tokens": 2})          # warm-up
         fa.FLASH_FWD_LAUNCHES = 0
         gen.prefill_calls = 0
-        batcher = server.controller._models["opt-1.3b"][0]
+        batcher = server.controller._models["opt-1.3b"][0].batcher
         batches0 = batcher.batches_run
         outs, secs, wall = concurrent_completions(server.port, prompts,
                                                   NEW_TOKENS)
@@ -551,6 +567,342 @@ def phase_serving():
     del gen
     torch.cuda.empty_cache()
     return launches
+
+
+def read_sse(port, body, times):
+    """POST a streamed completion; (tokens, final event), with the host
+    clock of each token appended to ``times``."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/completions",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    tokens, final = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            event = json.loads(line[len("data: "):])
+            if "token" in event:
+                times.append(time.perf_counter())
+                tokens.append(event["token"])
+            else:
+                final = event
+    return tokens, final
+
+
+def engine_tokens(engine, prompts):
+    """Enqueue every prompt at once (the loop admits under the engine's
+    lock), then read the streams: one list of tokens per prompt."""
+    with engine._cv:
+        streams = [engine.submit_stream(p, GenerationConfig(
+            max_new_tokens=ENGINE_NEW_TOKENS)) for p in prompts]
+    return [list(s) for s in streams]
+
+
+def near_tie_divergence(model, prompt, got, want):
+    """None if the token lists are equal; else (position, gap): the logit
+    gap between the two tokens where they first differ, from a cache-free
+    forward over the prompt and the common tokens, and how far the lower
+    of them lies below the top logit there."""
+    pos = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+               None)
+    if pos is None:
+        return None if len(got) == len(want) else (len(got), float("inf"))
+    ids = torch.as_tensor(np.concatenate([prompt, got[:pos]])[None],
+                          device="cuda")
+    with torch.inference_mode():
+        logits = model(ids)[0, -1].float()
+    top = float(logits.max())
+    a, b = float(logits[got[pos]]), float(logits[want[pos]])
+    return pos, max(abs(a - b), top - min(a, b))
+
+
+def profile_engine_ticks(engine, ticks, label, top=8):
+    """``torch.profiler`` over ``ticks`` decode ticks of a live engine: the
+    busy time (the union of kernel intervals) per tick and its share of
+    the profiled span, the wall time per tick, and the ``top`` heaviest
+    kernels by device time per tick."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        start = engine.decode_steps
+        tic = time.perf_counter()
+        while engine.decode_steps < start + ticks:
+            time.sleep(0.001)
+        wall = time.perf_counter() - tic
+        done = engine.decode_steps - start
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy_us, reach = 0.0, spans[0][0]
+    for s0, e0 in spans:
+        busy_us += max(0.0, e0 - max(s0, reach))
+        reach = max(reach, e0)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    total_us = sum(e.self_device_time_total for e in kernels) or 1.0
+    for rank, e in enumerate(kernels[:top], 1):
+        print(f"{label} tick kernel {rank}: "
+              f"{e.self_device_time_total / 1e3 / done:.4f} ms per tick, "
+              f"{e.count / done:.1f} launches per tick, "
+              f"{e.self_device_time_total / total_us:.4f} of the device "
+              f"time: {e.key[:110]}")
+    return {"ticks": done, "wall_s_per_tick": wall / done,
+            "busy_s_per_tick": busy_us / 1e6 / done,
+            "busy_share": busy_us / (reach - spans[0][0])}
+
+
+def phase_engine():
+    """Phase 4b: the serving engine.  OPT-1.3B as phase 4 builds it (bf16,
+    flash, 24 layers, random weights from the seed), chunked prefill of
+    128 tokens, registered on ``run_controller`` with ``kv_paged`` and
+    ``kv_prefix_reuse`` on and a 256-token system prompt warmed into the
+    pool; 16 concurrent streamed ``POST /completions`` (the system prompt
+    and a suffix of 32-480 tokens, 64 greedy new tokens) on the replica's
+    engine of 4 rows.  Checks: every streamed answer equals the same
+    prompts sent to a paged engine directly; that engine's tokens equal an
+    unpaged engine's over the same prefix as a ``PrefixHandle``; the
+    non-streamed answer (the batcher, all 16 sent at once) equals the
+    streamed one or parts from it at a near-tie (``NEAR_TIE``); every
+    request hits the warmed prefix; 24 forward launches per prefill model
+    call and no backward launch; one capture per engine, a replay per tick, no step failure; one
+    decode tick replayed gives the logits of the same tick run uncaptured,
+    bit for bit.  Then the forward kernel at the engine's suffix shape, the
+    tick's time uncaptured and replayed beside its bound, the tick's device
+    share under ``torch.profiler`` and the request metrics."""
+    label = "serving engine"
+    cfg = config_from_opt_spec("1.3b", dtype=torch.bfloat16,
+                               attention_impl="flash")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTModel(cfg, device="cuda")
+    init_random_(model, SEED)
+    gen = Generator(model, cfg, prefill_chunk=ENGINE_CHUNK)
+    rng = np.random.default_rng(SEED + 4)
+    system = rng.integers(0, cfg.vocab_size, ENGINE_PREFIX)
+    suffix_lens = rng.integers(32, 481, ENGINE_REQUESTS + 1)
+    suffixes = [rng.integers(0, cfg.vocab_size, n) for n in suffix_lens]
+    prompts = [np.concatenate([system, s]) for s in suffixes]
+    warm_prompt, prompts, suffixes = prompts[0], prompts[1:], suffixes[1:]
+    saved = (global_config.kv_paged, global_config.kv_prefix_reuse,
+             global_config.kv_block_size)
+    global_config.kv_paged = global_config.kv_prefix_reuse = True
+    global_config.kv_block_size = 16
+    server = run_controller(port=0)
+    name = "opt-1.3b-engine"
+    try:
+        server.controller.register_model(name, gen, prefix_ids=system)
+        tic = time.perf_counter()
+        engine = server.controller._models[name][0].engine
+        pool = engine._pool
+        build_s = time.perf_counter() - tic
+        # warm-up: one streamed request (the capture happens here)
+        tokens, final = read_sse(server.port, {
+            "model": name, "prompt_ids": warm_prompt.tolist(),
+            "max_new_tokens": 8}, [])
+        check(final == {"done": True} and len(tokens) == 8,
+              f"{label}: warm-up stream ended with {final}")
+        reset_launch_counts()
+        prefills0, steps0 = gen.prefill_calls, engine.decode_steps
+        replays0 = engine.decode_replays
+        times = [[] for _ in prompts]
+        results = [None] * len(prompts)
+        submitted = [None] * len(prompts)
+        errors = []
+        barrier = threading.Barrier(len(prompts))
+
+        def call(i):
+            barrier.wait()
+            submitted[i] = time.perf_counter()
+            try:
+                results[i] = read_sse(server.port, {
+                    "model": name, "prompt_ids": prompts[i].tolist(),
+                    "max_new_tokens": ENGINE_NEW_TOKENS}, times[i])
+            except Exception as e:  # pylint: disable=broad-except
+                errors.append(e)
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), f"{label}: a stream "
+              "hung")
+        check(not errors, f"{label}: a stream failed: {errors[:1]}")
+        launches = launch_counts()
+        prefills = gen.prefill_calls - prefills0
+        steps = engine.decode_steps - steps0
+        replays = engine.decode_replays - replays0
+        streamed = [r[0] for r in results]
+        for (tokens, final), p in zip(results, prompts):
+            check(final == {"done": True} and
+                  len(tokens) == ENGINE_NEW_TOKENS and
+                  all(0 <= t < cfg.vocab_size for t in tokens),
+                  f"{label}: stream of {len(tokens)} tokens ended with "
+                  f"{final}")
+        stats = pool.stats()
+        ttft = [t[0] - s for t, s in zip(times, submitted)]
+        tpot = [(t[-1] - t[0]) / (len(t) - 1) for t in times]
+        wall = max(t[-1] for t in times) - min(submitted)
+        print(f"{label}: OPT-1.3B ({cfg.num_layers} layers, bf16, flash), "
+              f"engine of {engine.B} rows built with a {ENGINE_PREFIX}-token "
+              f"warmed prefix in {build_s:.2f} s; {len(prompts)} streams of "
+              f"{ENGINE_NEW_TOKENS} tokens ok, prompts "
+              f"{sorted(len(p) for p in prompts)}; {prefills} prefill model "
+              f"calls, flash launches (fwd, dq, dkv) {launches}; {steps} "
+              f"ticks, {replays} "
+              f"replays, captures {engine.decode_captures}, step failures "
+              f"{engine.step_failures}; pool {stats}")
+        check(stats["prefix_hits"] >= 15, f"{label}: prefix hits "
+              f"{stats['prefix_hits']}")
+        check(prefills >= 1 and
+              launches == (cfg.num_layers * prefills, 0, 0),
+              f"{label}: flash launches (fwd, dq, dkv) {launches}, want "
+              f"({cfg.num_layers} x {prefills} prefill calls, 0, 0)")
+        check(engine.decode_captures == 1 and
+              engine.decode_replays == engine.decode_steps and
+              replays == steps, f"{label}: captures "
+              f"{engine.decode_captures}, replays {engine.decode_replays} "
+              f"for {engine.decode_steps} ticks")
+        check(engine.step_failures == 0, f"{label}: step failures")
+        # the batcher, all requests at once: equal, or parted at a near-tie
+        ties = []
+        answers, _, _ = concurrent_completions(server.port, prompts,
+                                               ENGINE_NEW_TOKENS, model=name)
+        for p, got, want in zip(prompts, streamed, answers):
+            check(want[:len(p)] == p.tolist(), f"{label}: no echo")
+            tie = near_tie_divergence(model, p, got, want[len(p):])
+            if tie is not None:
+                ties.append(tie)
+        print(f"{label}: streamed == non-streamed for "
+              f"{len(prompts) - len(ties)} of {len(prompts)} requests; parted "
+              f"at (position, logit gap) {ties} (tolerance {NEAR_TIE})")
+        check(all(gap <= NEAR_TIE for _, gap in ties), f"{label}: streamed "
+              f"and non-streamed answers part beyond a near-tie: {ties}")
+        write_ms = pool.write_seconds / max(1, pool.write_calls) * 1e3
+        blocks_in_use = stats["blocks_in_use"]
+        bytes_saved = stats["bytes_saved"]
+    finally:
+        server.shutdown()
+        (global_config.kv_paged, global_config.kv_prefix_reuse,
+         global_config.kv_block_size) = saved
+    # the handler class holds the controller in a reference cycle
+    del engine, pool, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same requests straight to a paged engine, then to an unpaged one
+    # over the same prefix as a PrefixHandle
+    pool = KVBlockPool.for_generator(gen, block_size=16)
+    paged = ContinuousBatchingEngine(gen, max_batch=ENGINE_ROWS,
+                                     prompt_bucket=cfg.seq_len, kv_pool=pool)
+    pool.warm_prefix(gen, system)
+    paged_tokens = engine_tokens(paged, prompts)
+    check(paged_tokens == streamed, f"{label}: the server's streams differ "
+          "from the paged engine's tokens")
+    with torch.inference_mode(), paged._cv:
+        # one tick, uncaptured and replayed, on the idle engine's buffers
+        start = paged._index.clone()
+        paged._tick_body()
+        uncaptured = paged._logits.clone()
+        paged._index.copy_(start)
+        paged._graph.replay()
+        replayed = paged._logits.clone()
+        same = torch.equal(uncaptured, replayed)
+        tick_ms = cuda_ms(paged._tick_body)
+        paged._index.copy_(start)
+        replay_ms = cuda_ms(paged._graph.replay)
+        paged._index.copy_(start)
+        tick_bytes = (sum(p.numel() * p.element_size()
+                          for p in model.parameters()) +
+                      paged._kv.numel() * paged._kv.element_size())
+    tick_bound = tick_bytes / PEAK_BYTES_PER_S * 1e3
+    check(same, f"{label}: a replayed tick's logits differ from the "
+          "uncaptured tick's")
+    check(paged.decode_captures == 1 and paged.step_failures == 0 and
+          paged.decode_replays == paged.decode_steps, f"{label}: paged "
+          f"engine captures {paged.decode_captures}, replays "
+          f"{paged.decode_replays} for {paged.decode_steps} ticks")
+    # decode at steady state: four long requests, profiled for 50 ticks
+    with paged._cv:
+        long_streams = [paged.submit_stream(p, GenerationConfig(
+            max_new_tokens=300)) for p in prompts[:ENGINE_ROWS]]
+    while paged._active.sum() < ENGINE_ROWS:
+        time.sleep(0.001)
+    admitted = paged.decode_steps
+    while paged.decode_steps < admitted + 5:    # the prefills are done
+        time.sleep(0.001)
+    profile = profile_engine_ticks(paged, 50, label)
+    for stream in long_streams:
+        list(stream)
+    paged.shutdown()
+    del paged, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    handle = gen.cache_prefix(system)
+    unpaged = ContinuousBatchingEngine(gen, max_batch=ENGINE_ROWS,
+                                       prompt_bucket=cfg.seq_len,
+                                       prefix=handle)
+    unpaged_tokens = engine_tokens(unpaged, suffixes)
+    unpaged.shutdown()
+    print(f"{label}: paged == unpaged tokens for all {len(prompts)} "
+          f"requests: {paged_tokens == unpaged_tokens}; replayed tick logits "
+          f"== uncaptured: {same}")
+    check(paged_tokens == unpaged_tokens, f"{label}: paged and unpaged "
+          "engines give different tokens")
+    peak = torch.cuda.max_memory_allocated()
+    card = card_line()
+    share = steady = "not measured"
+    if profile is not None:
+        share = (f"{profile['busy_share']:.4f} (busy "
+                 f"{profile['busy_s_per_tick'] * 1e3:.5f} ms of "
+                 f"{profile['wall_s_per_tick'] * 1e3:.5f} ms per tick over "
+                 f"{profile['ticks']} ticks of {ENGINE_ROWS} live rows)")
+        steady = f"{ENGINE_ROWS / profile['wall_s_per_tick']:.1f} tokens/s"
+    print(f"{label} metrics [{card}]: TTFT (to the first SSE event) p50 "
+          f"{np.percentile(ttft, 50):.4f} s p99 {np.percentile(ttft, 99):.4f} "
+          f"s; time per output token p50 {np.percentile(tpot, 50) * 1e3:.3f} "
+          f"ms p99 {np.percentile(tpot, 99) * 1e3:.3f} ms; "
+          f"{len(prompts) * ENGINE_NEW_TOKENS / wall:.1f} output tokens/s "
+          f"over {wall:.3f} s (first submit to last token)")
+    print(f"{label} tick [{card}]: {ENGINE_ROWS} rows, uncaptured "
+          f"{tick_ms:.5f} ms, replayed {replay_ms:.5f} ms, bound "
+          f"{tick_bound:.5f} ms ({tick_bytes} bytes: weights + the dense "
+          f"KV rows, over {PEAK_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"steady decode {steady}; device share under torch.profiler "
+          f"{share}; "
+          f"write_tokens host {write_ms:.5f} ms per tick; pool blocks in "
+          f"use {blocks_in_use}, bytes saved {bytes_saved}; peak allocated "
+          f"{peak / 2**30:.3f} GiB")
+    # the forward kernel at the engine's chunked suffix shape
+    gen_k = torch.Generator(device="cuda").manual_seed(SEED)
+    b, sq, sk, off = 1, ENGINE_CHUNK, cfg.seq_len, ENGINE_PREFIX
+    h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    q, k, v = make_qkv(b, sq, sk, h, d, torch.bfloat16, gen_k)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True, q_offset=off)
+    ref_out, ref_lse = fa.flash_attention_forward_reference(
+        q, k, v, causal=True, q_offset=off)
+    err = float((out.float() - ref_out.float()).abs().max())
+    ok = (max_violation(out, ref_out, **TOL[torch.bfloat16]) <= 0 and
+          max_violation(lse, ref_lse, **LSE_TOL) <= 0)
+    bnd, bound_by = flash_bound(b, sq, sk, h, d, True, off, torch.bfloat16)
+    print(f"kernel case engine-suffix: B={b} Sq={sq} Sk={sk} H={h} D={d} "
+          f"causal=True q_offset={off} bf16: max|out err| {err:.3e} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, "kernel at the engine's suffix shape disagrees with the plain "
+          "version")
+    timing = {"max_abs_err": err, **time_fwd("engine-suffix", q, k, v, True,
+                                             off, bnd, bound_by)}
+    del q, k, v, out, lse, ref_out, ref_lse, handle, model, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, timing
 
 
 def phase_fidelity():
@@ -1583,6 +1935,14 @@ def two_cards():
     phase_dispatch(cfg, batch, run, label="pipeshard two cards dispatch")
 
 
+def timed(name, fn, *args):
+    """``fn(*args)``, printing its wall time as the phase's."""
+    tic = time.perf_counter()
+    out = fn(*args)
+    print(f"phase time: {name} {time.perf_counter() - tic:.2f} s")
+    return out
+
+
 def main(args) -> int:
     if args not in ([], ["--two-cards"]):
         print("usage: chip_smoke.py [--two-cards]", file=sys.stderr)
@@ -1605,36 +1965,44 @@ def main(args) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     try:
-        fwd_entry, fwd_train = phase_kernel()
-        bwd_entries = phase_bwd_kernel()
-        serving = phase_serving()
-        phase_fidelity()
-        (train_fwd, train_dq, train_dkv), shard_profile = phase_training(
+        fwd_entry, fwd_train = timed("kernel", phase_kernel)
+        bwd_entries = timed("bwd kernel", phase_bwd_kernel)
+        serving = timed("serving", phase_serving)
+        engine, fwd_engine = timed("serving engine", phase_engine)
+        timed("fidelity", phase_fidelity)
+        (train_fwd, train_dq, train_dkv), shard_profile = timed(
+            "training", phase_training,
             (fwd_train["ms"], *(e["ms"] for e in bwd_entries)))
-        phase_train_fidelity()
-        phase_pipeshard_fidelity()
-        phase_pipeshard_auto_fidelity()
-        phase8, ref_loss = phase_pipeshard(shard_profile)
+        timed("train fidelity", phase_train_fidelity)
+        timed("pipeshard fidelity", phase_pipeshard_fidelity)
+        timed("pipeshard auto fidelity", phase_pipeshard_auto_fidelity)
+        phase8, ref_loss = timed("pipeshard", phase_pipeshard, shard_profile)
         pipe = phase8["counts"]
-        remat = phase_pipeshard_remat_blocks(shard_profile, phase8)
-        auto = phase_pipeshard_auto(shard_profile, ref_loss)
-        infer = phase_pipeshard_infer()
+        remat = timed("pipeshard remat blocks", phase_pipeshard_remat_blocks,
+                      shard_profile, phase8)
+        auto = timed("pipeshard auto", phase_pipeshard_auto, shard_profile,
+                     ref_loss)
+        infer = timed("pipeshard infer", phase_pipeshard_infer)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    fwd_entry["launches"] = (serving + train_fwd + pipe[0] + remat[0] +
-                             auto[0] + infer)
+    fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
+                             + remat[0] + auto[0] + infer)
     fwd_entry["launches_by_path"] = {"serving": serving,
+                                     "serving_engine": engine[0],
                                      "training": train_fwd,
                                      "pipeshard": pipe[0],
                                      "pipeshard_remat_blocks": remat[0],
                                      "pipeshard_auto": auto[0],
                                      "pipeshard_infer": infer}
     fwd_entry["at_training_shape"] = fwd_train
-    for entry, n, p, r, a in zip(bwd_entries, (train_dq, train_dkv),
-                                 pipe[1:], remat[1:], auto[1:]):
-        entry["launches"] = n + p + r + a
-        entry["launches_by_path"] = {"training": n, "pipeshard": p,
+    fwd_entry["at_engine_suffix_shape"] = fwd_engine
+    for entry, e, n, p, r, a in zip(bwd_entries, engine[1:],
+                                    (train_dq, train_dkv), pipe[1:],
+                                    remat[1:], auto[1:]):
+        entry["launches"] = e + n + p + r + a
+        entry["launches_by_path"] = {"serving_engine": e,
+                                     "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
                                      "pipeshard_auto": a,
                                      "pipeshard_infer": 0}

@@ -175,8 +175,15 @@ def test_config_ladders_match_jax():
             assert jd[key] == value, key
 
 
-def test_segment_ids_not_ported():
-    _, _, _, tmodel, _ = _pair()
-    ids = _t(_ids(1, 8))
-    with pytest.raises(NotImplementedError):
-        tmodel(ids, segment_ids=torch.zeros_like(ids))
+def test_segment_ids_match_flax():
+    """Packed sequences give the flax model's logits (two segments and a
+    padded tail)."""
+    jmodel, params, _, tmodel, _ = _pair()
+    ids = _ids(1, 8)
+    seg = np.array([[0, 0, 0, 1, 1, 1, 1, -1]], np.int32)
+    pos = np.array([[0, 1, 2, 0, 1, 2, 3, 0]], np.int32)
+    want = jmodel.apply(params, ids, pos, segment_ids=seg)
+    with torch.inference_mode():
+        got = tmodel(_t(ids), _t(pos), segment_ids=_t(seg))
+    np.testing.assert_allclose(got[0, :7].numpy(), np.asarray(want)[0, :7],
+                               atol=ATOL)

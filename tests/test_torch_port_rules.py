@@ -5,6 +5,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -340,14 +341,19 @@ def test_pipeshard_without_devices_raises_without_cuda(monkeypatch):
 
 
 def test_dispatch_modules_are_under_the_import_checks():
-    """The modules of the dispatch modes and the inference path are among
-    the files the import and ``torch.compile`` checks above walk."""
+    """The modules of the dispatch modes, the inference path and the
+    serving engine are among the files the import and ``torch.compile``
+    checks above walk."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for module in ("alpa_tpu_torch/global_env.py",
                    "alpa_tpu_torch/pipeline_parallel/runtime_emitter.py",
                    "alpa_tpu_torch/pipeline_parallel/pipeshard_executable.py",
                    "alpa_tpu_torch/pipeline_parallel/compile_executable.py",
-                   "alpa_tpu_torch/pipeline_parallel/layer_construction.py"):
+                   "alpa_tpu_torch/pipeline_parallel/layer_construction.py",
+                   "alpa_tpu_torch/serve/engine.py",
+                   "alpa_tpu_torch/serve/kv_cache.py",
+                   "alpa_tpu_torch/serve/packed.py",
+                   "alpa_tpu_torch/serve/scheduler.py"):
         assert module in names
 
 
@@ -423,3 +429,72 @@ def test_launch_leaves_the_peak_memory_statistics_alone(monkeypatch):
     for _ in range(2):
         state, loss = step(state, batch)
     assert torch.isfinite(loss)
+
+
+def test_serving_engine_and_pool_default_to_cuda(monkeypatch):
+    """``KVBlockPool`` and the engine (through its ``Generator``) run on
+    CUDA unless given the CPU; on the CPU the decode tick is not captured."""
+    from alpa_tpu_torch.model.gpt_model import GPTModel
+    from alpa_tpu_torch.serve import ContinuousBatchingEngine, KVBlockPool
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        KVBlockPool(TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousBatchingEngine(Generator(GPTModel(TINY), TINY))
+    gen = Generator(GPTModel(TINY), TINY, device="cpu")
+    engine = ContinuousBatchingEngine(gen, max_batch=1, prompt_bucket=8)
+    try:
+        assert engine.device.type == "cpu" and engine._capture is False
+        assert KVBlockPool.for_generator(gen).device.type == "cpu"
+    finally:
+        engine.shutdown()
+
+
+def test_failed_decode_capture_fails_the_rows_and_runs_nothing_in_its_place(
+        monkeypatch):
+    """The engine's capture of its decode tick (the CUDA calls mocked on
+    the CPU) fails: the live rows get the error, the engine counts a step
+    failure, and no tick runs uncaptured beyond the capture's one warm-up;
+    the next tick tries the capture again."""
+    import contextlib
+    from alpa_tpu_torch.model.gpt_model import GPTModel
+    from alpa_tpu_torch.serve import ContinuousBatchingEngine
+    from alpa_tpu_torch.serve.generation import GenerationConfig
+
+    class FakeStream:
+        def wait_stream(self, other):
+            del other
+
+    class FailingCapture:
+        def __init__(self, graph, stream=None, capture_error_mode=None):
+            assert capture_error_mode == "thread_local"
+            del graph, stream
+
+        def __enter__(self):
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+
+        def __exit__(self, *exc):
+            return False
+
+    for name, fake in (("Stream", lambda *a: FakeStream()),
+                       ("current_stream", lambda *a: FakeStream()),
+                       ("stream", lambda s: contextlib.nullcontext()),
+                       ("CUDAGraph", lambda: None),
+                       ("graph", FailingCapture)):
+        monkeypatch.setattr(torch.cuda, name, fake)
+    gen = Generator(GPTModel(TINY), TINY, device="cpu")
+    engine = ContinuousBatchingEngine(gen, max_batch=1, prompt_bucket=8)
+    ticks = []
+    monkeypatch.setattr(engine, "_tick_body", lambda: ticks.append(1))
+    engine._capture = True
+    try:
+        for attempt in (1, 2):
+            with pytest.raises(RuntimeError, match="not run uncaptured"):
+                engine.submit(np.arange(1, 4), GenerationConfig(
+                    max_new_tokens=3))
+            assert engine.step_failures == attempt and len(ticks) == attempt
+        assert engine.decode_captures == 0 and engine._graph is None
+        assert engine.decode_replays == 0 and not engine._active.any()
+    finally:
+        engine.shutdown()
