@@ -9,9 +9,11 @@ from alpa_tpu_torch.api import (clear_executable_cache, grad, init,
                                 mark_gradient, parallelize, shutdown,
                                 value_and_grad)
 from alpa_tpu_torch.device_mesh import get_seed, set_seed
-from alpa_tpu_torch.parallel_method import (LocalPipelineParallel,
+from alpa_tpu_torch.parallel_method import (DataParallel,
+                                            LocalPipelineParallel,
                                             ParallelMethod, PipeshardParallel,
-                                            ShardParallel,
+                                            ShardParallel, Zero2Parallel,
+                                            Zero3Parallel,
                                             get_3d_parallel_method)
 from alpa_tpu_torch.pipeline_parallel.layer_construction import (
     AutoLayerOption, FollowLayerOption, ManualLayerOption, automatic_remat,
@@ -21,11 +23,16 @@ from alpa_tpu_torch.pipeline_parallel.primitive_def import \
 from alpa_tpu_torch.pipeline_parallel.stage_construction import (
     AutoStageOption, ManualStageOption, UniformStageOption)
 from alpa_tpu_torch.platform import get_device
+from alpa_tpu_torch.shard_parallel.auto_sharding import AutoShardingOption
+from alpa_tpu_torch.shard_parallel.manual_sharding import \
+    ManualShardingOption
 
-__all__ = ["AutoLayerOption", "AutoStageOption", "FollowLayerOption",
-           "LocalPipelineParallel", "ManualLayerOption", "ManualStageOption",
+__all__ = ["AutoLayerOption", "AutoShardingOption", "AutoStageOption",
+           "DataParallel", "FollowLayerOption", "LocalPipelineParallel",
+           "ManualLayerOption", "ManualShardingOption", "ManualStageOption",
            "ParallelMethod", "PipeshardParallel", "ShardParallel",
-           "UniformStageOption", "automatic_remat", "clear_executable_cache",
+           "UniformStageOption", "Zero2Parallel", "Zero3Parallel",
+           "automatic_remat", "clear_executable_cache",
            "get_3d_parallel_method", "get_device", "get_seed", "grad", "init",
            "manual_remat", "mark_gradient", "mark_pipeline_boundary",
            "parallelize", "set_seed", "shutdown", "value_and_grad"]

@@ -6,12 +6,14 @@ package's argument semantics: ``static_argnums``/``donate_argnums``
 (argument tree, shapes and dtypes, static values).  A Python number is
 keyed as a 0-d tensor of its kind (int64, float32, bool), as JAX keys it as
 a weakly typed scalar, so a step that returns its counter as a tensor
-reuses the executable the Python counter made.  ``ShardParallel`` runs the
-function eagerly; ``PipeshardParallel`` traces it once per executable.
+reuses the executable the Python counter made.  ``ShardParallel()`` runs
+the function eagerly; with gradient accumulation or a sharding option, and
+under ``PipeshardParallel``, it is traced once per executable.
 
 ``grad``/``value_and_grad`` apply the layer option that the pipeshard
 compiler installs while it traces, and wrap ``(value, grads)`` in the
-gradient marker; outside a pipeshard trace both are no-ops.
+gradient marker; outside a pipeshard or shard-parallel trace both are
+no-ops.
 
 Donation: with ``donate_argnums="auto"`` a leaf of a TrainState-like
 argument is donated where an output leaf not yet claimed has its shape and
@@ -165,6 +167,18 @@ def _infer_donation(flat_fun, flat_args, avals, batch_invars, state_invars):
     return tuple(donated)
 
 
+def _leaf_paths(dyn_args) -> tuple:
+    """The ``keystr`` path of each flat leaf of the dynamic arguments, e.g.
+    ``[0].params['wte.weight']``; "" for each leaf when a node type of
+    the tree has no key support (the planner then classifies no leaf as a
+    parameter or optimizer state)."""
+    try:
+        leaves, _ = pytree.tree_flatten_with_path(dyn_args)
+    except ValueError:
+        return ("",) * len(pytree.tree_leaves(dyn_args))
+    return tuple(pytree.keystr(path) for path, _ in leaves)
+
+
 _live_parallelized: "weakref.WeakSet" = weakref.WeakSet()
 
 
@@ -224,19 +238,23 @@ class ParallelizedFunc:
         except TypeError:  # unhashable static arg
             key, cached = None, None
         if cached is None:
+            in_paths = _leaf_paths(tuple(
+                a for i, a in enumerate(args) if i not in static_idx))
             cached = self._make_executable(
-                len(args), static_idx, static_vals, in_tree, leaf_arg,
-                flat_args, avals, batch_invars, state_invars)
+                len(args), static_idx, static_vals, in_tree, in_paths,
+                leaf_arg, flat_args, avals, batch_invars, state_invars)
             if key is not None:
                 self._executable_cache[key] = cached
         self._last_executable = cached[0]
         return cached, flat_args, leaf_arg
 
     def _make_executable(self, n_args, static_idx, static_vals, in_tree,
-                         leaf_arg, flat_args, avals, batch_invars,
+                         in_paths, leaf_arg, flat_args, avals, batch_invars,
                          state_invars):
         """(executable, flat_fun, donated_invars); ``flat_fun.out_tree`` is
-        the output tree, set when it runs."""
+        the output tree, set when it runs; ``flat_fun.in_tree`` and
+        ``flat_fun.in_paths`` are the arguments' tree and leaf paths, which
+        a planning method reads."""
         fun = self.fun
         # the state arguments updated in place: set once donation is known
         in_place_states = []
@@ -252,6 +270,7 @@ class ParallelizedFunc:
             flat_out, flat_fun.out_tree = pytree.tree_flatten(fun(*full))
             return flat_out
 
+        flat_fun.in_tree, flat_fun.in_paths = in_tree, in_paths
         tic = time.perf_counter()
         if self.donate_argnums == "auto":
             donated_invars = _infer_donation(flat_fun, flat_args, avals,

@@ -13,7 +13,11 @@ A device list may name one physical device more than once
 (``devices=["cpu"] * 2``, or ``["cuda:0"] * 2`` on a one-card machine): the
 counterpart of the JAX tests' virtual CPU devices, so that a pipeline of
 one-device stage meshes runs where there are fewer cards than stages.
-Logical meshes and multi-host clusters come with the auto-sharding slice.
+
+``LogicalDeviceMesh`` is the auto-sharding planner's view of a mesh: a
+shape over the devices' ids and the alpha-beta collective costs per mesh
+axis, in the JAX package's abstract units and with its default constants.
+Multi-host clusters are not ported.
 """
 from typing import List, Optional, Sequence, Tuple
 
@@ -30,6 +34,92 @@ def _local_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [get_device(d) for d in devices]
+
+
+class LogicalDeviceMesh:
+    """A multi-dimensional logical view of a mesh's devices with an
+    alpha-beta cost per collective and mesh axis
+    (``alpa_tpu/device_mesh.py:71``): ``alpha`` is a latency per
+    collective, ``beta`` the inverse bandwidth per byte along the axis,
+    both in abstract units (JAX's defaults: alpha 1 on every axis, beta
+    0.1 on axis 0 and 0.01 on the others).  A tie term per collective kind
+    keeps the JAX model's all-gather > all-reduce > reduce-scatter >
+    all-to-all order.  The measured calibration of the JAX package
+    (``CalibratedCostModel``) is not ported (ROADMAP A.6)."""
+
+    _TIES = {"all_gather": 0.1, "all_reduce": 0.01, "reduce_scatter": 0.001,
+             "all_to_all": 0.001}
+
+    def __init__(self, physical_mesh, id_mesh,
+                 mesh_alpha: Optional[Sequence[float]] = None,
+                 mesh_beta: Optional[Sequence[float]] = None):
+        self.physical_mesh = physical_mesh
+        self.id_mesh = np.asarray(id_mesh)
+        ndim = self.id_mesh.ndim
+        self.mesh_alpha = tuple(mesh_alpha) if mesh_alpha else (1.0,) * ndim
+        self.mesh_beta = tuple(mesh_beta) if mesh_beta else tuple(
+            [0.1] + [0.01] * (ndim - 1))[:ndim]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.id_mesh.shape
+
+    @property
+    def num_devices(self) -> int:
+        return int(self.id_mesh.size)
+
+    def _ab(self, kind: str, mesh_dim: int):
+        return (self.mesh_alpha[mesh_dim], self.mesh_beta[mesh_dim],
+                self._TIES[kind])
+
+    def all_gather_cost(self, num_bytes: float, mesh_dim: int) -> float:
+        n = self.shape[mesh_dim]
+        if n == 1:
+            return 0.0
+        a, b, tie = self._ab("all_gather", mesh_dim)
+        return a + b * (n - 1) / n * num_bytes + tie
+
+    def all_reduce_cost(self, num_bytes: float, mesh_dim: int) -> float:
+        n = self.shape[mesh_dim]
+        if n == 1:
+            return 0.0
+        a, b, tie = self._ab("all_reduce", mesh_dim)
+        return a + b * 2 * (n - 1) / n * num_bytes + tie
+
+    def reduce_scatter_cost(self, num_bytes: float, mesh_dim: int) -> float:
+        n = self.shape[mesh_dim]
+        if n == 1:
+            return 0.0
+        a, b, tie = self._ab("reduce_scatter", mesh_dim)
+        return a + b * (n - 1) / n * num_bytes + tie
+
+    def all_to_all_cost(self, num_bytes: float, mesh_dim: int) -> float:
+        n = self.shape[mesh_dim]
+        if n == 1:
+            return 0.0
+        a, b, tie = self._ab("all_to_all", mesh_dim)
+        return a + b * (n - 1) / (n * n) * num_bytes + tie
+
+    def flat_devices(self) -> List[torch.device]:
+        """The device at each position of the logical mesh, in row-major
+        order (a device named several times appears several times)."""
+        devices = list(self.physical_mesh.devices.flatten())
+        return [devices[i] for i in self.id_mesh.reshape(-1)]
+
+    def __repr__(self):
+        return f"LogicalDeviceMesh(shape={self.shape})"
+
+
+def _logical_mesh(mesh, mesh_shape, mesh_alpha, mesh_beta,
+                  host_crossing_beta) -> LogicalDeviceMesh:
+    mesh_shape = tuple(int(x) for x in (mesh_shape or mesh.shape))
+    if int(np.prod(mesh_shape)) != mesh.num_devices:
+        raise ValueError(f"logical shape {mesh_shape} != "
+                         f"{mesh.num_devices} devices")
+    id_mesh = np.arange(mesh.num_devices).reshape(mesh_shape)
+    if mesh_beta is None:
+        mesh_beta = host_crossing_beta(mesh_shape)
+    return LogicalDeviceMesh(mesh, id_mesh, mesh_alpha, mesh_beta)
 
 
 class PhysicalDeviceMesh:
@@ -63,6 +153,25 @@ class PhysicalDeviceMesh:
     @property
     def flat_devices(self) -> List[torch.device]:
         return list(self.devices.flatten())
+
+    def get_logical_mesh(self, mesh_shape: Optional[Sequence[int]] = None,
+                         mesh_alpha=None, mesh_beta=None
+                         ) -> LogicalDeviceMesh:
+        """A logical mesh of ``mesh_shape`` (by default the physical shape)
+        over this mesh's devices (``alpa_tpu/device_mesh.py:269``): a
+        logical axis whose steps cross a host boundary in the host-major
+        device order pays beta 0.1, the others 0.01."""
+
+        def betas(shape):
+            out = []
+            for i, s in enumerate(shape):
+                stride = int(np.prod(shape[i + 1:]))
+                crosses = (self.num_hosts > 1 and s > 1 and
+                           stride * s > self.num_devices_per_host)
+                out.append(0.1 if crosses else 0.01)
+            return tuple(out)
+
+        return _logical_mesh(self, mesh_shape, mesh_alpha, mesh_beta, betas)
 
     def __repr__(self):
         return f"PhysicalDeviceMesh(shape={self.shape})"
@@ -129,6 +238,18 @@ class VirtualPhysicalMesh:
     def slice_2d(self, host_indices, device_indices) -> "VirtualPhysicalMesh":
         return VirtualPhysicalMesh(
             self.devices[np.ix_(list(host_indices), list(device_indices))])
+
+    def get_logical_mesh(self, mesh_shape: Optional[Sequence[int]] = None,
+                         mesh_alpha=None, mesh_beta=None
+                         ) -> LogicalDeviceMesh:
+        """A logical mesh over these devices (``alpa_tpu/device_mesh.py:409``):
+        with more than one host, logical axis 0 pays beta 0.1, the others
+        0.01."""
+        return _logical_mesh(
+            PhysicalDeviceMesh(self.devices), mesh_shape, mesh_alpha,
+            mesh_beta, lambda shape: tuple(
+                0.1 if (self.num_hosts > 1 and i == 0) else 0.01
+                for i in range(len(shape))))
 
     def __repr__(self):
         return f"VirtualPhysicalMesh(shape={self.shape})"

@@ -1,7 +1,8 @@
-"""Process-global knobs of the pipeshard runtime and of serving.
+"""Process-global knobs of the pipeshard runtime, the auto-sharding
+planner and serving.
 
 The port's own copy of the knobs of ``alpa_tpu/global_env.py`` that its
-pipeshard runtime and its serving stack read, with the JAX package's names,
+pipeshard runtime, its planner and its serving stack read, with the JAX package's names,
 environment variables and defaults:
 
 * ``overlap_resharding``: whether dispatch may take the overlap mode, which
@@ -15,6 +16,10 @@ environment variables and defaults:
   engine batches of sequences.
 * ``kv_prefix_reuse``: full prompt and output blocks are published to a
   hash-chain index, so admissions sharing a token prefix skip them.
+* ``ilp_time_limit``: seconds the auto-sharding ILP may take per mesh
+  shape (600) when ``AutoShardingOption.solver_timeout`` is not given.
+* ``zero_stage``: the default of ``AutoShardingOption.zero_stage``
+  ("auto", "0", "2" or "3").
 
 The dispatch mode is the JAX driver's "auto" choice: overlap where it is
 eligible, else register-file replay.  ``_pipeline_dispatch_mode`` is a
@@ -33,7 +38,8 @@ def _env_bool(name: str, default: bool) -> bool:
 
 
 class GlobalConfig:
-    """The dispatch and serving knobs, seeded from the environment."""
+    """The dispatch, planner and serving knobs, seeded from the
+    environment."""
 
     def __init__(self):
         self._pipeline_dispatch_mode = "auto"
@@ -47,6 +53,9 @@ class GlobalConfig:
         self.kv_cache_blocks = int(os.environ.get(
             "ALPA_TPU_KV_CACHE_BLOCKS", "0"))
         self.kv_prefix_reuse = _env_bool("ALPA_TPU_KV_PREFIX_REUSE", True)
+        self.ilp_time_limit = int(os.environ.get("ALPA_TPU_ILP_TIME_LIMIT",
+                                                 "600"))
+        self.zero_stage = os.environ.get("ALPA_TPU_ZERO_STAGE", "auto")
 
 
 global_config = GlobalConfig()

@@ -1,9 +1,10 @@
 """The static stage memory model of the stage DP.
 
 Counterpart of ``estimate_stage_memory_split`` in
-``alpa_tpu/mesh_profiling.py``.  The profiling of collectives, the
-calibrated cost model and the stage cost's communication term come with the
-intra-op ILP (ROADMAP A.3).
+``alpa_tpu/mesh_profiling.py``.  The stage cost's communication term is
+the intra-op ILP's objective, which waits for the multi-device executor
+(ROADMAP A.3.2); the profiling of collectives and the calibrated cost
+model are ROADMAP A.6.
 """
 from typing import Tuple
 

@@ -204,7 +204,12 @@ pytree.register_pytree_node(
     lambda leaves, ctx: TrainState(step=leaves[0], apply_fn=ctx[0],
                                    params=leaves[1], tx=ctx[1],
                                    opt_state=leaves[2]),
-    serialized_type_name="alpa_tpu_torch.model.model_util.TrainState")
+    serialized_type_name="alpa_tpu_torch.model.model_util.TrainState",
+    # leaf paths such as ``[0].params['wte.weight']``, which the planner
+    # reads to tell parameters from optimizer state
+    flatten_with_keys_fn=lambda s: (
+        [(pytree.GetAttrKey(k), getattr(s, k))
+         for k in ("step", "params", "opt_state")], (s.apply_fn, s.tx)))
 
 
 def gpt_lm_loss(apply_fn, params, batch, chunked=False):

@@ -1,15 +1,15 @@
 """Parallelization strategy objects.
 
 Counterpart of ``alpa_tpu/parallel_method.py``: a ``ParallelMethod`` turns
-a function and a mesh into an executable.  Ported: ``ShardParallel`` on one
-device; ``PipeshardParallel`` with manual, automatic and follow layers
-(remat layers too), uniform, manual and automatic stages, and one device
-per stage mesh; ``LocalPipelineParallel``; and ``get_3d_parallel_method``
-for data and operator parallelism of 1.  ``ShardParallel`` on a mesh of
-more than one device, with gradient accumulation or with a sharding option
-raises instead of running on one device, as does a stage of more than one
-device: those come with the auto-sharding slice (ROADMAP A.3) and the
-gradient-accumulation slice (A.4).
+a function and a mesh into an executable.  Ported: ``ShardParallel`` (with
+gradient accumulation, the auto-sharding planner and manual specs),
+``DataParallel``, ``Zero2Parallel`` and ``Zero3Parallel``;
+``PipeshardParallel`` with manual, automatic and follow layers (remat
+layers too), uniform, manual and automatic stages, and one device per stage
+mesh; ``LocalPipelineParallel``; and ``get_3d_parallel_method``.  A
+``ShardParallel`` plan over more than one device is made and then
+refused, as is a stage of more than one device: executing a plan over
+several devices needs the multi-device executor (ROADMAP A.3.2).
 """
 from typing import Any, Optional, Sequence, Union
 
@@ -24,6 +24,9 @@ from alpa_tpu_torch.pipeline_parallel.layer_construction import \
 from alpa_tpu_torch.pipeline_parallel.stage_construction import \
     ManualStageOption
 from alpa_tpu_torch.platform import get_device
+from alpa_tpu_torch.shard_parallel.auto_sharding import AutoShardingOption
+from alpa_tpu_torch.shard_parallel.manual_sharding import \
+    ManualShardingOption
 
 
 class ParallelMethod:
@@ -42,26 +45,31 @@ class ParallelMethod:
 
 
 class ShardParallel(ParallelMethod):
-    """Intra-op parallelism over one device mesh; one device in this
-    slice."""
+    """Intra-op parallelism over one device mesh, optionally with gradient
+    accumulation (``alpa_tpu/parallel_method.py:33``).  With neither
+    ``num_micro_batches > 1`` nor an option the function runs eagerly, a
+    donated ``TrainState`` updated in place.  Otherwise the step is traced
+    and compiled by ``compile_shard_executable``: planned (on more than one
+    device, by the ILP or, for ``DataParallel`` and the ZeRO methods, by
+    rules), its manual specs applied, rewritten for accumulation; on more
+    than one device it then raises (ROADMAP A.3.2)."""
 
     def __init__(self,
                  devices: Optional[Union[PhysicalDeviceMesh, Sequence]] = None,
                  num_micro_batches: Optional[int] = None,
-                 auto_sharding_option=None,
-                 manual_sharding_option=None):
+                 auto_sharding_option: Optional[AutoShardingOption] = None,
+                 manual_sharding_option: Optional[
+                     ManualShardingOption] = None):
         if devices is not None and not isinstance(devices, PhysicalDeviceMesh):
             devices = LocalPhysicalDeviceMesh(list(devices))
-        if (num_micro_batches or 1) != 1:
-            raise NotImplementedError(
-                "gradient accumulation (num_micro_batches > 1) is not ported "
-                "yet (ROADMAP A.4)")
-        if auto_sharding_option is not None or manual_sharding_option is not None:
-            raise NotImplementedError(
-                "sharding options need the auto-sharding ILP, which is not "
-                "ported yet (ROADMAP A.3)")
         self.devices = devices
         self.num_micro_batches = num_micro_batches
+        self.as_option = auto_sharding_option or AutoShardingOption()
+        self.ms_option = manual_sharding_option
+        # the eager path, unless a compile is asked for
+        self.donates_in_place = not (
+            (num_micro_batches or 1) > 1 or auto_sharding_option is not None
+            or manual_sharding_option is not None)
 
     def _get_mesh(self) -> PhysicalDeviceMesh:
         if self.devices is not None:
@@ -70,14 +78,52 @@ class ShardParallel(ParallelMethod):
 
     def compile_executable(self, fun, *, avals, batch_invars,
                            donated_invars):
-        del avals, batch_invars, donated_invars
         mesh = self._get_mesh()
-        if mesh.num_devices != 1:
-            raise NotImplementedError(
-                f"ShardParallel over {mesh.num_devices} devices needs the "
-                "auto-sharding slice (ROADMAP A.3); this slice runs one "
-                "device")
-        return NormalMeshExecutable(mesh, fun)
+        if self.donates_in_place and mesh.num_devices == 1:
+            return NormalMeshExecutable(mesh, fun)
+        from alpa_tpu_torch.shard_parallel.compile_executable import \
+            compile_shard_executable
+        in_paths = getattr(fun, "in_paths", None) or ("",) * len(avals)
+        return compile_shard_executable(
+            fun, mesh, avals, getattr(fun, "in_tree", None), in_paths,
+            donated_invars, batch_invars, self.num_micro_batches,
+            self.as_option, self.ms_option)
+
+
+class DataParallel(ShardParallel):
+    """Batch-dim data parallelism (``alpa_tpu/parallel_method.py:65``)."""
+
+    def __init__(self, devices=None, num_micro_batches=None):
+        super().__init__(
+            devices, num_micro_batches,
+            AutoShardingOption(enable_auto_sharding=False,
+                               force_data_parallel=True,
+                               force_batch_dim_to_mesh_dim=0))
+
+
+class Zero2Parallel(ShardParallel):
+    """Data parallelism with sharded optimizer state and reduce-scattered
+    gradients (``alpa_tpu/parallel_method.py:76``)."""
+
+    def __init__(self, devices=None, num_micro_batches=None):
+        super().__init__(
+            devices, num_micro_batches,
+            AutoShardingOption(enable_auto_sharding=False,
+                               force_data_parallel=True,
+                               prefer_reduce_scatter=True))
+
+
+class Zero3Parallel(ShardParallel):
+    """Data parallelism with sharded parameters, gradients and optimizer
+    state (``alpa_tpu/parallel_method.py:88``)."""
+
+    def __init__(self, devices=None, num_micro_batches=None):
+        super().__init__(
+            devices, num_micro_batches,
+            AutoShardingOption(enable_auto_sharding=False,
+                               force_data_parallel=True,
+                               prefer_reduce_scatter=True,
+                               force_zero_stage_3=True))
 
 
 class PipeshardParallel(ParallelMethod):
@@ -98,7 +144,7 @@ class PipeshardParallel(ParallelMethod):
     #devices))``; ``stage_option``: ``UniformStageOption`` (the default),
     ``ManualStageOption`` or ``AutoStageOption``.
     ``default_auto_sharding_option`` and ``stage_input_shardings`` raise
-    (ROADMAP A.3), as does a stage mesh of more than one device."""
+    (ROADMAP A.3.2), as does a stage mesh of more than one device."""
     donates_in_place = False
 
     def __init__(self,
@@ -115,7 +161,7 @@ class PipeshardParallel(ParallelMethod):
             raise NotImplementedError(
                 "default_auto_sharding_option and stage_input_shardings need "
                 "intra-op sharding inside a stage, which is not ported yet "
-                "(ROADMAP A.3)")
+                "(ROADMAP A.3.2)")
         if devices is not None and not isinstance(devices,
                                                   VirtualPhysicalMesh):
             devices = VirtualPhysicalMesh(list(devices))
@@ -169,9 +215,9 @@ def get_3d_parallel_method(num_micro_batches: int,
     cluster in ``pipeline_parallel`` equal submeshes, one stage of
     ``AutoLayerOption(layer_num=pipeline_parallel)`` layers on each.  With
     ``pipeline_parallel == 1`` (and degeneration allowed) it is
-    ``ShardParallel``.  A stage of more than one device (data or operator
-    parallelism above 1) needs intra-op sharding and raises (ROADMAP
-    A.3)."""
+    ``ShardParallel`` on a (dp, op) logical mesh, planned by rules.  A
+    stage of more than one device raises (ROADMAP A.3.2), as does the
+    ``ShardParallel`` plan of more than one device when it compiles."""
     if devices is not None and not isinstance(devices, VirtualPhysicalMesh):
         devices = VirtualPhysicalMesh(list(devices))
     mesh = devices or get_global_virtual_physical_mesh(
@@ -180,14 +226,19 @@ def get_3d_parallel_method(num_micro_batches: int,
     if dp * op * pp != mesh.num_devices:
         raise ValueError(f"dp({dp}) * op({op}) * pp({pp}) != "
                          f"#devices({mesh.num_devices})")
+    if pp == 1 and allow_degenerate_into_shard_parallel:
+        return ShardParallel(
+            devices=list(mesh.devices.flat),
+            num_micro_batches=num_micro_batches,
+            auto_sharding_option=AutoShardingOption(
+                enable_auto_sharding=False, force_data_parallel=(op == 1),
+                logical_mesh_shape=(dp, op)))
     if dp * op != 1:
         raise NotImplementedError(
             f"get_3d_parallel_method with data_parallel={dp} and "
             f"operator_parallel={op}: a (dp, op) logical mesh in each stage "
-            "needs intra-op sharding, which is not ported yet (ROADMAP A.3)")
-    if pp == 1 and allow_degenerate_into_shard_parallel:
-        return ShardParallel(devices=list(mesh.devices.flat),
-                             num_micro_batches=num_micro_batches)
+            "needs the multi-device executor, which is not ported yet "
+            "(ROADMAP A.3.2)")
     return PipeshardParallel(
         devices=mesh, num_micro_batches=num_micro_batches,
         pipeline_schedule="1f1b",

@@ -244,7 +244,7 @@ def _stage_devices(submeshes) -> List[torch.device]:
             raise NotImplementedError(
                 f"stage {s} has a mesh of {sub.num_devices} devices; "
                 "intra-op sharding inside a stage is not ported yet "
-                "(ROADMAP A.3): give each stage one device")
+                "(ROADMAP A.3.2): give each stage one device")
         devices.append(sub.devices.flat[0])
     return devices
 

@@ -10,7 +10,7 @@ destination's next stage reads the value only once it has arrived.  When
 both meshes name the same physical device (``devices=["cuda:0"] * 2``) the
 graphs are functional, so the tensor itself is handed over and no byte
 moves.  The tile planner and ``reshard_codec.py`` come with intra-op
-sharding (ROADMAP A.3).
+sharding (ROADMAP A.3.2).
 """
 from typing import Tuple
 

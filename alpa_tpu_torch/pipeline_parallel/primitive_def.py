@@ -13,8 +13,9 @@ pair, which is what the pipeline slicer cuts at.
 A custom op may not return an alias of its input, so the op copies; it
 runs only while the pipeshard compiler traces (on fake tensors), and its
 nodes become stage boundaries that are never executed.  Outside such a
-trace every marker function returns its values unchanged: a
-``ShardParallel`` step never calls the op.
+trace every marker function returns its values unchanged: an eager
+``ShardParallel`` step never calls the op.  The shard-parallel compiler's
+trace (``gradient_marker_tracing``) emits the gradient marker alone.
 
 ``mark_pipeline_boundary()`` takes no tensor: it is the op
 ``alpa_tpu_torch::pipeline_boundary`` with no output.  ``make_fx`` keeps
@@ -102,6 +103,19 @@ def tracing_active() -> bool:
 
 
 @contextmanager
+def gradient_marker_tracing():
+    """Make ``mark_gradient`` emit its marker, and no other marker: the
+    shard-parallel compiler's trace, in which a model's remat blocks run
+    under ``torch.utils.checkpoint`` as they do eagerly."""
+    prev = getattr(_state, "grad_marker", False)
+    _state.grad_marker = True
+    try:
+        yield
+    finally:
+        _state.grad_marker = prev
+
+
+@contextmanager
 def pipeshard_tracing():
     """Make the marker functions emit their ops (the compiler's trace)."""
     prev = tracing_active()
@@ -124,6 +138,10 @@ def mark_pipeline_values(values, name: str, mark_type: str):
     trace; the values as they are outside one)."""
     if not tracing_active():
         return values
+    return _mark(values, name, mark_type)
+
+
+def _mark(values, name: str, mark_type: str):
     leaves, spec = pytree.tree_flatten(values)
     idx = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
     if not idx:
@@ -144,8 +162,11 @@ def remat_block(fn, x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def mark_gradient(grads):
-    """Tag values as the split point of compute-grad and apply-grad."""
-    return mark_pipeline_values(grads, "grad", "grad")
+    """Tag values as the split point of compute-grad and apply-grad (inside
+    a pipeshard or a shard-parallel trace)."""
+    if not (tracing_active() or getattr(_state, "grad_marker", False)):
+        return grads
+    return _mark(grads, "grad", "grad")
 
 
 def is_marker(node, mark_type=None) -> bool:

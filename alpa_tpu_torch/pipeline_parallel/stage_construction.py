@@ -3,7 +3,7 @@
 Counterpart of ``alpa_tpu/pipeline_parallel/stage_construction.py``:
 ``UniformStageOption``, ``ManualStageOption`` and ``AutoStageOption`` (the
 OSDI'22 stage DP of ``stage_dp.py``, whose optimum must put every stage on
-one device until the intra-op ILP is ported, ROADMAP A.3), submesh
+one device until a stage of several devices can run, ROADMAP A.3.2), submesh
 enumeration and mesh slicing.  The compile cache of the DP's decisions is
 not ported (ROADMAP A.6).
 """
@@ -45,7 +45,7 @@ class AutoStageOption(StageOption):
     (``use_hlo_cost_model``, ``profiling_mode``,
     ``profiling_database_filename``, ``measured_candidates_limit``,
     ``measured_compile_workers``) and ``cached_compute_cost`` raise when set
-    to anything but their defaults (ROADMAP A.3, A.6)."""
+    to anything but their defaults (ROADMAP A.3.2, A.6)."""
     submesh_physical_shape_space: str = "power_of_two"
     submesh_logical_shape_space: str = "single_node_model_parallel"
     stage_imbalance_tolerance: float = np.inf

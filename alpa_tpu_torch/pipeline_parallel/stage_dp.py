@@ -11,14 +11,16 @@ native copy, ``csrc/stage_dp.cc``, built with ``g++`` at first use
 which the tests hold the native solver to.
 
 The communication term of a stage of more than one device is the intra-op
-ILP's objective, which is not ported (ROADMAP A.3).  Without it the port's
+ILP's objective; the ILP is ported (``shard_parallel/``), but the term
+waits for the executor that runs such a stage (ROADMAP A.3.2).  Without
+it the port's
 costs equal JAX's on one-device submeshes and are no higher on the others;
 the DP is monotone in the costs, so a partition that is optimal here and
 uses only one-device submeshes is optimal for JAX too.  A partition with a
 stage of more than one device raises ``NotImplementedError`` instead of
 returning a plan JAX would not choose.  The options of the communication
 term, of measured profiling and of the cost-tensor disk cache raise as well
-(ROADMAP A.3, A.6).  A forward-only function takes the inference
+(ROADMAP A.3.2, A.6).  A forward-only function takes the inference
 objective (JAX's ``objective="inference"``): B -> 4096, so the slowest
 stage dominates, with one microbatch in flight per stage for the memory
 check and no optimizer state in it.
@@ -200,17 +202,17 @@ def _check_unported_fields(stage_option):
     unported = {
         "use_hlo_cost_model": "it chooses how the communication term is "
                               "computed, which needs the intra-op ILP "
-                              "(ROADMAP A.3)",
+                              "(ROADMAP A.3.2)",
         "profiling_database_filename": "a profiling database calibrates the "
                                        "communication term, which needs the "
-                                       "intra-op ILP (ROADMAP A.3)",
+                                       "intra-op ILP (ROADMAP A.3.2)",
         "profiling_mode": "measured profiling compiles and times candidate "
                           "stages, which needs intra-op sharding (ROADMAP "
-                          "A.3) and the compile cache (ROADMAP A.6)",
+                          "A.3.2) and the compile cache (ROADMAP A.6)",
         "measured_candidates_limit": "it bounds measured profiling, which "
-                                     "needs intra-op sharding (ROADMAP A.3)",
+                                     "needs intra-op sharding (ROADMAP A.3.2)",
         "measured_compile_workers": "it bounds measured profiling, which "
-                                    "needs intra-op sharding (ROADMAP A.3)",
+                                    "needs intra-op sharding (ROADMAP A.3.2)",
         "cached_compute_cost": "the cost-tensor disk cache is not ported "
                                "yet (ROADMAP A.6)",
     }
@@ -284,7 +286,7 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
             f"the stage DP's optimum {[(a, b, choices[m]) for a, b, m in part]}"
             f" puts layers on submeshes of more than one device {wide}: their "
             "cost lacks the intra-op ILP's communication term and such a "
-            "stage needs intra-op sharding (ROADMAP A.3); give the pipeline "
+            "stage needs intra-op sharding (ROADMAP A.3.2); give the pipeline "
             "one device per stage with ManualStageOption or "
             "UniformStageOption")
     fwd_ids = [list(range(a, b)) for a, b, _ in part]

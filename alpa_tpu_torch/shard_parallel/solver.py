@@ -1,0 +1,173 @@
+"""The auto-sharding planner: trace, mesh-shape search, strategy graph, ILP.
+
+Counterpart of ``alpa_tpu/shard_parallel/solver.py``: the flat function is
+traced (``trace_flat``, ``make_fx`` on fake tensors: the counterpart of
+``jax.make_jaxpr``), its strategy graph built (``strategy.py``) and solved
+(``ilp.py``) for every candidate logical mesh shape, and the cheapest
+solution's input specs returned, with the forced ZeRO-2/3 specs on top.
+
+Left out, as their modules are not ported: the compile cache and the
+calibration token of its key (ROADMAP A.6), ``grad_quantize``'s strategies
+and notes (A.5.7) and the trace spans (A.6).  A plan is not realised
+here: the multi-device executor that turns its specs and ``(graph,
+choice)`` into placements and collectives is ROADMAP A.3.2.
+"""
+import logging
+import time
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import fx
+from torch.fx.experimental.proxy_tensor import make_fx
+
+from alpa_tpu_torch.shard_parallel.auto_sharding import (
+    AutoShardingOption, _largest_divisible_dim, is_opt_state_path,
+    is_param_path, resolved_zero_stage)
+from alpa_tpu_torch.shard_parallel.ilp import (InfeasibleMemoryBudget,
+                                               solution_cost,
+                                               solve_strategy_graph)
+from alpa_tpu_torch.shard_parallel.sharding_spec import (Aval, make_spec,
+                                                         replicated_spec)
+from alpa_tpu_torch.shard_parallel.strategy import build_strategy_graph
+
+logger = logging.getLogger(__name__)
+
+
+def trace_flat(fun: Callable, avals: Sequence[Tuple], device
+               ) -> fx.GraphModule:
+    """The joint aten graph of the flat function ``fun`` at ``avals``
+    ((shape, dtype) per flat argument), traced on fake tensors on
+    ``device`` with the gradient marker on: functionalized if autograd
+    left an in-place op in it, ``detach`` (an identity once no autograd
+    runs) dropped."""
+    from alpa_tpu_torch.pipeline_parallel.compile_executable import \
+        _fake_inputs
+    from alpa_tpu_torch.pipeline_parallel.primitive_def import \
+        gradient_marker_tracing
+    fake = _fake_inputs(avals, [False] * len(avals), 1, device)
+    with gradient_marker_tracing():
+        gm = make_fx(fun, tracing_mode="fake")(*fake)
+        if any(getattr(n.target, "_schema", None) is not None and
+               n.target._schema.is_mutable for n in gm.graph.nodes):
+            gm = make_fx(torch.func.functionalize(gm, remove="mutations"),
+                         tracing_mode="fake")(*fake)
+    for node in list(gm.graph.nodes):
+        if node.target is torch.ops.aten.detach.default:
+            node.replace_all_uses_with(node.args[0])
+            gm.graph.erase_node(node)
+    gm.recompile()
+    return gm
+
+
+def candidate_mesh_shapes(num_devices: int, option: AutoShardingOption,
+                          symmetric_axes: bool = False
+                          ) -> List[Tuple[int, int]]:
+    """2-D logical shapes to search (``alpa_tpu/shard_parallel/
+    solver.py:40``): (d, n/d) for d a power of two dividing n; on one host
+    the two axes cost the same, so only d <= n/d."""
+    if option.logical_mesh_shape is not None:
+        return [tuple(option.logical_mesh_shape)]
+    shapes = []
+    d = 1
+    while d <= num_devices:
+        if num_devices % d == 0:
+            shapes.append((d, num_devices // d))
+        d *= 2
+    if symmetric_axes:
+        shapes = [s for s in shapes if s[0] <= s[1]] or shapes[:1]
+    return shapes
+
+
+def plan_auto_sharding(fun: Callable, in_avals: Sequence[Any],
+                       in_paths: Sequence[str],
+                       batch_flat_idx: Sequence[int], physical_mesh,
+                       option: AutoShardingOption,
+                       return_graph: bool = False,
+                       traced: Optional[fx.GraphModule] = None):
+    """Search the logical mesh shapes (``alpa_tpu/shard_parallel/
+    solver.py:84``).  ``in_avals``: (shape, dtype) per flat argument;
+    ``traced``: ``fun`` already traced at them (``trace_flat``).  Returns
+    ``(logical_mesh, flat input specs, (graph, choice), shape)`` and, with
+    ``return_graph``, ``(graph, choice)`` once more, as JAX's fifth item.
+    ``graph.search`` lists, per shape searched, its size, the seconds of
+    its build and solve, the solver and the objective."""
+    avals = [Aval(tuple(shape), dtype) for shape, dtype in in_avals]
+    device = physical_mesh.devices.flat[0]
+    if traced is None:
+        traced = trace_flat(fun, in_avals, device)
+    best, infeasible, search = None, None, []
+    for shape in candidate_mesh_shapes(physical_mesh.num_devices, option,
+                                       physical_mesh.num_hosts == 1):
+        logical_mesh = physical_mesh.get_logical_mesh(shape)
+        tic = time.perf_counter()
+        graph = build_strategy_graph(traced.graph, avals, logical_mesh,
+                                     batch_flat_idx, option, in_paths)
+        build_s = time.perf_counter() - tic
+        info = {}
+        row = {"shape": shape, "nodes": len(graph.nodes),
+               "edges": len(graph.edges),
+               "strategies": sum(len(n.strategies) for n in graph.nodes),
+               "build_seconds": build_s}
+        search.append(row)
+        try:
+            choice = solve_strategy_graph(
+                graph, option.solver_timeout,
+                option.memory_budget_per_device, info)
+        except InfeasibleMemoryBudget as e:
+            # another shape may still fit the budget
+            row["infeasible"] = str(e)
+            infeasible = e
+            continue
+        cost = solution_cost(graph, choice)
+        row.update(solver=info["solver"], solve_seconds=info["seconds"],
+                   objective=cost)
+        logger.debug("mesh shape %s: cost %.4f (%s)", shape, cost,
+                     graph.stats())
+        if best is None or cost < best[0]:
+            best = (cost, shape, logical_mesh, graph, choice)
+    if best is None:
+        raise infeasible
+    _, shape, logical_mesh, graph, choice = best
+    graph.search = search
+    return _assemble_plan(avals, in_paths, batch_flat_idx, option, shape,
+                          logical_mesh, graph, choice, return_graph)
+
+
+def _assemble_plan(avals, in_paths, batch_flat_idx, option, shape,
+                   logical_mesh, graph, choice, return_graph):
+    """The result of ``plan_auto_sharding`` from a solved (graph, choice)
+    (``alpa_tpu/shard_parallel/solver.py:221``)."""
+    in_specs: List[Any] = [replicated_spec(len(a.shape)) for a in avals]
+    for node, s in zip(graph.nodes, choice):
+        if node.kind == "invar" and node.invar_idx is not None:
+            in_specs[node.invar_idx] = node.strategies[s].out_spec
+
+    # forced ZeRO stages shard each weight-update leaf the ILP left
+    # replicated, over the axis the ILP put the batch dim on (else the
+    # largest axis)
+    zero = resolved_zero_stage(option)
+    if zero in (2, 3):
+        dp_axis = None
+        for node, s in zip(graph.nodes, choice):
+            spec = node.strategies[s].out_spec
+            if (node.kind == "invar" and node.invar_idx in batch_flat_idx
+                    and spec and spec[0]):
+                dp_axis = spec[0][0]
+                break
+        if dp_axis is None:
+            dp_axis = int(np.argmax(shape))
+        dp = shape[dp_axis]
+        if dp > 1:
+            for i, path in enumerate(in_paths):
+                if not (is_opt_state_path(path) or
+                        (zero == 3 and is_param_path(path))):
+                    continue
+                d = _largest_divisible_dim(avals[i].shape, dp)
+                if d is not None and not any(in_specs[i]):
+                    in_specs[i] = make_spec(len(avals[i].shape), {d: dp_axis})
+
+    out = (logical_mesh, in_specs, (graph, choice), shape)
+    if return_graph:
+        return out + ((graph, choice),)
+    return out

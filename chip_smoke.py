@@ -99,7 +99,32 @@ Phases, each reported on its own line:
    GPT-1.3B's logits under ``PipeshardParallel`` (2 stages x 4
    microbatches, the ``"inference"`` schedule, batch 8): logits against the
    eager forward at bf16 tolerance, 96 forward and no backward launch per
-   call, call time, host time, device share and tokens/s.
+   call, call time, host time, device share and tokens/s;
+12. shard grad-acc: fidelity first, GPT-1.3B's width at 4 layers in fp32,
+   batch 8, ``ShardParallel(num_micro_batches=4)`` against eager
+   ``ShardParallel()`` from the same weights (phase 8's checks: step-0
+   gradients to 1e-4 of each tensor's largest, over 2 Adam steps losses to
+   1e-5 relative and parameters by ``param_diffs``); then ``bench.py``'s
+   GPT-1.3B step at full width and depth (bf16 compute, fp32 params and
+   Adam, flash, per-block remat) under ``ShardParallel(
+   num_micro_batches=4)``, batch 32 (phase 6's batch of 8 per
+   microbatch): 3 warm-up and 5 timed steps, exactly 192 forward, 96 dq
+   and 96 dk/dv launches per step, a finite loss that falls, the first
+   loss within 1e-2 relative of the mean of four eager forward losses of
+   the same state on the microbatches; step time, tokens/s, TFLOPS, MFU,
+   trace and compile seconds, peak allocated memory beside phase 6's, then
+   ``torch.profiler`` over two more steps: device share, the ten heaviest
+   kernels and the accumulation adds (``aten::add_``) beside their bound;
+13. planner: ``plan_auto_sharding`` on GPT-1.3B's train step (full width,
+   24 layers, batch 8, bf16, flash, Adam), traced once on fake tensors, for
+   the card's one-device mesh and a virtual mesh of the card named 8
+   times (candidate shapes (1, 8) and (2, 4)): per shape the strategy
+   graph's nodes, edges and strategies, build and solve seconds, solver
+   and objective; the chosen shape and the specs of ``wte``, block 0's
+   qkv, out, fc_in and fc_out weights and the batch.  Checks: the MILP
+   solved (the one-device graph is trivial), within ``ilp_time_limit``,
+   to an objective no worse than the same graph's with every input
+   replicated.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
@@ -1050,7 +1075,8 @@ def phase_training(kernel_ms):
     del state, train_step
     alpa_tpu_torch.shutdown()
     torch.cuda.empty_cache()
-    return counts, {"latency": latency, **(profile or {})}
+    return counts, {"latency": latency, "peak": peak_bytes,
+                    **(profile or {})}
 
 
 def profile_steps(train_step, state, batch, steps, latency,
@@ -1067,10 +1093,12 @@ def profile_steps(train_step, state, batch, steps, latency,
     return box[0], profile
 
 
-def profile_calls(run, steps, latency, label, top=10):
+def profile_calls(run, steps, latency, label, top=10, ops=()):
     """``torch.profiler`` over ``steps`` calls of ``run`` (one step each,
     returning a tensor to wait on): the ``top`` heaviest kernels by device
-    time per step, the flash kernels' share, and the device's busy share, both
+    time per step, the flash kernels' share, the device time per step of
+    the kernels each host op in ``ops`` (e.g. ``"aten::add_"``) launched
+    (under ``"ops"``), and the device's busy share, both
     under the profiler (the union of kernel intervals over the span from
     the first kernel's start to the last one's end) and as device time per
     step over ``latency``, the step time measured without it.  Returns the
@@ -1119,10 +1147,12 @@ def profile_calls(run, steps, latency, label, top=10):
               f"{e.count // steps} launches per step, "
               f"{e.self_device_time_total / total_us:.4f} of the device "
               f"time: {e.key[:120]}")
+    by_op = {e.key: e.device_time_total for e in prof.key_averages()}
     return {"device_s_per_step": per_step,
             "device_share": per_step / latency,
             "busy_s_per_step": busy_step,
-            "busy_share": busy_us / span_us}
+            "busy_share": busy_us / span_us,
+            "ops": {op: by_op.get(op, 0) / 1e6 / steps for op in ops}}
 
 
 def fidelity_run(cfg, batch, steps):
@@ -1259,20 +1289,22 @@ def phase_pipeshard_auto_fidelity():
                        lambda: auto_pipeshard_method(2, 4))
 
 
-def pipeshard_fidelity(label, cfg, method):
-    """fp32, 4 layers at GPT-1.3B's width, batch 4, from the same weights
-    through ``method()`` and through ShardParallel: step-0 gradients (the
-    microbatch mean against the whole batch's), then 2 Adam steps."""
+def pipeshard_fidelity(label, cfg, method, batch_size=4,
+                       what="2 microbatches, 2 stages", name="pipeshard"):
+    """fp32, 4 layers at GPT-1.3B's width, batch ``batch_size``, from the
+    same weights through ``method()`` and through ShardParallel: step-0
+    gradients (the microbatch mean against the whole batch's), then 2 Adam
+    steps."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    batch = lm_batch(cfg, 4)
+    batch = lm_batch(cfg, batch_size)
 
     def grad_step(state, batch):
         return alpa_tpu_torch.value_and_grad(
             lambda p: gpt_lm_loss(state.apply_fn, p, batch))(state.params)
 
     runs = {}
-    for name, make in (("pipeshard", method), ("shard", shard_method)):
+    for run, make in ((name, method), ("shard", shard_method)):
         state = train_state(cfg)
         reset_launch_counts()
         _, grads = alpa_tpu_torch.parallelize(
@@ -1283,11 +1315,11 @@ def pipeshard_fidelity(label, cfg, method):
             state, loss = train_step(state, batch)
             losses.append(float(loss))
         check(min(launch_counts()) > 0,
-              f"{label}: the {name} run did not go through the kernels")
-        runs[name] = (losses, grads, state.params)
+              f"{label}: the {run} run did not go through the kernels")
+        runs[run] = (losses, grads, state.params)
         del state, train_step
     (p_losses, p_grads, p_params), (s_losses, s_grads, s_params) = \
-        runs["pipeshard"], runs["shard"]
+        runs[name], runs["shard"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(p_losses, s_losses))
     grad_rel = max_rel_diff(p_grads, s_grads)
     bound = 2 * LR * len(p_losses)
@@ -1295,10 +1327,10 @@ def pipeshard_fidelity(label, cfg, method):
                                                        s_grads, bound)
     worst_g = max(grad_rel, key=grad_rel.get)
     worst_p = max(param_rel, key=param_rel.get)
-    print(f"{label}: fp32 GPT-1.3B at 4 layers, batch 4, 2 microbatches, 2 "
-          f"stages; step-0 gradients max |diff| / max |g| per tensor "
+    print(f"{label}: fp32 GPT-1.3B at 4 layers, batch {batch_size}, {what}"
+          f"; step-0 gradients max |diff| / max |g| per tensor "
           f"{grad_rel[worst_g]:.3e} at {worst_g} (tol 1e-4); 2 Adam steps: "
-          f"losses pipeshard {p_losses} shard {s_losses}, max relative "
+          f"losses {name} {p_losses} shard {s_losses}, max relative "
           f"difference {loss_rel:.3e} (tol 1e-5); parameters max |diff| / "
           f"max |p| per tensor {param_rel[worst_p]:.3e} at {worst_p} (tol "
           f"1e-4) over the elements whose step-0 gradient is at least 1e-2 "
@@ -1887,6 +1919,240 @@ def phase_pipeshard_auto(shard_profile, ref_loss=None):
     return counts
 
 
+def phase_grad_acc_fidelity():
+    """GPT-1.3B's width at 4 layers, fp32, batch 8: ``ShardParallel(
+    num_micro_batches=4)`` against eager ``ShardParallel()`` from the same
+    weights (``pipeshard_fidelity``'s checks)."""
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash",
+                         remat_blocks=True), num_layers=4)
+    pipeshard_fidelity(
+        "shard grad-acc fidelity", cfg,
+        lambda: alpa_tpu_torch.ShardParallel(devices=["cuda:0"],
+                                             num_micro_batches=4),
+        batch_size=8, what="4 microbatches, one device", name="grad-acc")
+
+
+def eager_microbatch_loss(state, batch, num_micro_batches):
+    """The mean of the eager forward losses (no gradient) of ``state`` on
+    the microbatches of ``batch``."""
+    with torch.no_grad():
+        losses = [float(gpt_lm_loss(state.apply_fn, state.params,
+                                    {k: v.chunk(num_micro_batches)[i]
+                                     for k, v in batch.items()}))
+                  for i in range(num_micro_batches)]
+    return sum(losses) / len(losses)
+
+
+def phase_shard_grad_acc(shard_profile):
+    """Phase 12: ``bench.py``'s GPT-1.3B step under ``ShardParallel(
+    num_micro_batches=4)``, batch 32 (phase 6's batch of 8 per
+    microbatch).  Returns the flash launches of the run."""
+    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
+                           attention_impl="flash", remat_blocks=True)
+    batch_size, nmb, warmup, n_iter = 32, 4, 3, 5
+    alpa_tpu_torch.init(cluster="local")
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = train_state(cfg)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, batch_size).items()}
+    ref_loss = eager_microbatch_loss(state, batch, nmb)
+    train_step = make_train_step(
+        alpa_tpu_torch.ShardParallel(num_micro_batches=nmb))
+    reset_launch_counts()
+    tic = time.perf_counter()
+    state, loss = train_step(state, batch)
+    losses = [float(loss)]
+    first_s = time.perf_counter() - tic
+    ex = train_step.get_last_executable()
+    check(type(ex).__name__ == "GradAccMeshExecutable",
+          f"grad-acc step ran {type(ex).__name__}")
+    for _ in range(warmup - 1):
+        state, loss = train_step(state, batch)
+        losses.append(float(loss))
+    tic = time.perf_counter()
+    for _ in range(n_iter):
+        state, loss = train_step(state, batch)
+        losses.append(loss)
+    float(loss)   # drains the queue
+    latency = (time.perf_counter() - tic) / n_iter
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    steps = warmup + n_iter
+    want = (2 * nmb * cfg.num_layers, nmb * cfg.num_layers,
+            nmb * cfg.num_layers)
+    check(counts == tuple(w * steps for w in want),
+          f"grad-acc launches (fwd, dq, dkv) {counts} over {steps} steps; "
+          f"want {want} per step")
+    check(all(np.isfinite(losses)), f"non-finite grad-acc loss: {losses}")
+    check(losses[-1] < losses[0], f"grad-acc loss did not fall: {losses}")
+    ref_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    check(ref_rel <= 1e-2, f"grad-acc first loss {losses[0]} vs the eager "
+          f"microbatch mean {ref_loss}: {ref_rel} relative")
+    tokens_per_sec = batch_size * cfg.seq_len / latency
+    tflops = compute_gpt_tflops(batch_size, cfg.seq_len, cfg.num_layers,
+                                cfg.hidden_size, cfg.vocab_size, 1, latency)
+    peak = SPEC["peak_bf16_tflops"]
+    mfu = compute_mfu(tflops, peak)
+    peak_bytes = ex.get_total_allocation_size()
+    card = card_line()
+    print(f"shard grad-acc: GPT-1.3B ({cfg.num_layers} layers, bf16 compute, "
+          f"fp32 params and Adam, flash, remat), batch {batch_size} x seq "
+          f"{cfg.seq_len} in {nmb} microbatches; launches per step fwd "
+          f"{counts[0] // steps} dq {counts[1] // steps} dkv "
+          f"{counts[2] // steps}; losses {['%.4f' % x for x in losses]}; "
+          f"first loss vs the eager microbatch mean {ref_loss:.4f}: "
+          f"{ref_rel:.3e} relative (tol 1e-2)")
+    print(f"shard grad-acc compile [{card}]: plan {ex.plan_seconds:.3f} s "
+          f"(one device: every input replicated, nothing traced), trace at "
+          f"microbatch shapes {ex.trace_seconds:.3f} s, split and graphs "
+          f"{ex.compile_seconds:.3f} s, first call {first_s:.3f} s; "
+          f"compute-grad graph {ex.compute_exec.num_nodes} nodes, apply-grad "
+          f"graph {ex.apply_exec.num_nodes} nodes, {len(ex._accs)} "
+          f"accumulators of {sum(a.numel() * a.element_size() for a in ex._accs) / 2**30:.3f} GiB, "
+          f"{len(ex.apply_exec.aliased)} state outputs written in place; "
+          f"graphs run uncaptured")
+    print(f"shard grad-acc metrics [{card}]: step {latency:.5f} s, "
+          f"{tokens_per_sec:.1f} tokens/s, {tflops:.3f} TFLOPS "
+          f"(compute_gpt_tflops), MFU {mfu:.4f} of {peak} TFLOP/s bf16, peak "
+          f"allocated {peak_bytes / 2**30:.3f} GiB (phase 6, batch 8 without "
+          f"accumulation: {shard_profile['peak'] / 2**30:.3f} GiB); phase 6's "
+          f"step {shard_profile['latency']:.5f} s")
+    # the accumulation adds (``acc += g`` in place, ``aten::add_``) under
+    # the profiler, beside their bound: read acc and g, write acc
+    acc_bytes = sum(a.numel() * a.element_size() for a in ex._accs)
+    box = [state]
+
+    def run():
+        box[0], loss_ = train_step(box[0], batch)
+        return loss_
+
+    profile = profile_calls(run, 2, latency, "shard grad-acc",
+                            ops=("aten::add_",))
+    add_bound = 3 * acc_bytes * nmb / PEAK_BYTES_PER_S * 1e3
+    if profile:
+        print(f"shard grad-acc accumulation [{card}]: aten::add_ "
+              f"{profile['ops']['aten::add_'] * 1e3:.5f} ms of device time "
+              f"per step in {nmb} x {len(ex._accs)} adds, bound "
+              f"{add_bound:.5f} ms (3 x {acc_bytes} bytes x {nmb} over "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del box, state, train_step, ex
+    alpa_tpu_torch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launch_counts()
+
+
+class _Capture(alpa_tpu_torch.ParallelMethod):
+    """The flat function, avals, paths and batch leaves ``parallelize``
+    hands a method; compiles nothing."""
+    donates_in_place = False
+
+    def compile_executable(self, fun, *, avals, batch_invars,
+                           donated_invars):
+        del donated_invars
+        self.captured = (fun, list(avals), list(fun.in_paths),
+                         [i for i, b in enumerate(batch_invars) if b])
+        raise StopIteration
+
+
+def planned_step(cfg, batch_size, device):
+    """(flat step, avals, paths, batch leaves) of the GPT train step with
+    Adam, its state and batch fake tensors on ``device`` (no memory)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    model = GPTModel(cfg, device="meta", param_dtype=torch.float32)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = {k: torch.empty(p.shape, device=device)
+                  for k, p in model.named_parameters()}
+        state = TrainState.create(apply_fn=make_apply_fn(model),
+                                  params=params, tx=adam(LR))
+        ids = torch.zeros(batch_size, cfg.seq_len, dtype=torch.int64,
+                          device=device)
+    method = _Capture()
+    try:
+        make_train_step(method, donate_argnums=())(
+            state, {"input_ids": ids, "labels": ids})
+    except StopIteration:
+        pass
+    return method.captured
+
+
+def phase_planner(device="cuda"):
+    """Phase 13: ``plan_auto_sharding`` on GPT-1.3B's train step (full
+    width, 24 layers, batch 8, bf16, flash, Adam), traced once on fake
+    tensors, for the card's one-device mesh and a virtual 8-device mesh
+    (the card named 8 times): the search's shapes, graph sizes, build and
+    solve seconds, objective and the chosen specs."""
+    from alpa_tpu_torch.device_mesh import PhysicalDeviceMesh
+    from alpa_tpu_torch.shard_parallel import AutoShardingOption
+    from alpa_tpu_torch.shard_parallel.ilp import (solution_cost,
+                                                   solve_strategy_graph)
+    from alpa_tpu_torch.shard_parallel.solver import (plan_auto_sharding,
+                                                      trace_flat)
+    from alpa_tpu_torch.shard_parallel.strategy import Edge
+    from alpa_tpu_torch.global_env import global_config as gconf
+    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
+                           attention_impl="flash")
+    fun, avals, paths, bidx = planned_step(cfg, 8, device)
+    tic = time.perf_counter()
+    traced = trace_flat(fun, avals, torch.device(device))
+    trace_s = time.perf_counter() - tic
+    n_ops = sum(n.op == "call_function" for n in traced.graph.nodes)
+    card = card_line()
+    print(f"planner: GPT-1.3B train step ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, batch 8, bf16, flash, Adam), {len(avals)} "
+          f"inputs, traced on fake tensors in {trace_s:.3f} s: {n_ops} aten "
+          f"ops [{card}]")
+    names = {"wte": "[0].params['wte.weight']",
+             "qkv": "[0].params['h.0.attn.qkv.weight']",
+             "out": "[0].params['h.0.attn.out.weight']",
+             "fc_in": "[0].params['h.0.mlp.fc_in.weight']",
+             "fc_out": "[0].params['h.0.mlp.fc_out.weight']",
+             "batch": "[1]['input_ids']"}
+    for label, devices in (("one device", [device]),
+                           ("8 virtual devices", [device] * 8)):
+        tic = time.perf_counter()
+        _, specs, (graph, choice), shape = plan_auto_sharding(
+            fun, avals, paths, bidx, PhysicalDeviceMesh(devices),
+            AutoShardingOption(), traced=traced)
+        total = time.perf_counter() - tic
+        for row in graph.search:
+            print(f"planner {label}, logical mesh {row['shape']}: "
+                  f"{row['nodes']} nodes, {row['edges']} edges, "
+                  f"{row['strategies']} strategies; build "
+                  f"{row['build_seconds']:.3f} s, solve "
+                  f"{row['solve_seconds']:.3f} s by {row['solver']}, "
+                  f"objective {row['objective']:.4f}")
+            check(row["solver"] in ("milp", "trivial"),
+                  f"planner {label} {row['shape']}: solver {row['solver']}")
+            check(row["solve_seconds"] <= gconf.ilp_time_limit,
+                  f"planner {label} {row['shape']}: solve "
+                  f"{row['solve_seconds']} s over ilp_time_limit")
+        # the same graph with every input replicated, solved again: the
+        # optimum can be no worse
+        keep = {n.idx: [i for i, st in enumerate(n.strategies)
+                        if n.kind != "invar" or not any(st.out_spec)]
+                for n in graph.nodes}
+        pinned = dataclasses.replace(graph, nodes=[
+            dataclasses.replace(n, strategies=[n.strategies[i]
+                                               for i in keep[n.idx]])
+            for n in graph.nodes], edges=[
+            Edge(e.src, e.dst, e.cost[np.ix_(keep[e.src], keep[e.dst])])
+            for e in graph.edges])
+        replicated = solution_cost(pinned, solve_strategy_graph(pinned))
+        objective = solution_cost(graph, choice)
+        spec_of = dict(zip(paths, specs))
+        print(f"planner {label}: chose logical mesh {shape}, objective "
+              f"{objective:.4f} (every input replicated: {replicated:.4f}), "
+              f"search {total:.3f} s; specs " + ", ".join(
+                  f"{k} {spec_of[v]}" for k, v in names.items()))
+        check(objective <= replicated * (1 + 1e-9),
+              f"planner {label}: objective {objective} over the replicated "
+              f"inputs' {replicated}")
+    del traced
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_bwd_dq_bf16_kernel<64>`` from its mangled name."""
     # the last "flash_": nvcc names an anonymous namespace after the file
@@ -1983,29 +2249,34 @@ def main(args) -> int:
         auto = timed("pipeshard auto", phase_pipeshard_auto, shard_profile,
                      ref_loss)
         infer = timed("pipeshard infer", phase_pipeshard_infer)
+        timed("shard grad-acc fidelity", phase_grad_acc_fidelity)
+        acc = timed("shard grad-acc", phase_shard_grad_acc, shard_profile)
+        timed("planner", phase_planner)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
-                             + remat[0] + auto[0] + infer)
+                             + remat[0] + auto[0] + infer + acc[0])
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
                                      "training": train_fwd,
                                      "pipeshard": pipe[0],
                                      "pipeshard_remat_blocks": remat[0],
                                      "pipeshard_auto": auto[0],
-                                     "pipeshard_infer": infer}
+                                     "pipeshard_infer": infer,
+                                     "shard_grad_acc": acc[0]}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
-    for entry, e, n, p, r, a in zip(bwd_entries, engine[1:],
-                                    (train_dq, train_dkv), pipe[1:],
-                                    remat[1:], auto[1:]):
-        entry["launches"] = e + n + p + r + a
+    for entry, e, n, p, r, a, g in zip(bwd_entries, engine[1:],
+                                       (train_dq, train_dkv), pipe[1:],
+                                       remat[1:], auto[1:], acc[1:]):
+        entry["launches"] = e + n + p + r + a + g
         entry["launches_by_path"] = {"serving_engine": e,
                                      "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
                                      "pipeshard_auto": a,
-                                     "pipeshard_infer": 0}
+                                     "pipeshard_infer": 0,
+                                     "shard_grad_acc": g}
     print(card_line())
     print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {

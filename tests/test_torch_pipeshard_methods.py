@@ -136,9 +136,10 @@ def test_default_layer_option_equals_jax_default():
 def test_get_3d_parallel_method_equals_jax():
     """``get_3d_parallel_method(dp=1, op=1, pp=2)``: pipeshard over two
     one-device stages of ``AutoLayerOption(layer_num=2)``, 1F1B; the steps
-    equal JAX's method's.  pp=1 degenerates into ``ShardParallel``; a stage
-    of more than one device raises (ROADMAP A.3); the degrees must multiply
-    to the device count."""
+    equal JAX's method's.  pp=1 degenerates into ``ShardParallel`` on a
+    (dp, op) logical mesh, planned by rules, which then refuses to run over
+    two devices (ROADMAP A.3.2); a stage of more than one device raises
+    (ROADMAP A.3.2); the degrees must multiply to the device count."""
     j_state, t_state, batch = _pair()
     j_method = alpa_tpu.get_3d_parallel_method(
         num_micro_batches=2, data_parallel=1, operator_parallel=1,
@@ -161,8 +162,13 @@ def test_get_3d_parallel_method_equals_jax():
     assert isinstance(get_3d_parallel_method(
         1, 1, 1, 1, devices=["cpu"],
         allow_degenerate_into_shard_parallel=False), PipeshardParallel)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3"):
-        get_3d_parallel_method(2, 2, 1, 1, devices=["cpu"] * 2)
+    two = get_3d_parallel_method(2, 2, 1, 1, devices=["cpu"] * 2)
+    assert two.as_option.logical_mesh_shape == (2, 1)
+    _, t_state, batch = _pair()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3\.2"):
+        alpa_tpu_torch.parallelize(_port_step, method=two)(t_state, batch)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3\.2"):
+        get_3d_parallel_method(2, 2, 1, 2, devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="#devices"):
         get_3d_parallel_method(2, 1, 1, 3, devices=["cpu"] * 2)
 

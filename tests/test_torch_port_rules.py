@@ -147,14 +147,19 @@ def test_init_and_parallelize_default_to_cuda_and_raise_without_it(
 
 
 def test_shard_parallel_never_runs_many_devices_on_one():
+    """A plan over two devices is made, then refused (ROADMAP A.3.2), with
+    or without accumulation; the JAX package's constraint-emission fields
+    raise when set."""
     two = alpa_tpu_torch.ShardParallel(devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="2 devices"):
+    with pytest.raises(NotImplementedError, match=r"2 devices.*A\.3\.2"):
         alpa_tpu_torch.parallelize(lambda x: x, method=two)(torch.ones(2))
-    with pytest.raises(NotImplementedError, match="num_micro_batches"):
-        alpa_tpu_torch.ShardParallel(devices=["cpu"], num_micro_batches=2)
-    with pytest.raises(NotImplementedError, match="ILP"):
-        alpa_tpu_torch.ShardParallel(devices=["cpu"],
-                                     auto_sharding_option=object())
+    two_acc = alpa_tpu_torch.ShardParallel(devices=["cpu", "cpu"],
+                                           num_micro_batches=2)
+    with pytest.raises(NotImplementedError, match=r"2 devices.*A\.3\.2"):
+        alpa_tpu_torch.parallelize(lambda x: x, method=two_acc)(
+            torch.ones(2))
+    with pytest.raises(NotImplementedError, match=r"A\.3\.2"):
+        alpa_tpu_torch.AutoShardingOption(emit_sharding_constraints=False)
     with pytest.raises(NotImplementedError, match="multi-host"):
         alpa_tpu_torch.init(cluster="distributed", devices=["cpu"])
 
@@ -355,6 +360,16 @@ def test_dispatch_modules_are_under_the_import_checks():
                    "alpa_tpu_torch/serve/packed.py",
                    "alpa_tpu_torch/serve/scheduler.py"):
         assert module in names
+
+
+def test_shard_parallel_modules_are_under_the_import_checks():
+    """The planner and accumulation modules are among the files the import
+    and ``torch.compile`` checks above walk."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("sharding_spec", "auto_sharding", "manual_sharding",
+                   "strategy", "ilp", "solver", "grad_acc",
+                   "compile_executable"):
+        assert f"alpa_tpu_torch/shard_parallel/{module}.py" in names
 
 
 def _cpu_pipeshard_step():
