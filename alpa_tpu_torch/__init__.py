@@ -8,7 +8,8 @@ CUDA unless the caller asks for the CPU (``device="cpu"``, or
 from alpa_tpu_torch.api import (clear_executable_cache, grad, init,
                                 mark_gradient, parallelize, shutdown,
                                 value_and_grad)
-from alpa_tpu_torch.device_mesh import get_seed, set_seed
+from alpa_tpu_torch.device_mesh import (DistributedArray, get_seed,
+                                        set_seed)
 from alpa_tpu_torch.parallel_method import (DataParallel,
                                             LocalPipelineParallel,
                                             ParallelMethod, PipeshardParallel,
@@ -28,7 +29,7 @@ from alpa_tpu_torch.shard_parallel.manual_sharding import \
     ManualShardingOption
 
 __all__ = ["AutoLayerOption", "AutoShardingOption", "AutoStageOption",
-           "DataParallel", "FollowLayerOption", "LocalPipelineParallel",
+           "DataParallel", "DistributedArray", "FollowLayerOption", "LocalPipelineParallel",
            "ManualLayerOption", "ManualShardingOption", "ManualStageOption",
            "ParallelMethod", "PipeshardParallel", "ShardParallel",
            "UniformStageOption", "Zero2Parallel", "Zero3Parallel",

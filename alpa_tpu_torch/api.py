@@ -7,8 +7,12 @@ package's argument semantics: ``static_argnums``/``donate_argnums``
 keyed as a 0-d tensor of its kind (int64, float32, bool), as JAX keys it as
 a weakly typed scalar, so a step that returns its counter as a tensor
 reuses the executable the Python counter made.  ``ShardParallel()`` runs
-the function eagerly; with gradient accumulation or a sharding option, and
-under ``PipeshardParallel``, it is traced once per executable.
+the function eagerly on one device; with gradient accumulation or a
+sharding option, on more than one device, and under ``PipeshardParallel``,
+it is traced once per executable.  Over more than one device the state
+comes back sharded (``DistributedArray`` leaves) and is passed back as it
+is; ``get_last_executable()`` exposes the plan (``plan``, ``in_specs``,
+``out_specs``) and the collectives per step (``get_collective_counts()``).
 
 ``grad``/``value_and_grad`` apply the layer option that the pipeshard
 compiler installs while it traces, and wrap ``(value, grads)`` in the
@@ -38,7 +42,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils import _pytree as pytree
 
-from alpa_tpu_torch.device_mesh import (init_global_cluster,
+from alpa_tpu_torch.device_mesh import (DistributedArray,
+                                        init_global_cluster,
                                         shutdown_global_cluster)
 from alpa_tpu_torch.parallel_method import ParallelMethod, ShardParallel
 from alpa_tpu_torch.pipeline_parallel.layer_construction import (
@@ -61,7 +66,8 @@ def shutdown():
     shutdown_global_cluster()
 
 
-_ARRAYS = (torch.Tensor, np.ndarray, float, int, complex, bool)
+_ARRAYS = (torch.Tensor, DistributedArray, np.ndarray, float, int, complex,
+           bool)
 
 
 def _is_static_arg(arg) -> bool:
@@ -80,7 +86,7 @@ _SCALAR_DTYPES = ((bool, torch.bool), (int, torch.int64),
 def _abstractify(x):
     """The cache key of one leaf: shape and dtype; a Python number as a 0-d
     tensor of its kind."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, DistributedArray)):
         return (tuple(x.shape), x.dtype)
     if isinstance(x, np.ndarray):
         return (x.shape, torch.from_numpy(np.empty(0, x.dtype)).dtype)
@@ -96,7 +102,8 @@ _deleted = weakref.WeakValueDictionary()
 
 
 def _donatable(x) -> bool:
-    return isinstance(x, torch.Tensor) or _is_state_like(x)
+    return isinstance(x, (torch.Tensor, DistributedArray)) or \
+        _is_state_like(x)
 
 
 def _check_live(args):
@@ -115,7 +122,8 @@ def _mark_deleted(args, leaf_arg, flat_args, donated_invars, flat_out):
     for x, i, d in zip(flat_args, leaf_arg, donated_invars):
         if d:
             holders.add(i)
-            if isinstance(x, torch.Tensor) and id(x) not in kept:
+            if isinstance(x, (torch.Tensor, DistributedArray)) and \
+                    id(x) not in kept:
                 _deleted[id(x)] = x
     for i in holders:
         if _donatable(args[i]) and id(args[i]) not in kept:
@@ -127,11 +135,13 @@ def _fake_leaves(flat_args):
     of the first tensor leaf, where the executable would put host arrays);
     Python numbers stay as they are."""
     device = next((x.device for x in flat_args
-                   if isinstance(x, torch.Tensor)), torch.device("cpu"))
+                   if isinstance(x, torch.Tensor)), None) or next(
+        (x.shards[0].device for x in flat_args
+         if isinstance(x, DistributedArray)), torch.device("cpu"))
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     out = []
     for x in flat_args:
-        if isinstance(x, (torch.Tensor, np.ndarray)):
+        if isinstance(x, (torch.Tensor, np.ndarray, DistributedArray)):
             shape, dtype = _abstractify(x)
             with mode:
                 x = torch.empty(shape, dtype=dtype, device=device)

@@ -16,8 +16,13 @@ one-device stage meshes runs where there are fewer cards than stages.
 
 ``LogicalDeviceMesh`` is the auto-sharding planner's view of a mesh: a
 shape over the devices' ids and the alpha-beta collective costs per mesh
-axis, in the JAX package's abstract units and with its default constants.
-Multi-host clusters are not ported.
+axis, in the JAX package's abstract units and with its default constants;
+it also knows the device at each coordinate and the groups of devices
+along each axis, over which the SPMD executor runs its collectives.
+``DistributedArray`` is a value sharded over a logical mesh: one local
+tensor per mesh position under a ``Spec`` (Alpa's ``DistributedArray``;
+JAX's ``jax.Array`` holds them as its ``addressable_shards``).  Multi-host
+clusters are not ported.
 """
 from typing import List, Optional, Sequence, Tuple
 
@@ -106,8 +111,75 @@ class LogicalDeviceMesh:
         devices = list(self.physical_mesh.devices.flatten())
         return [devices[i] for i in self.id_mesh.reshape(-1)]
 
+    def coords(self, position: int) -> Tuple[int, ...]:
+        """The coordinates of a row-major mesh position."""
+        return tuple(int(c) for c in np.unravel_index(position, self.shape))
+
+    def axis_groups(self, axis: int) -> List[List[int]]:
+        """The positions along ``axis``, one group per setting of the other
+        coordinates, each in the order of its ``axis`` coordinate."""
+        pos = np.moveaxis(np.arange(self.num_devices).reshape(self.shape),
+                          axis, -1)
+        return [list(map(int, g)) for g in pos.reshape(-1, self.shape[axis])]
+
     def __repr__(self):
         return f"LogicalDeviceMesh(shape={self.shape})"
+
+
+class DistributedArray:
+    """A tensor of ``shape`` sharded over ``logical_mesh`` under ``spec``:
+    ``shards[p]`` is the block (``sharding_spec.local_slices``) on the
+    device at row-major position ``p``.  Positions that hold the same
+    block (a replicated dim) hold equal values.  ``gather()`` assembles the
+    full tensor."""
+
+    def __init__(self, shards: Sequence[torch.Tensor], spec, logical_mesh,
+                 shape: Sequence[int], dtype: torch.dtype):
+        self.shards = list(shards)
+        self.spec = tuple(tuple(a) for a in spec)
+        self.logical_mesh = logical_mesh
+        self.shape = tuple(int(x) for x in shape)
+        self.dtype = dtype
+
+    @classmethod
+    def from_full(cls, tensor: torch.Tensor, spec, logical_mesh
+                  ) -> "DistributedArray":
+        """Each device's block of ``tensor``, copied to that device."""
+        from alpa_tpu_torch.shard_parallel.sharding_spec import local_slices
+        devices = logical_mesh.flat_devices()
+        shards = []
+        for p, device in enumerate(devices):
+            block = tensor
+            for d, (off, size) in enumerate(local_slices(
+                    tensor.shape, spec, logical_mesh.coords(p),
+                    logical_mesh.shape)):
+                if size != tensor.shape[d]:
+                    block = block.narrow(d, off, size)
+            shards.append(block.to(device, copy=True).contiguous())
+        return cls(shards, spec, logical_mesh, tensor.shape, tensor.dtype)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The full tensor, on ``device`` (default: the first shard's), in
+        memory of its own."""
+        from alpa_tpu_torch.shard_parallel.sharding_spec import local_slices
+        device = torch.device(device) if device else self.shards[0].device
+        if not any(self.spec):
+            return self.shards[0].to(device, copy=True)
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        done = set()
+        for p, shard in enumerate(self.shards):
+            slices = local_slices(self.shape, self.spec,
+                                  self.logical_mesh.coords(p),
+                                  self.logical_mesh.shape)
+            if slices in done:
+                continue
+            done.add(slices)
+            out[tuple(slice(o, o + n) for o, n in slices)] = shard.to(device)
+        return out
+
+    def __repr__(self):
+        return (f"DistributedArray(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.spec}, mesh={self.logical_mesh.shape})")
 
 
 def _logical_mesh(mesh, mesh_shape, mesh_alpha, mesh_beta,

@@ -1,7 +1,7 @@
 """Mesh executables: what ``@parallelize`` runs on one physical mesh.
 
 Counterpart of ``alpa_tpu/mesh_executable.py`` (``MeshExecutable``,
-``NormalMeshExecutable``, ``GradAccMeshExecutable``).  A
+``NormalMeshExecutable``, ``GradAccMeshExecutable``).  On one device a
 ``NormalMeshExecutable`` holds the function itself and runs it eagerly on
 flat, already tree-flattened arguments; there is no compiled program.  A
 ``GradAccMeshExecutable`` runs the traced compute-grad graph once per
@@ -9,13 +9,24 @@ microbatch and the apply-grad graph once (``shard_parallel/grad_acc.py``).
 ``launch_on_driver`` first puts host values (numpy arrays, tensors on
 another device) on the mesh's device, as the JAX version commits host
 arrays to their shardings.
+
+On more than one device both run the partitioned program of the step
+(``shard_parallel/spmd_partition.SpmdProgram``) over the logical mesh's
+devices (``_SpmdExecution``): plain inputs are sharded at entry by their
+Specs (``_prepare_args``), a ``DistributedArray`` under its own Spec is
+taken as it is, donated state shards are written in place on every
+device, each state output comes back as a ``DistributedArray`` under its
+input's Spec, and the other outputs (the loss) come back replicated,
+from the mesh's first device.  ``get_collective_counts()`` gives each
+collective kind's count and bytes per step, the counterpart of
+``count_communication_primitives`` over the HLO text.
 """
 import itertools
 
 import numpy as np
 import torch
 
-from alpa_tpu_torch.device_mesh import PhysicalDeviceMesh
+from alpa_tpu_torch.device_mesh import DistributedArray, PhysicalDeviceMesh
 
 _exec_uuids = itertools.count(1)
 
@@ -37,23 +48,151 @@ class MeshExecutable:
         raise NotImplementedError
 
 
-class NormalMeshExecutable(MeshExecutable):
-    """A function over flat arguments, run on the mesh's one device.
-    ``fun`` takes and returns flat lists."""
+class _SpmdExecution:
+    """Running a partitioned program over the logical mesh's devices."""
 
-    def __init__(self, physical_mesh: PhysicalDeviceMesh, fun):
+    def _setup_spmd(self, program, avals, donated_invars, out_specs):
+        self.program = program
+        self.logical_mesh = program.logical_mesh
+        self.avals = list(avals)
+        self.in_specs = list(program.in_specs)
+        self.out_specs = list(out_specs)
+        self.donated_invars = list(donated_invars)
+        self.devices = program.devices
+        self._peak_bytes = -1
+
+    def _shard_args(self, flat_args):
+        """Per mesh position, its local value of every flat argument: a
+        ``DistributedArray`` under its input's Spec on this mesh as it is,
+        anything else committed to each device's block (a copy per
+        position where the argument is donated, so that each device's
+        in-place write touches its own)."""
+        from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
+            _to_tensor
+        from alpa_tpu_torch.shard_parallel.sharding_spec import local_slices
+        mesh = self.logical_mesh
+        per_pos = [[] for _ in self.devices]
+        for i, x in enumerate(flat_args):
+            spec = self.in_specs[i]
+            if isinstance(x, DistributedArray) and x.spec == spec and \
+                    x.logical_mesh.shape == mesh.shape and \
+                    x.logical_mesh.flat_devices() == self.devices:
+                for p, shard in enumerate(x.shards):
+                    per_pos[p].append(shard)
+                continue
+            if isinstance(x, DistributedArray):
+                x = x.gather(self.devices[0])
+            full = _to_tensor(x, self.avals[i][1], self.devices[0])
+            used = set()
+            for p, device in enumerate(self.devices):
+                block = full
+                for d, (off, size) in enumerate(local_slices(
+                        full.shape, spec, mesh.coords(p), mesh.shape)):
+                    if size != full.shape[d]:
+                        block = block.narrow(d, off, size)
+                key = (device, block.data_ptr(), tuple(block.shape))
+                if block is full and key not in used and \
+                        full.device == device:
+                    per_pos[p].append(full)
+                elif self.donated_invars[i] or block.device != device:
+                    per_pos[p].append(block.to(device, copy=True)
+                                      .contiguous())
+                else:
+                    per_pos[p].append(block.contiguous())
+                used.add(key)
+        return per_pos
+
+    def _collect(self, per_pos_outs, global_outs):
+        """The flat outputs: a ``DistributedArray`` per pinned (state)
+        output, the first device's value for the others."""
+        flat = []
+        for j, out in enumerate(global_outs):
+            first = per_pos_outs[0][j]
+            spec = self.out_specs[j] if j < len(self.out_specs) else None
+            if isinstance(first, torch.Tensor) and spec is not None:
+                shape, dtype = out
+                flat.append(DistributedArray(
+                    [vals[j] for vals in per_pos_outs], spec,
+                    self.logical_mesh, shape, dtype))
+            else:
+                flat.append(first)
+        return flat
+
+    def _free_donated_shards(self, per_pos_in, per_pos_out):
+        """Release each donated input shard's storage that no output and
+        no undonated input holds."""
+        def ptr(x):
+            return x.untyped_storage().data_ptr()
+
+        keep = {ptr(x) for vals in per_pos_out for x in vals
+                if isinstance(x, torch.Tensor)}
+        keep.update(ptr(x) for vals in per_pos_in
+                    for x, d in zip(vals, self.donated_invars)
+                    if not d and isinstance(x, torch.Tensor))
+        for vals in per_pos_in:
+            for x, d in zip(vals, self.donated_invars):
+                if d and isinstance(x, torch.Tensor) and \
+                        ptr(x) not in keep:
+                    storage = x.untyped_storage()
+                    if storage.resizable():
+                        storage.resize_(0)
+
+    def _reset_peaks(self):
+        for device in set(self.devices):
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+
+    def _read_peaks(self):
+        cards = [d for d in set(self.devices) if d.type == "cuda"]
+        if cards:
+            self._peak_bytes = max(torch.cuda.max_memory_allocated(d)
+                                   for d in cards)
+
+    def get_collective_counts(self):
+        """Per collective kind, ``{"count", "bytes"}`` of one step (the
+        compute-grad part's once per microbatch), and the backend of the
+        kind's calls ("nccl", "plain" or "mixed")."""
+        reps = {"compute": getattr(self, "num_micro_batches", None) or 1,
+                "apply": 1}
+        out = {}
+        for part, steps in self.program.parts.items():
+            for step in steps:
+                if step.kind != "collective":
+                    continue
+                rec = step.record
+                row = out.setdefault(rec.kind, {"count": 0, "bytes": 0,
+                                                "backend": rec.backend})
+                row["count"] += reps[part]
+                row["bytes"] += rec.nbytes * reps[part]
+                if row["backend"] != rec.backend:
+                    row["backend"] = "mixed"
+        return out
+
+
+class NormalMeshExecutable(MeshExecutable, _SpmdExecution):
+    """A function over flat arguments.  On one device, ``fun`` itself
+    (flat lists in and out) run eagerly; on more, ``program`` (an
+    ``SpmdProgram`` of the traced ``fun``) over the mesh's devices."""
+
+    def __init__(self, physical_mesh: PhysicalDeviceMesh, fun,
+                 program=None, avals=(), donated_invars=(), out_specs=()):
         super().__init__(physical_mesh)
-        if physical_mesh.num_devices != 1:
-            raise NotImplementedError(
-                f"NormalMeshExecutable runs on one device; got a mesh of "
-                f"{physical_mesh.num_devices}")
+        if physical_mesh.num_devices != 1 and program is None:
+            raise ValueError(
+                f"a mesh of {physical_mesh.num_devices} devices runs the "
+                "partitioned program of the step; none was given")
         self.device = physical_mesh.flat_devices[0]
         self.fun = fun
         self._peak_bytes = -1
+        self.program = program
+        if program is not None:
+            self._setup_spmd(program, avals, donated_invars, out_specs)
 
     def launch_on_driver(self, *flat_args):
         """Run on flat args; returns the flat outputs.  On a CUDA device it
         also records the allocator's peak over the launch."""
+        if self.program is not None:
+            return self._launch_spmd(flat_args)
         args = self._prepare_args(flat_args)
         cuda = self.device.type == "cuda"
         if cuda:
@@ -62,6 +201,20 @@ class NormalMeshExecutable(MeshExecutable):
         if cuda:
             self._peak_bytes = torch.cuda.max_memory_allocated(self.device)
         return out
+
+    def _launch_spmd(self, flat_args):
+        program = self.program
+        self._reset_peaks()
+        per_pos_in = self._shard_args(flat_args)
+        stores = program.initial_store(per_pos_in)
+        program.run_part("compute", stores)
+        program.set_externals(stores, program.pre_values(stores))
+        program.run_part("apply", stores)
+        per_pos_out = program.output_values(stores)
+        del stores
+        self._free_donated_shards(per_pos_in, per_pos_out)
+        self._read_peaks()
+        return self._collect(per_pos_out, self.out_avals)
 
     def _prepare_args(self, flat_args):
         """Put numpy arrays and tensors on another device on the mesh's
@@ -81,7 +234,7 @@ class NormalMeshExecutable(MeshExecutable):
         return self._peak_bytes
 
 
-class GradAccMeshExecutable(MeshExecutable):
+class GradAccMeshExecutable(MeshExecutable, _SpmdExecution):
     """A step with gradient accumulation on the mesh's one device
     (``alpa_tpu/mesh_executable.py``'s ``GradAccMeshExecutable``): the
     compute-grad graph of ``shard_parallel.grad_acc`` once per microbatch,
@@ -92,23 +245,34 @@ class GradAccMeshExecutable(MeshExecutable):
     (``alias_donated_inputs``, as pipeshard's apply-grad), so old and new
     state never coexist; other donated inputs no output holds have their
     storage released after the step.  The graphs run uncaptured, on the
-    current stream.  A mesh of more than one device raises (ROADMAP
-    A.3.2)."""
+    current stream.
+
+    Over more than one device (``spmd``, the ``SpmdProgram`` of the step
+    traced at microbatch shapes) each device runs the compute-grad part
+    on its block of each microbatch and adds its marked values, partial
+    sums still, into accumulators of its own; the means are reduced once,
+    by the collectives the apply-grad part starts with (Alpa's skipped
+    all-reduce during accumulation), before the update."""
 
     def __init__(self, physical_mesh: PhysicalDeviceMesh, program,
-                 avals, batch_invars, donated_invars, num_micro_batches):
+                 avals, batch_invars, donated_invars, num_micro_batches,
+                 spmd=None, out_specs=()):
         from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
             StageExecutable
         super().__init__(physical_mesh)
-        if physical_mesh.num_devices != 1:
-            raise NotImplementedError(
-                f"a gradient-accumulation step over {physical_mesh.num_devices}"
-                " devices needs the multi-device executor, which is not "
-                "ported yet (ROADMAP A.3.2)")
-        self.device = physical_mesh.flat_devices[0]
         self.num_micro_batches = num_micro_batches
-        self.dtypes = [dtype for _, dtype in avals]
         self.batch_invars = list(batch_invars)
+        self._accs = None
+        self._peak_bytes = -1
+        # set by the compiler
+        self.trace_seconds = self.compile_seconds = 0.0
+        self.plan = None
+        self.spmd = spmd
+        if spmd is not None:
+            self._setup_spmd(spmd, avals, donated_invars, out_specs)
+            return
+        self.device = physical_mesh.flat_devices[0]
+        self.dtypes = [dtype for _, dtype in avals]
         self.donated_invars = list(donated_invars)
         self.program = program
         index = {v: i for i, v in enumerate(program.placeholders)}
@@ -131,11 +295,6 @@ class GradAccMeshExecutable(MeshExecutable):
                   i not in returned]
         self.apply_exec = StageExecutable(apply, 0, self.device,
                                           program.root, donate=donate)
-        self._accs = None
-        self._peak_bytes = -1
-        # set by the compiler
-        self.trace_seconds = self.compile_seconds = 0.0
-        self.plan = None
 
     def _inputs(self, flat_args):
         from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
@@ -145,6 +304,8 @@ class GradAccMeshExecutable(MeshExecutable):
 
     def launch_on_driver(self, *flat_args):
         """Run the step on flat args; returns the flat outputs."""
+        if self.spmd is not None:
+            return self._launch_spmd(flat_args)
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -173,6 +334,46 @@ class GradAccMeshExecutable(MeshExecutable):
         if cuda:
             self._peak_bytes = torch.cuda.max_memory_allocated(self.device)
         return flat_out
+
+    def _launch_spmd(self, flat_args):
+        program, n = self.spmd, self.num_micro_batches
+        self._reset_peaks()
+        per_pos_in = self._shard_args(flat_args)
+        chunks = [[x.chunk(n) if self.batch_invars[i] else None
+                   for i, x in enumerate(vals)] for vals in per_pos_in]
+        if self._accs is None:
+            self._accs = [[None] * len(program.pres) for _ in self.devices]
+        stores = None
+        for mb in range(n):
+            stores = program.initial_store([
+                [c[mb] if c is not None else x for x, c in zip(vals, cs)]
+                for vals, cs in zip(per_pos_in, chunks)])
+            program.run_part("compute", stores)
+            for p, vals in enumerate(program.pre_values(stores)):
+                accs = self._accs[p]
+                for j, v in enumerate(vals):
+                    if v is None:
+                        continue
+                    if accs[j] is None:
+                        accs[j] = torch.zeros_like(v)
+                    elif mb == 0:
+                        accs[j].zero_()
+                    accs[j].add_(v)
+        for accs in self._accs:
+            for acc in accs:
+                if acc is not None and n > 1:
+                    acc.div_(n)
+        program.set_externals(stores, self._accs)
+        program.run_part("apply", stores)
+        per_pos_out = program.output_values(stores)
+        del stores
+        # an accumulator handed out as an output is the caller's now
+        held = {id(x) for vals in per_pos_out for x in vals}
+        self._accs = [[None if id(a) in held else a for a in accs]
+                      for accs in self._accs]
+        self._free_donated_shards(per_pos_in, per_pos_out)
+        self._read_peaks()
+        return self._collect(per_pos_out, self.out_avals)
 
     def _free_donated(self, inputs, flat_out):
         """Release the storage of donated inputs that no output and no

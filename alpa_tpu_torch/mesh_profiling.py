@@ -2,9 +2,10 @@
 
 Counterpart of ``estimate_stage_memory_split`` in
 ``alpa_tpu/mesh_profiling.py``.  The stage cost's communication term is
-the intra-op ILP's objective, which waits for the multi-device executor
-(ROADMAP A.3.2); the profiling of collectives and the calibrated cost
-model are ROADMAP A.6.
+the intra-op ILP's objective per submesh, which waits for stages of more
+than one device (ROADMAP A.3.2; ``ShardParallel`` executes a plan over
+several devices outside a pipeline); the profiling of collectives and
+the calibrated cost model are ROADMAP A.6.
 """
 from typing import Tuple
 

@@ -43,6 +43,7 @@ this port yet: the ring/ulysses attention variants.
 import dataclasses
 import functools
 import math
+import weakref
 from typing import List, Optional
 
 import torch
@@ -354,7 +355,8 @@ class GPTModel(nn.Module):
                 continue
             if remat:
                 x = torch_checkpoint.checkpoint(
-                    lambda y, blk=block: blk(y, attn_bias=seg_bias)[0], x,
+                    functools.partial(_run_block, block,
+                                      *_block_params(block), seg_bias), x,
                     use_reentrant=False, **remat_kw)
                 continue
             x, new_cache = block(
@@ -372,6 +374,39 @@ class GPTModel(nn.Module):
         if new_caches is not None:
             return logits, new_caches
         return logits
+
+
+_PARAM_SLOTS = weakref.WeakKeyDictionary()
+
+
+def _block_params(block: nn.Module):
+    """The (module, name) slots of a block's parameters, found once per
+    block, and the tensors they hold now (under ``functional_call``, the
+    ones passed in)."""
+    slots = _PARAM_SLOTS.get(block)
+    if slots is None:
+        slots = _PARAM_SLOTS[block] = [
+            (m, name) for m in block.modules()
+            for name, p in m._parameters.items() if p is not None]
+    return slots, [m._parameters[name] for m, name in slots]
+
+
+def _run_block(block, slots, params, attn_bias, x):
+    """``block`` on ``params``, the tensors its slots held when the
+    forward ran: the checkpoint's recomputation in the backward runs
+    after the caller's ``functional_call`` has given the block its own
+    parameters back, and must read the tensors the forward read (a traced
+    step would otherwise keep the recomputation's weights as constants of
+    the trace).  The slots are written as ``functional_call`` writes
+    them, without its per-call checks."""
+    held = [m._parameters[name] for m, name in slots]
+    for (m, name), p in zip(slots, params):
+        m._parameters[name] = p
+    try:
+        return block(x, attn_bias=attn_bias)[0]
+    finally:
+        for (m, name), p in zip(slots, held):
+            m._parameters[name] = p
 
 
 def _segment_bias(segment_ids, kv_caches):

@@ -6,10 +6,12 @@ gradient accumulation, the auto-sharding planner and manual specs),
 ``DataParallel``, ``Zero2Parallel`` and ``Zero3Parallel``;
 ``PipeshardParallel`` with manual, automatic and follow layers (remat
 layers too), uniform, manual and automatic stages, and one device per stage
-mesh; ``LocalPipelineParallel``; and ``get_3d_parallel_method``.  A
-``ShardParallel`` plan over more than one device is made and then
-refused, as is a stage of more than one device: executing a plan over
-several devices needs the multi-device executor (ROADMAP A.3.2).
+mesh; ``LocalPipelineParallel``; and ``get_3d_parallel_method``.  The
+intra-op methods run over any number of devices of one host (the SPMD
+executor, ``shard_parallel/spmd_partition.py``); a pipeshard stage of
+more than one device still raises, citing ROADMAP A.3.2: intra-op
+sharding inside a stage, with its resharding between stage meshes, is
+not ported yet.
 """
 from typing import Any, Optional, Sequence, Union
 
@@ -46,13 +48,15 @@ class ParallelMethod:
 
 class ShardParallel(ParallelMethod):
     """Intra-op parallelism over one device mesh, optionally with gradient
-    accumulation (``alpa_tpu/parallel_method.py:33``).  With neither
-    ``num_micro_batches > 1`` nor an option the function runs eagerly, a
-    donated ``TrainState`` updated in place.  Otherwise the step is traced
-    and compiled by ``compile_shard_executable``: planned (on more than one
-    device, by the ILP or, for ``DataParallel`` and the ZeRO methods, by
-    rules), its manual specs applied, rewritten for accumulation; on more
-    than one device it then raises (ROADMAP A.3.2)."""
+    accumulation (``alpa_tpu/parallel_method.py:33``).  On one device with
+    neither ``num_micro_batches > 1`` nor an option the function runs
+    eagerly, a donated ``TrainState`` updated in place.  Otherwise the
+    step is traced and compiled by ``compile_shard_executable``: planned
+    (on more than one device, by the ILP or, for ``DataParallel`` and the
+    ZeRO methods, by rules), its manual specs applied, rewritten for
+    accumulation, and, on more than one device, partitioned into the
+    program every device runs on its shards (the state stays sharded
+    between steps: its leaves come back as ``DistributedArray``s)."""
 
     def __init__(self,
                  devices: Optional[Union[PhysicalDeviceMesh, Sequence]] = None,
@@ -66,10 +70,14 @@ class ShardParallel(ParallelMethod):
         self.num_micro_batches = num_micro_batches
         self.as_option = auto_sharding_option or AutoShardingOption()
         self.ms_option = manual_sharding_option
-        # the eager path, unless a compile is asked for
-        self.donates_in_place = not (
+        # the eager path on one device, unless a compile is asked for
+        self._eager = not (
             (num_micro_batches or 1) > 1 or auto_sharding_option is not None
             or manual_sharding_option is not None)
+
+    @property
+    def donates_in_place(self) -> bool:
+        return self._eager and self._get_mesh().num_devices == 1
 
     def _get_mesh(self) -> PhysicalDeviceMesh:
         if self.devices is not None:
@@ -160,8 +168,9 @@ class PipeshardParallel(ParallelMethod):
                 stage_input_shardings is not None:
             raise NotImplementedError(
                 "default_auto_sharding_option and stage_input_shardings need "
-                "intra-op sharding inside a stage, which is not ported yet "
-                "(ROADMAP A.3.2)")
+                "intra-op sharding inside a pipeline stage, which is not "
+                "ported yet (ROADMAP A.3.2; ShardParallel runs over several "
+                "devices)")
         if devices is not None and not isinstance(devices,
                                                   VirtualPhysicalMesh):
             devices = VirtualPhysicalMesh(list(devices))
@@ -215,9 +224,10 @@ def get_3d_parallel_method(num_micro_batches: int,
     cluster in ``pipeline_parallel`` equal submeshes, one stage of
     ``AutoLayerOption(layer_num=pipeline_parallel)`` layers on each.  With
     ``pipeline_parallel == 1`` (and degeneration allowed) it is
-    ``ShardParallel`` on a (dp, op) logical mesh, planned by rules.  A
-    stage of more than one device raises (ROADMAP A.3.2), as does the
-    ``ShardParallel`` plan of more than one device when it compiles."""
+    ``ShardParallel`` on a (dp, op) logical mesh, planned by rules and
+    run over the devices.  With ``pipeline_parallel > 1`` a stage of more
+    than one device raises (ROADMAP A.3.2: intra-op sharding inside a
+    stage is not ported yet)."""
     if devices is not None and not isinstance(devices, VirtualPhysicalMesh):
         devices = VirtualPhysicalMesh(list(devices))
     mesh = devices or get_global_virtual_physical_mesh(
@@ -235,10 +245,10 @@ def get_3d_parallel_method(num_micro_batches: int,
                 logical_mesh_shape=(dp, op)))
     if dp * op != 1:
         raise NotImplementedError(
-            f"get_3d_parallel_method with data_parallel={dp} and "
-            f"operator_parallel={op}: a (dp, op) logical mesh in each stage "
-            "needs the multi-device executor, which is not ported yet "
-            "(ROADMAP A.3.2)")
+            f"get_3d_parallel_method with data_parallel={dp}, "
+            f"operator_parallel={op} and pipeline_parallel={pp}: a (dp, op) "
+            "logical mesh in each pipeline stage needs intra-op sharding "
+            "inside a stage, which is not ported yet (ROADMAP A.3.2)")
     return PipeshardParallel(
         devices=mesh, num_micro_batches=num_micro_batches,
         pipeline_schedule="1f1b",

@@ -11,8 +11,9 @@ native copy, ``csrc/stage_dp.cc``, built with ``g++`` at first use
 which the tests hold the native solver to.
 
 The communication term of a stage of more than one device is the intra-op
-ILP's objective; the ILP is ported (``shard_parallel/``), but the term
-waits for the executor that runs such a stage (ROADMAP A.3.2).  Without
+ILP's objective; the ILP and the executor of its plans over several
+devices are ported (``shard_parallel/``), but the term waits for pipeline
+stages of more than one device (ROADMAP A.3.2).  Without
 it the port's
 costs equal JAX's on one-device submeshes and are no higher on the others;
 the DP is monotone in the costs, so a partition that is optimal here and
@@ -201,11 +202,12 @@ def _check_unported_fields(stage_option):
     defaults = {f.name: f.default for f in dataclasses.fields(stage_option)}
     unported = {
         "use_hlo_cost_model": "it chooses how the communication term is "
-                              "computed, which needs the intra-op ILP "
-                              "(ROADMAP A.3.2)",
+                              "computed, which needs stages of more than "
+                              "one device (ROADMAP A.3.2)",
         "profiling_database_filename": "a profiling database calibrates the "
-                                       "communication term, which needs the "
-                                       "intra-op ILP (ROADMAP A.3.2)",
+                                       "communication term, which needs "
+                                       "stages of more than one device "
+                                       "(ROADMAP A.3.2)",
         "profiling_mode": "measured profiling compiles and times candidate "
                           "stages, which needs intra-op sharding (ROADMAP "
                           "A.3.2) and the compile cache (ROADMAP A.6)",

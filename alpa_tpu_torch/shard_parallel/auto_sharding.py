@@ -5,17 +5,23 @@ Counterpart of ``alpa_tpu/shard_parallel/auto_sharding.py``:
 classification of flat argument paths into parameters and optimizer
 state, the ``zero_stage`` knob, and ``plan_rule_based``, the plans of
 ``DataParallel``, ``Zero2Parallel`` and ``Zero3Parallel``.  Plans are a
-``Spec`` per flat argument (``sharding_spec.py``), which the multi-device
-executor turns into placements (ROADMAP A.3.2).
+``Spec`` per flat argument (``sharding_spec.py``), which the SPMD
+partitioner (``spmd_partition.py``) realises.
 
 Paths are those of ``torch.utils._pytree.keystr`` over the parallelized
 function's arguments, e.g. ``[0].params['h.0.attn.qkv.weight']`` or
 ``[0].opt_state[0]['mu']['wte.weight']`` for the port's ``TrainState``.
 
-Two fields mean GSPMD constraint emission in the JAX package
-(``emit_sharding_constraints``, ``constrain_min_elements``); they are
-accepted at their defaults, and any other value raises citing ROADMAP
-A.3.2, whose executor realises a plan.
+Two fields mean GSPMD constraint emission in the JAX package.  The port
+realises every plan the same way, whatever ``emit_sharding_constraints``
+says: the program's strategy graph is solved again with its inputs
+pinned to their final specs (``solver.solve_pinned``) and every value
+takes the Spec that solve gives it.  With nothing forced that is the
+ILP's own plan (``True``, the default, in JAX); it is also the port's
+stand-in for GSPMD's propagation from the inputs (``False`` in JAX).
+``constrain_min_elements`` is accepted at its default, and any other
+value raises: the partitioner constrains small values too, and a size
+below which values are left to propagation is not ported.
 """
 import dataclasses
 import re
@@ -99,7 +105,7 @@ class AutoShardingOption:
     solver_timeout: int = 600
     # the logical mesh shape, e.g. (2, 4); None: search the candidates
     logical_mesh_shape: Optional[Tuple[int, ...]] = None
-    # GSPMD constraint emission in the JAX package (ROADMAP A.3.2)
+    # accepted either way: every plan is realised through the pinned solve
     emit_sharding_constraints: bool = True
     constrain_min_elements: int = 1 << 16
     mesh_shape_search: bool = False
@@ -108,13 +114,13 @@ class AutoShardingOption:
         default_factory=lambda: global_config.zero_stage)
 
     def __post_init__(self):
-        for name, default in (("emit_sharding_constraints", True),
-                              ("constrain_min_elements", 1 << 16)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"AutoShardingOption.{name}={getattr(self, name)!r}: "
-                    "constraint emission belongs to the multi-device "
-                    "executor, which is not ported yet (ROADMAP A.3.2)")
+        if self.constrain_min_elements != 1 << 16:
+            raise NotImplementedError(
+                "AutoShardingOption.constrain_min_elements="
+                f"{self.constrain_min_elements!r}: the SPMD partitioner "
+                "gives every value its planned spec, whatever its size; a "
+                "size below which values are left to propagation is not "
+                "ported")
 
     def copy(self):
         return dataclasses.replace(self)

@@ -10,7 +10,11 @@ accumulator of its own, in place (``compute_grad_to_accumulate_grad``);
 the apply-grad graph divides the sums by the number of microbatches (the
 mean, ``apply_grad_get_mean``) and runs once.  The JAX package runs the
 microbatch loop as a ``lax.scan`` inside one program; here the executable
-runs it (``mesh_executable.GradAccMeshExecutable``).  The quantized
+runs it (``mesh_executable.GradAccMeshExecutable``).  Over more than one
+device the step traced at microbatch shapes (``trace_for_grad_accumulation``)
+is partitioned whole (``spmd_partition.py``), and the executable keeps
+each device's partial gradients in its accumulators until one reduction
+before apply-grad.  The quantized
 gradient sync of the JAX package (``grad_quantize``) is not ported
 (ROADMAP A.5.7).
 """
@@ -76,14 +80,14 @@ def microbatch_avals(in_avals: Sequence[Tuple], batch_flat_idx,
     return out
 
 
-def rewrite_for_grad_accumulation(fun: Callable, in_avals: Sequence[Tuple],
-                                  batch_flat_idx: Sequence[int],
-                                  num_micro_batches: int,
-                                  device) -> GradAccProgram:
-    """Trace ``fun`` (flat signature, full-batch ``in_avals``) at
-    microbatch shapes and split it into the accumulating compute-grad
-    graph and the mean-taking apply-grad graph
-    (``alpa_tpu/shard_parallel/grad_acc.py:56``)."""
+def trace_for_grad_accumulation(fun: Callable, in_avals: Sequence[Tuple],
+                                batch_flat_idx: Sequence[int],
+                                num_micro_batches: int, device):
+    """``fun`` (flat signature, full-batch ``in_avals``) traced at
+    microbatch shapes, and its split at the gradient marker
+    (``split_compute_grad_and_apply_grad``), checked: nothing but inputs
+    and marked values crosses the marker, and no batch argument is read
+    after it."""
     gm = trace_flat(fun, microbatch_avals(in_avals, batch_flat_idx,
                                           num_micro_batches), device)
     graph = gm.graph
@@ -120,6 +124,23 @@ def rewrite_for_grad_accumulation(fun: Callable, in_avals: Sequence[Tuple],
                 "A batch argument is used after alpa_tpu_torch.grad; with "
                 "num_micro_batches > 1 the apply-gradient section may only "
                 "consume state and gradient-marked values.")
+    return gm, split
+
+
+def rewrite_for_grad_accumulation(fun: Callable, in_avals: Sequence[Tuple],
+                                  batch_flat_idx: Sequence[int],
+                                  num_micro_batches: int,
+                                  device) -> GradAccProgram:
+    """Trace ``fun`` (flat signature, full-batch ``in_avals``) at
+    microbatch shapes and split it into the accumulating compute-grad
+    graph and the mean-taking apply-grad graph
+    (``alpa_tpu/shard_parallel/grad_acc.py:56``)."""
+    gm, split = trace_for_grad_accumulation(fun, in_avals, batch_flat_idx,
+                                            num_micro_batches, device)
+    graph = gm.graph
+    placeholders = [n for n in graph.nodes if n.op == "placeholder"]
+    output = next(n for n in graph.nodes if n.op == "output")
+    marker, compute_nodes, grad_pairs, apply_nodes = split
 
     # compute-grad: every marked value added into its accumulator
     nodes = [n for n in compute_nodes if n.op == "call_function"]

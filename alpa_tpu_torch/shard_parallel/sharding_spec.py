@@ -8,8 +8,12 @@ sharded over both axes of a 2-D mesh).  Replicated: every element empty.
 An aval is anything with a ``shape`` and a ``dtype`` (a tensor, a fake
 tensor, an ``Aval``); the dtype is a ``torch.dtype`` or a numpy dtype.
 The JAX package maps a Spec to a ``PartitionSpec``; the port's plans carry
-the Spec tuples themselves, which a multi-device executor turns into
-placements (ROADMAP A.3.2).
+the Spec tuples themselves.  A device's slice under a Spec is
+``NamedSharding``'s tiling: a dim sharded over axes ``(a0, a1)`` is cut
+into ``n0 * n1`` equal blocks, block ``c0 * n1 + c1`` on the device at
+coordinates ``c`` (the first axis major); ``local_slices`` and
+``local_shape`` give a device's block, which the SPMD executor
+(``spmd_partition.py``) holds.
 """
 from typing import NamedTuple, Sequence, Tuple
 
@@ -124,3 +128,36 @@ def resharding_cost(aval, src: Spec, dst: Spec, logical_mesh) -> float:
         elif dst_axis_dim[a] != d:
             cost += logical_mesh.all_to_all_cost(size, a)
     return cost
+
+
+def shard_index(axes: Sequence[int], coords: Sequence[int],
+                mesh_shape: Sequence[int]) -> int:
+    """The block a device at ``coords`` holds of a dim sharded over
+    ``axes`` (the first axis major)."""
+    k = 0
+    for a in axes:
+        k = k * mesh_shape[a] + coords[a]
+    return k
+
+
+def local_slices(shape: Sequence[int], spec: Spec, coords: Sequence[int],
+                 mesh_shape: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """``(offset, size)`` per dim of the block of a tensor of ``shape``
+    that the device at ``coords`` holds under ``spec``."""
+    out = []
+    for size, axes in zip(shape, spec):
+        n = int(np.prod([mesh_shape[a] for a in axes])) if axes else 1
+        if size % n:
+            raise ValueError(f"dim of size {size} does not split into {n}")
+        block = size // n
+        out.append((shard_index(axes, coords, mesh_shape) * block, block))
+    return tuple(out)
+
+
+def local_shape(aval, spec: Spec, mesh_shape: Sequence[int]
+                ) -> Tuple[int, ...]:
+    """The shape of each device's block of ``aval`` under ``spec``."""
+    shape = tuple(aval.shape)
+    return tuple(size // (int(np.prod([mesh_shape[a] for a in axes]))
+                          if axes else 1)
+                 for size, axes in zip(shape, spec))

@@ -6,11 +6,22 @@ traced (``trace_flat``, ``make_fx`` on fake tensors: the counterpart of
 (``ilp.py``) for every candidate logical mesh shape, and the cheapest
 solution's input specs returned, with the forced ZeRO-2/3 specs on top.
 
+``solve_pinned`` is the plan that executes: the strategy graph solved
+again with every input restricted to its final Spec (after the ZeRO
+forcing and the user's manual specs), over the strategies the
+partitioner executes as they are.  When nothing was forced, its inputs
+take the ILP's specs.  ``spmd_partition.py`` realises it.
+
+A difference by design: the rule-based plans of ``DataParallel``, the
+ZeRO methods and ``get_3d_parallel_method(k, dp, op, 1)`` fix only the
+inputs' specs (``auto_sharding.plan_rule_based``).  The JAX package hands
+them to GSPMD, which propagates them through the program; the port's
+stand-in for that propagation is the pinned solve, the ILP choosing every
+other value's strategy with the inputs fixed.
+
 Left out, as their modules are not ported: the compile cache and the
 calibration token of its key (ROADMAP A.6), ``grad_quantize``'s strategies
-and notes (A.5.7) and the trace spans (A.6).  A plan is not realised
-here: the multi-device executor that turns its specs and ``(graph,
-choice)`` into placements and collectives is ROADMAP A.3.2.
+and notes (A.5.7) and the trace spans (A.6).
 """
 import logging
 import time
@@ -171,3 +182,27 @@ def _assemble_plan(avals, in_paths, batch_flat_idx, option, shape,
     if return_graph:
         return out + ((graph, choice),)
     return out
+
+
+def solve_pinned(traced: fx.GraphModule, in_avals: Sequence[Any],
+                 in_paths: Sequence[str], batch_flat_idx: Sequence[int],
+                 logical_mesh, option: AutoShardingOption, in_specs):
+    """``(graph, choice)`` of ``traced`` (the flat function at
+    ``in_avals``) on ``logical_mesh`` with every input's node restricted
+    to its spec in ``in_specs``, over the strategies the partitioner
+    executes as they are (``build_strategy_graph(realizable=True)``): the
+    graph is built again with the pins (a forced spec that is not among a
+    node's strategies becomes its one strategy) and solved."""
+    avals = [Aval(tuple(shape), dtype) for shape, dtype in in_avals]
+    graph = build_strategy_graph(traced.graph, avals, logical_mesh,
+                                 batch_flat_idx, option, in_paths,
+                                 pins=dict(enumerate(in_specs)),
+                                 realizable=True)
+    info = {}
+    choice = solve_strategy_graph(graph, option.solver_timeout, None, info)
+    graph.search = [{"shape": tuple(logical_mesh.shape), "pinned": True,
+                     "nodes": len(graph.nodes), "edges": len(graph.edges),
+                     "solver": info["solver"],
+                     "solve_seconds": info["seconds"],
+                     "objective": solution_cost(graph, choice)}]
+    return graph, choice

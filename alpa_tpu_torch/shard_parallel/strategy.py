@@ -38,6 +38,11 @@ same model, so that the graphs and their costs agree:
   elementwise ops: their nodes and edges are those of JAX's trace of
   flax's LayerNorm, ``jax.nn.softmax`` and ``logsumexp`` (which value
   leads each elementwise op, which reductions run on which value).
+* ``where`` and ``masked_fill`` follow their predicate, which JAX's
+  ``jnp.where`` broadcasts to full size and puts first in ``select_n``;
+  an elementwise op that broadcasts constants alone to a larger shape
+  (aten's causal mask ``arange(S)[:, None] >= arange(S)[None]``) is a
+  free node, as JAX's 2-D ``broadcasted_iota`` is.
 * Multi-output ops: the flash ops charge their inputs' gathers once, as
   the JAX flash path does at its layout reshapes; ``split`` charges them
   per output, as JAX's split does.  ``nll_loss`` reads the gold logits
@@ -47,10 +52,10 @@ same model, so that the graphs and their costs agree:
 
 Remat regions need nothing: ``make_fx`` inlines a checkpointed block's
 forward and its recomputation, as JAX's flattening inlines ``remat``.
-The convolution handler waits for the models that use it (ROADMAP A.9),
-and the JAX package's realiser of a plan (``make_constrained_fun``) waits
-for the multi-device executor (A.3.2): a plan keeps ``(graph, choice)``
-for it.
+The convolution handler waits for the models that use it (ROADMAP A.9).
+A solved graph keeps, for every value, its decision node and dim-map
+(``StrategyGraph.value_nodes``), which ``spmd_partition.py`` reads to
+realise the plan, as JAX's ``make_constrained_fun`` reads its plan.
 """
 import dataclasses
 import itertools
@@ -174,10 +179,21 @@ class Edge:
 
 @dataclasses.dataclass
 class StrategyGraph:
+    """``value_nodes``: for every value of the traced graph (an fx node,
+    or ``(fx node, output index)`` of a multi-output op), the decision
+    node it belongs to and the dim-map it reaches it by (value dim ->
+    node dim), from which the SPMD partitioner gives it a Spec
+    (``make_constrained_fun``'s role).  ``dot_groups``: for each product
+    node, per operand, the virtual dims (``dot_node``) that each of the
+    aten operand's dims merges."""
     nodes: List[Node]
     edges: List[Edge]
     logical_mesh: Any
     graph: Optional[fx.Graph] = None
+    value_nodes: Dict[Any, Tuple[int, DimMap]] = dataclasses.field(
+        default_factory=dict)
+    dot_groups: Dict[fx.Node, Tuple[List[List[Tuple[int, int]]], ...]] = \
+        dataclasses.field(default_factory=dict)
 
     def stats(self):
         nvars = sum(len(n.strategies) for n in self.nodes)
@@ -588,9 +604,19 @@ def follow_dimmap(node: fx.Node, operand: fx.Node) -> Optional[DimMap]:
     return None
 
 
+# ``where(cond, x, y)`` and ``masked_fill(x, mask, value)``: JAX's
+# ``jnp.where`` broadcasts its predicate to the full shape and makes it
+# ``select_n``'s first operand, so the predicate leads
+SELECT_OPS = _ops("where", "masked_fill")
+
+
 def pick_lead_operand(node: fx.Node) -> Optional[fx.Node]:
     """The operand to follow: the largest tensor one (the first of
-    equals)."""
+    equals); for a select (``SELECT_OPS``) the predicate."""
+    if node.target in SELECT_OPS:
+        pred = node.args[0] if node.target in _ops("where") else node.args[1]
+        if _val(pred) is not None:
+            return pred
     best, best_size = None, -1
     for a in node.args if node.target in ELEMENTWISE_OPS else node.args[:1]:
         for v in (a if isinstance(a, (list, tuple)) else [a]):
@@ -666,11 +692,20 @@ def unmerged_operand(v: fx.Node):
 
 def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                          logical_mesh, batch_flat_idx: Sequence[int],
-                         option, in_paths: Sequence[str] = ()
-                         ) -> StrategyGraph:
+                         option, in_paths: Sequence[str] = (),
+                         pins: Optional[Dict[int, Spec]] = None,
+                         realizable: bool = False) -> StrategyGraph:
     """The strategy graph of ``graph`` (traced at the shapes of
     ``in_avals``, one placeholder per flat argument) on ``logical_mesh``
-    (``alpa_tpu/shard_parallel/strategy.py:853``)."""
+    (``alpa_tpu/shard_parallel/strategy.py:853``).  ``pins``: flat input
+    index -> the one Spec that input's node may take (a pinned solve).
+    ``realizable``: the strategies the SPMD partitioner executes as they
+    are (``spmd_partition.py``), for the plan that runs: a product shards
+    a dim that aten merged (``B*S``) only on its outermost part, and the
+    flash ops and a ``reduction="none"`` ``nll_loss`` may run on batch
+    or row shards, ``split`` and ``cat`` on shards along their unsharded
+    dim (JAX's graph has barriers there)."""
+    pins = pins or {}
     from alpa_tpu_torch.shard_parallel.auto_sharding import (
         is_opt_state_path, is_param_path, resolved_zero_stage)
     mesh_shape = logical_mesh.shape
@@ -746,6 +781,10 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                              (i not in batch_set and
                               any(bool(d) for d in s))) else 0.0))
                 for s in specs]
+        if i in pins:
+            strategies = [Strategy(str(pins[i]), tuple(pins[i]), 0.0,
+                                   mem_bytes=sharded_bytes(
+                                       aval, pins[i], mesh_shape))]
         n = new_node("invar", aval, strategies, f"invar{i}", invar_idx=i)
         var_node[ph] = (n.idx, identity_dimmap(ndim))
 
@@ -852,7 +891,8 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                                                         logical_mesh)
         edges.append(Edge(o_idx, l_idx, C))
 
-    def side_edges(out, lead_val, sides, src_idx, composed):
+    def side_edges(out, lead_val, sides, src_idx, composed,
+                   select=False):
         """The consistency edges of a followed op's side operands
         (residual joins, optimizer updates; ``(value, dimmap to the
         output)`` pairs) to the lead's node.  As in JAX, an operand 8
@@ -861,6 +901,9 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
         where aten broadcasts implicitly)."""
         out_ndim = out.dim()
         lead_size = _numel(tuple(lead_val.shape))
+        if select:
+            # JAX's select_n reads its predicate broadcast to full size
+            lead_size = _numel(tuple(out.shape))
         for v, side_dm in sides:
             val = _val(v)
             if val is None or _numel(tuple(val.shape)) * 8 < lead_size:
@@ -963,6 +1006,50 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
             idx = reduce_on(src, shape, rows, "reduce_sum")
             var_node[key] = (idx, identity_dimmap(val.dim()))
 
+    def shard_choices(aval):
+        """Specs of ``aval`` that shard its dim 0 only (and replicated)."""
+        return [sp for sp in enumerate_var_specs(aval, mesh_shape)
+                if not any(sp[1:])]
+
+    def sharded_batch(node):
+        """A flash op run on batch shards: one node choosing the batch
+        dim's axes for its (B, S, H, D) operands and outputs, and for lse's
+        (B*H, S) rows."""
+        q = _val(node.args[0])
+        operands = [a for a in node.args if _val(a) is not None]
+        strategies = [Strategy(str(sp), sp, 0.0, tuple(
+            (sp[0],) + ((),) * (_val(a).dim() - 1) for a in operands))
+            for sp in shard_choices(_aval(q))]
+        n = new_node("op", _aval(q), strategies, f"batch:{_name(node)}")
+        connect(n, operands, strategies)
+        for key, val in multi_outputs(node):
+            var_node[key] = (n.idx, (0,) + (None,) * (val.dim() - 1))
+
+    def sharded_rows(node):
+        """``nll_loss`` with ``reduction="none"`` run on row shards of its
+        (N, C) logits: one node choosing the rows' axes."""
+        fwd = node.target is NLL_FWD
+        logits = node.args[0] if fwd else node.args[1]
+        operands = ([node.args[0], node.args[1]] if fwd else
+                    [node.args[0], node.args[1], node.args[2]])
+        strategies = [Strategy(str(sp), sp, 0.0, tuple(
+            (sp[0],) + ((),) * (_val(a).dim() - 1) for a in operands))
+            for sp in shard_choices(_aval(_val(logits)))]
+        n = new_node("op", _aval(_val(logits)), strategies,
+                     f"rows:{_name(node)}")
+        connect(n, operands, strategies)
+        if not fwd:
+            var_node[node] = (n.idx, identity_dimmap(2))
+            return
+        for key, val in multi_outputs(node):
+            if key[1] == 0:
+                var_node[key] = (n.idx, (0,))
+            else:
+                barrier(node, [(key, val)], [])
+
+    # values that depend on no graph input (factories and ops over them)
+    constant = set()
+    dot_groups: Dict[fx.Node, Tuple[List[List[Tuple[int, int]]], ...]] = {}
     # a softmax or log-softmax -> the node of its sum over the dim
     row_sums: Dict[fx.Node, int] = {}
     # a product's output -> (its node, its unmerged shape)
@@ -1017,6 +1104,13 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                     tuple(vr.shape[d] for d in rfree), out.dtype)
         strategies = enumerate_dot_strategies(vl, vr, vout, dims,
                                               logical_mesh)
+        if realizable:
+            outer = [st for st in strategies if all(
+                _outer_only(spec, [[x for x, _ in g] for g in dims_], shape)
+                for spec, dims_, shape in (
+                    (st.operand_specs[0], ldims, vl.shape),
+                    (st.operand_specs[1], rdims, vr.shape)))]
+            strategies = outer or strategies[:1]
         n = new_node("op", vout, strategies, f"dot:{vout.shape}",
                      outvar=node)
         for oi, (src, flat, vaval) in enumerate(((ls, lflat, vl),
@@ -1043,6 +1137,11 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
         var_node[node] = (n.idx, tuple(
             next((d for d in g if vout.shape[d] > 1), None) for g in groups))
         virtual_out[node] = (n.idx, vout.shape)
+        dot_groups[node] = (
+            [[(v, vl.shape[v]) for v in span(lstart, ldims, j)]
+             for j in range(len(ldims))],
+            [[(v, vr.shape[v]) for v in span(rstart, rdims, j)]
+             for j in range(len(rdims))])
         bias = node.args[0] if node.target is aten.addmm.default else None
         bv = _val(bias)
         if bv is not None and _numel(tuple(bv.shape)) * 8 >= _numel(
@@ -1165,6 +1264,15 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                         f"scatter:{tuple(out.shape)}")
                 continue
 
+        if realizable and target in (NLL_FWD, NLL_BWD) and \
+                node.args[3 if target is NLL_FWD else 4] == 0 and \
+                node.args[2 if target is NLL_FWD else 3] is None and \
+                _val(node.args[0 if target is NLL_FWD else 1]).dim() == 2:
+            sharded_rows(node)
+            continue
+        if realizable and name in _GATHER_ONCE:
+            sharded_batch(node)
+            continue
         if target is NLL_FWD:
             outs = multi_outputs(node)
             gold = [o for o in outs if o[0][1] == 0]
@@ -1181,10 +1289,40 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
         multi = out is None
         outputs = multi_outputs(node) if multi else [(node, out)]
 
-        # free: every input a literal or a scalar; any output spec is a
-        # free local slice, so the ILP aligns it with its consumers
-        if not multi and out.dim() and all(
-                _numel(tuple(_val(v).shape)) == 1 for v in operands):
+        if realizable and target in _ops("split", "split_with_sizes", "cat"):
+            # run along an unsharded dim, on the operands' shards: each
+            # output follows the (first) operand, its split or cat dim
+            # unmapped
+            lead = node.args[0][0] if target in _ops("cat") else node.args[0]
+            dim = (node.args[2] if target not in _ops("cat") else
+                   node.args[1]) if len(node.args) > (
+                       1 if target in _ops("cat") else 2) else 0
+            src = get_source(lead)
+            if src is not None:
+                nd = _val(lead).dim()
+                dim %= nd
+                dm = tuple(None if d == dim else d for d in range(nd))
+                for key, val in outputs:
+                    var_node[key] = (src[0], compose_dimmap(dm, src[1]))
+                if target in _ops("cat"):
+                    side_edges(out, _val(lead),
+                               [(v, dm) for v in node.args[0][1:]],
+                               src[0], compose_dimmap(dm, src[1]))
+                continue
+
+        if not multi and all(v in constant for v in node.all_input_nodes):
+            constant.add(node)
+        # free: every input a literal or a scalar, or an elementwise op
+        # that broadcasts values made of constants alone to a larger shape
+        # (aten's ``arange(S)[:, None] >= arange(S)[None]`` is JAX's 2-D
+        # ``broadcasted_iota``); any output spec is a free local slice, so
+        # the ILP aligns it with its consumers
+        if not multi and out.dim() and (all(
+                _numel(tuple(_val(v).shape)) == 1 for v in operands) or (
+                target in ELEMENTWISE_OPS and node in constant and
+                len(operands) > 1 and all(
+                    _numel(tuple(_val(v).shape)) < out.numel()
+                    for v in operands))):
             specs = enumerate_var_specs(_aval(out), mesh_shape)
             n = new_node("op", _aval(out),
                          [Strategy(str(s), s, 0.0) for s in specs],
@@ -1209,12 +1347,28 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                 side_edges(out, _val(lead), [(v, follow_dimmap(node, v))
                                              for v in node.all_input_nodes
                                              if v is not lead],
-                           src_idx, composed)
+                           src_idx, composed, target in SELECT_OPS)
                 continue
 
         barrier(node, outputs, operands, once=name in _GATHER_ONCE)
 
-    return StrategyGraph(nodes, edges, logical_mesh, graph)
+    return StrategyGraph(nodes, edges, logical_mesh, graph, var_node,
+                         dot_groups)
+
+
+def _outer_only(spec: Spec, groups, v_shape) -> bool:
+    """Whether ``spec`` (over a product operand's virtual dims, of sizes
+    ``v_shape``) shards each group of virtual dims that one aten dim
+    merges (``groups``, one list per aten dim) on its outermost
+    non-trivial dim only."""
+    pos = 0
+    for group in groups:
+        span = list(range(pos, pos + len(group)))
+        pos += len(group)
+        lead = next((v for v in span if v_shape[v] > 1), span[0])
+        if any(spec[v] for v in span if v != lead):
+            return False
+    return True
 
 
 def _name(node: fx.Node) -> str:

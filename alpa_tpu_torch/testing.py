@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 import alpa_tpu_torch
+from alpa_tpu_torch.device_mesh import DistributedArray
 from alpa_tpu_torch.model.convert import mlp_params_from_flax
 from alpa_tpu_torch.model.model_util import TrainState, make_apply_fn, sgd
 from alpa_tpu_torch.pipeline_parallel.primitive_def import \
@@ -40,9 +41,24 @@ def assert_allclose(x: Any, y: Any, rtol=1e-4, atol=1e-4):
 
 
 def _numpy(x):
+    if isinstance(x, DistributedArray):
+        x = x.gather("cpu")
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def gather_tree(tree):
+    """``tree`` with each ``DistributedArray`` leaf gathered to a full
+    tensor on the CPU, and every tensor leaf moved there."""
+    from torch.utils import _pytree as pytree
+
+    def full(x):
+        if isinstance(x, DistributedArray):
+            return x.gather("cpu")
+        return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    return pytree.tree_map(full, tree)
 
 
 class MLPModel(nn.Module):

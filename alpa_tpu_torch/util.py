@@ -89,3 +89,24 @@ def node_flops(node) -> float:
     if isinstance(out, torch.Tensor) and out.dim() > 0:
         return _numel(out)
     return 0.0
+
+
+def count_communication_primitives(executable,
+                                   ignore_scalar_all_reduce: bool = False):
+    """``(total, all_reduce, all_gather, reduce_scatter, all_to_all)``:
+    the collectives of one run of a sharded executable's program, the
+    counterpart of ``alpa_tpu.util.count_communication_primitives``,
+    which counts them in the compiled HLO text.  With
+    ``ignore_scalar_all_reduce`` an all-reduce of a 0-d value (a loss) is
+    not counted.  An executable over one device has none."""
+    program = getattr(executable, "program", None)
+    records = getattr(program, "records", [])
+    counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+              "all_to_all": 0}
+    for rec in records:
+        if ignore_scalar_all_reduce and rec.kind == "all_reduce" and \
+                not rec.shape:
+            continue
+        counts[rec.kind] += 1
+    return (sum(counts.values()), counts["all_reduce"], counts["all_gather"],
+            counts["reduce_scatter"], counts["all_to_all"])

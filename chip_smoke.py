@@ -8,7 +8,8 @@ toolkit:
 or, on a machine with two cards or more, ``python3 chip_smoke.py
 --two-cards`` for phase 8's fidelity and dispatch checks with the two
 stages on two cards (cross-card RESHARDs, one CUDA graph pool per card,
-CUDA events across cards).
+CUDA events across cards), and on a machine with four, ``python3
+chip_smoke.py --four-cards`` for the sharded step over four cards.
 
 Phases, each reported on its own line:
 
@@ -126,6 +127,41 @@ Phases, each reported on its own line:
    to an objective no worse than the same graph's with every input
    replicated.
 
+14. spmd fidelity: a 4-layer GPT at narrow width (hidden 256, 4 heads,
+   seq 256, vocab 1024) in fp32 on the flash kernels, batch 8, under
+   ``ShardParallel`` on a forced (2, 2) logical mesh and under
+   ``Zero2Parallel``, each over the card named 4 times (the SPMD
+   executor's virtual mesh), against the one-device step from the same
+   weights: step-0 gradients to 1e-5 of each tensor's largest, then 2 SGD
+   steps (momentum 0.9; ``sgd_state`` says why not Adam) with losses to
+   1e-5 relative and parameters to 1e-5 of each tensor's largest, and 4 x
+   the one-device flash launches; the plan's specs and the collectives
+   per step by kind and bytes;
+15. spmd: phase 6's GPT-1.3B (24 layers, bf16 compute, fp32 params and
+   Adam, flash, per-block remat, batch 8) under ``ShardParallel`` with
+   the ILP's mesh-shape search and under ``Zero2Parallel``, each over the
+   card named twice, against the one-device step on the same weights
+   and batch: Adam's first moment after one step (0.1 x the step-0
+   gradient through the plan that runs) to ``SPMD_GRAD_TOL`` of each
+   tensor's largest, the first loss to ``SPMD_LOSS_TOL`` relative, and the
+   parameters after 2 Adam steps by ``param_diffs`` (to
+   ``SPMD_PARAM_TOL`` of each tensor's largest where the step-0 gradient
+   is at least 1e-2 of its tensor's largest, to ``adam_bound``
+   elsewhere); exactly twice phase 6's flash launches per step; the
+   chosen shape and objective, collectives per step, peak allocated
+   memory and the step time (a one-card number: the two devices share
+   the card).
+
+``--four-cards`` (a machine with four cards): GPT-1.3B at batch 32 (8 per
+card) under ``DataParallel``, ``Zero2Parallel`` and the ILP's
+``ShardParallel`` over the four cards (collectives over NCCL), held by
+phase 15's bounds against phase 12's one-card
+``ShardParallel(num_micro_batches=4)`` step at batch 32 (the first loss,
+Adam's first moment and the parameters after one step), 4 x its flash
+launches per microbatch; step time, tokens/s, MFU
+over 4 x 989 TFLOP/s, collective bytes and NCCL device time per step, the
+plan's ILP objective beside the measured step, peak memory per card.
+
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels as JSON.
@@ -152,7 +188,7 @@ from alpa_tpu_torch import (AutoLayerOption, AutoStageOption,
 from alpa_tpu_torch.model.gpt_model import (GPTModel, config_from_opt_spec,
                                             config_from_spec, init_random_)
 from alpa_tpu_torch.model.model_util import (TrainState, adam, gpt_lm_loss,
-                                             make_apply_fn)
+                                             make_apply_fn, sgd)
 from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.ops import flash_attention as fa
 from alpa_tpu_torch.global_env import global_config
@@ -2153,6 +2189,455 @@ def phase_planner(device="cuda"):
     del traced
 
 
+SPMD_PATHS = ("[0].params['wte.weight']",
+              "[0].params['h.0.attn.qkv.weight']",
+              "[0].params['h.0.attn.out.weight']",
+              "[0].params['h.0.mlp.fc_in.weight']",
+              "[0].params['h.0.mlp.fc_out.weight']",
+              "[0].opt_state[0]['mu']['h.0.mlp.fc_in.weight']",
+              "[1]['input_ids']")
+
+
+def leaf_paths(state, batch):
+    """The ``keystr`` path of each flat leaf of ``(state, batch)``, in the
+    order ``parallelize`` flattens them."""
+    from torch.utils import _pytree as pytree
+    leaves, _ = pytree.tree_flatten_with_path((state, batch))
+    return [pytree.keystr(path) for path, _ in leaves]
+
+
+def spmd_plan_line(label, ex, paths):
+    """The plan of a sharded step: logical mesh, the specs of a few named
+    leaves, how many leaves each spec has, and the collectives per step."""
+    from collections import Counter
+    spec_of = dict(zip(paths, ex.in_specs))
+    counts = Counter(str(s) for s in ex.in_specs)
+    named = ", ".join(f"{p.split(chr(39))[1] if chr(39) in p else p} "
+                      f"{spec_of.get(p)}" for p in SPMD_PATHS if p in spec_of)
+    print(f"{label} plan: logical mesh {tuple(ex.plan['shape'])}; specs "
+          f"{named}; leaves per spec {dict(counts)}")
+    print(f"{label} collectives per step: " + ", ".join(
+        f"{kind} {row['count']} calls {row['bytes']} bytes ({row['backend']})"
+        for kind, row in sorted(ex.get_collective_counts().items())))
+
+
+def gathered_params(state):
+    """The parameters as full CPU tensors (a sharded leaf gathered)."""
+    return full_cpu(state.params)
+
+
+def sgd_state(cfg):
+    """``train_state`` with SGD (lr 1e-2, momentum 0.9) in place of Adam:
+    Adam's m / sqrt(v) turns a gradient at its rounding noise into a step
+    of up to lr, so two runs that sum in other orders part by up to lr per
+    step where a gradient is zero in exact arithmetic (a qkv bias's key
+    third), and the next step's gradients move with them."""
+    model = GPTModel(cfg, device="cuda", param_dtype=torch.float32)
+    init_random_(model, SEED)
+    return TrainState.create(apply_fn=make_apply_fn(model),
+                             params=dict(model.named_parameters()),
+                             tx=sgd(1e-2, momentum=0.9))
+
+
+def phase_spmd_fidelity():
+    """Phase 14: a 4-layer GPT at narrow width in fp32 on the flash kernels,
+    2 SGD steps (momentum 0.9) under ``ShardParallel`` on a forced (2, 2)
+    logical mesh and under ``Zero2Parallel``, both over the card named 4
+    times, against the one-device step from the same weights and batch:
+    step-0 gradients, losses and parameters to 1e-5."""
+    from alpa_tpu_torch import AutoShardingOption
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash",
+                         remat_blocks=True), num_layers=4, hidden_size=256,
+        num_heads=4, seq_len=256, vocab_size=1024)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in lm_batch(cfg, 8).items()}
+    steps = 2
+    state = sgd_state(cfg)
+    _, ref_grads = alpa_tpu_torch.parallelize(
+        lm_grad_step, method=shard_method(), donate_argnums=())(state, batch)
+    ref_grads = {k: g.detach().cpu() for k, g in ref_grads.items()}
+    train_step = make_train_step(shard_method())
+    reset_launch_counts()
+    ref_losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, batch)
+        ref_losses.append(float(loss))
+    ref_counts = launch_counts()
+    ref_params = gathered_params(state)
+    del state, train_step
+    for label, make in (
+            ("spmd fidelity ShardParallel (2, 2)",
+             lambda: alpa_tpu_torch.ShardParallel(
+                 devices=["cuda:0"] * 4,
+                 auto_sharding_option=AutoShardingOption(
+                     logical_mesh_shape=(2, 2)))),
+            ("spmd fidelity Zero2Parallel",
+             lambda: alpa_tpu_torch.Zero2Parallel(devices=["cuda:0"] * 4))):
+        state = sgd_state(cfg)
+        paths = leaf_paths(state, batch)
+        _, grads = alpa_tpu_torch.parallelize(
+            lm_grad_step, method=make(), donate_argnums=())(state, batch)
+        grad_rel = max_rel_diff(
+            {k: (g.gather("cpu") if isinstance(
+                g, alpa_tpu_torch.DistributedArray) else g.cpu())
+             for k, g in grads.items()}, ref_grads)
+        del grads
+        train_step = make_train_step(make())
+        reset_launch_counts()
+        losses = []
+        for _ in range(steps):
+            state, loss = train_step(state, batch)
+            losses.append(float(loss))
+        counts = launch_counts()
+        ex = train_step.get_last_executable()
+        params = gathered_params(state)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        rel = max_rel_diff(params, ref_params)
+        worst = max(rel, key=rel.get)
+        worst_g = max(grad_rel, key=grad_rel.get)
+        spmd_plan_line(label, ex, paths)
+        print(f"{label}: fp32 GPT ({cfg.num_layers} layers, hidden "
+              f"{cfg.hidden_size}, seq {cfg.seq_len}, batch 8, flash, remat) "
+              f"on 4 virtual devices (the card named 4 times); step-0 "
+              f"gradients max |diff| / max |g| per tensor "
+              f"{grad_rel[worst_g]:.3e} at {worst_g} (tol 1e-5); {steps} SGD "
+              f"steps: losses {losses} one device {ref_losses}, max relative "
+              f"difference {loss_rel:.3e} (tol 1e-5); parameters max |diff| / "
+              f"max |p| per tensor {rel[worst]:.3e} at {worst} (tol 1e-5); "
+              f"flash launches {counts} against the one-device {ref_counts} "
+              f"(want 4 x)")
+        check(grad_rel[worst_g] <= 1e-5,
+              f"{label}: gradient {worst_g} differs by {grad_rel[worst_g]}")
+        check(loss_rel <= 1e-5, f"{label}: losses differ by {loss_rel}")
+        check(rel[worst] <= 1e-5,
+              f"{label}: parameter {worst} differs by {rel[worst]}")
+        check(counts == tuple(4 * c for c in ref_counts),
+              f"{label}: flash launches {counts}, want 4 x {ref_counts}")
+        del state, train_step, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def adam_bound(steps):
+    """The most two runs of ``steps`` Adam steps (b1 0.9, b2 0.999) from
+    the same parameters can part by, element by element: each step moves
+    an element by lr x |m_hat| / sqrt(v_hat), at most lr x
+    sqrt(sum_i a_i^2 / c_i) over the bias-corrected weights a of m and c
+    of v (1 at step 1, 1.0013 at step 2), in either direction, so
+    2 x lr x the sum of those.  Where a gradient is zero in exact
+    arithmetic (a qkv bias's key third), rounding picks the direction."""
+    b1, b2, total = 0.9, 0.999, 0.0
+    for t in range(1, steps + 1):
+        a = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        c = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        total += sum(x * x / y for x, y in zip(a, c)) ** 0.5
+    return 2 * LR * total * (1 + 1e-6)
+
+
+# Full-width bounds of phase 15 and --four-cards (bf16 compute), each set
+# from phase 15's readings on one H100 (PERF.md section 6): the first loss
+# (relative; read 8.404e-08); Adam's first moment after one step, 0.1 x
+# the step-0 gradient through the plan that runs (max |diff| / max |mu|
+# per tensor; read 5.282e-03, where the one-device step rounds the
+# batch's weight gradient to bf16 once and each device its half); and the
+# parameters after the steps whose step-0 gradient is at least 1e-2 of
+# their tensor's largest (max |diff| / max |p| per tensor; read 0.110 and
+# 0.127, both in biases that start at zero, whose largest entry after 2
+# steps is about 2 x lr, and whose second Adam step turns a gradient's
+# rounding into a share of lr); the other elements are held to
+# ``adam_bound``.  A dropped reduction or a wrong gradient moves the
+# first moment by a share of 1, not of 1e-2.
+SPMD_LOSS_TOL = 1e-4
+SPMD_GRAD_TOL = 1e-2
+SPMD_PARAM_TOL = 0.25
+
+
+def lm_grad_step(state, batch):
+    """The loss and step-0 gradients of ``state.params`` on ``batch``."""
+    return alpa_tpu_torch.value_and_grad(
+        lambda p: gpt_lm_loss(state.apply_fn, p, batch))(state.params)
+
+
+def full_cpu(tree):
+    """``{name: tensor}`` as full CPU tensors (a sharded leaf gathered)."""
+    return {k: (v.gather("cpu") if isinstance(
+        v, alpa_tpu_torch.DistributedArray)
+        else v.detach().to("cpu", copy=True)) for k, v in tree.items()}
+
+
+def gathered_mu(state):
+    """Adam's first moment, as full CPU tensors."""
+    return full_cpu(next(s["mu"] for s in state.opt_state
+                         if isinstance(s, dict) and "mu" in s))
+
+
+def one_device_grads(cfg, batch):
+    """The one-device step-0 gradients from the seed state, on the CPU."""
+    state = train_state(cfg)
+    _, grads = alpa_tpu_torch.parallelize(
+        lm_grad_step, method=shard_method(), donate_argnums=())(state, batch)
+    out = full_cpu(grads)
+    del state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sync_cards(devices):
+    for d in sorted({torch.device(x).index or 0 for x in devices}):
+        torch.cuda.synchronize(d)
+
+
+def spmd_step_run(label, cfg, method, batch, ref_loss, ref_mu, ref_params,
+                  ref_grads, ref_per_step, n_params_devices, devices,
+                  timed_steps=3, compare_after=2, profile=False):
+    """``method``'s train step from the seed state on ``batch``, against
+    the one-device step's: the first loss to ``ref_loss``; Adam's first
+    moment after one step to ``ref_mu`` (0.1 x the step-0 gradient, so a
+    gradient check of the plan that runs); the parameters after
+    ``compare_after`` steps to ``ref_params`` (``param_diffs`` over
+    ``ref_grads``, the one-device step-0 gradients: a relative bound where
+    the gradient is at least 1e-2 of its tensor's largest, Adam's bound
+    elsewhere); the flash launches per step to ``n_params_devices`` x
+    ``ref_per_step``; then ``timed_steps`` timed steps, the clock read
+    after every card of ``devices`` is done.  Returns the launches of the
+    run and the metrics."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = train_state(cfg)
+    paths = leaf_paths(state, batch)
+    step = make_train_step(method)
+    reset_launch_counts()
+    tic = time.perf_counter()
+    state, loss = step(state, batch)
+    losses = [float(loss)]
+    first_s = time.perf_counter() - tic
+    ex = step.get_last_executable()
+    grad_rel = max_rel_diff(gathered_mu(state), ref_mu)
+    for _ in range(compare_after - 1):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    per_step = tuple(c // compare_after for c in launch_counts())
+    bound = adam_bound(compare_after)
+    param_rel, n_small, n_all, small_max = param_diffs(
+        full_cpu(state.params), ref_params, ref_grads, bound)
+    sync_cards(devices)
+    tic = time.perf_counter()
+    for _ in range(timed_steps):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    sync_cards(devices)
+    latency = (time.perf_counter() - tic) / timed_steps
+    losses = [float(x) for x in losses]
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(param_rel, key=param_rel.get)
+    spmd_plan_line(label, ex, paths)
+    graph, choice = ex.plan["graph"]
+    from alpa_tpu_torch.shard_parallel.ilp import solution_cost
+    search = [(row["shape"], round(row.get("objective", float("nan")), 3))
+              for row in getattr(graph, "search", [])]
+    print(f"{label}: Adam's first moment after one step (0.1 x the step-0 "
+          f"gradient) max |diff| / max |mu| per tensor "
+          f"{grad_rel[worst_g]:.3e} at {worst_g} (tol {SPMD_GRAD_TOL:g}); "
+          f"first loss {losses[0]:.6f} vs the one-device {ref_loss:.6f}: "
+          f"{loss_rel:.3e} relative (tol {SPMD_LOSS_TOL:g}); parameters "
+          f"after {compare_after} Adam steps max |diff| / max |p| per tensor "
+          f"{param_rel[worst_p]:.3e} at {worst_p} (tol {SPMD_PARAM_TOL:g}) "
+          f"over the elements whose step-0 gradient is at least 1e-2 of its "
+          f"tensor's largest; the other {n_small} of {n_all} elements differ "
+          f"by at most {small_max:.3e} (tol {bound:.4e}, adam_bound); flash "
+          f"launches per step {per_step}, want {n_params_devices} x "
+          f"{ref_per_step}; losses {['%.4f' % x for x in losses]}")
+    segments = sum(st.kind == "segment"
+                   for part in ex.program.parts.values() for st in part)
+    print(f"{label} compile: plan {ex.plan_seconds:.3f} s (search "
+          f"{search}, the objective of the plan that runs "
+          f"{solution_cost(graph, choice):.3f}), trace "
+          f"{ex.trace_seconds:.3f} s, partition and segments "
+          f"{ex.compile_seconds:.3f} s, first call {first_s:.3f} s; "
+          f"{segments} "
+          f"segments, partitioner {ex.program.partitioner_stats}")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    check(grad_rel[worst_g] <= SPMD_GRAD_TOL,
+          f"{label}: first moment {worst_g} differs by "
+          f"{grad_rel[worst_g]}")
+    check(loss_rel <= SPMD_LOSS_TOL, f"{label}: first loss {losses[0]} vs "
+          f"{ref_loss}: {loss_rel} relative")
+    check(param_rel[worst_p] <= SPMD_PARAM_TOL,
+          f"{label}: parameter {worst_p} differs by {param_rel[worst_p]}")
+    check(small_max <= bound, f"{label}: parameters with near-zero "
+          f"gradients differ by {small_max}, over Adam's bound {bound}")
+    check(per_step == tuple(n_params_devices * c for c in ref_per_step),
+          f"{label}: flash launches per step {per_step}, want "
+          f"{n_params_devices} x {ref_per_step}")
+    peak = ex.get_total_allocation_size()
+    metrics = {"latency": latency, "peak": peak, "first_s": first_s,
+               "objective": solution_cost(graph, choice),
+               "collectives": ex.get_collective_counts()}
+    if profile:
+        box = [state]
+
+        def run():
+            box[0], loss_ = step(box[0], batch)
+            return loss_
+
+        metrics["nccl_s"] = nccl_seconds(run, label)
+        state = box[0]
+    counts = launch_counts()
+    del state, step, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, metrics
+
+
+def nccl_seconds(run, label):
+    """Device seconds of one step's NCCL kernels under ``torch.profiler``,
+    and the step's device time."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    with torch.profiler.profile(activities=activities) as prof:
+        out = run()
+        out.float().sum().item()
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    total = sum(e.self_device_time_total for e in kernels) / 1e6
+    nccl = sum(e.self_device_time_total for e in kernels
+               if "nccl" in e.key.lower()) / 1e6
+    print(f"{label} profile [{card_line()}]: one step, device time "
+          f"{total:.5f} s summed over the cards, NCCL kernels {nccl:.5f} s "
+          f"({nccl / max(total, 1e-30):.4f} of it)")
+    return nccl
+
+
+def phase_spmd(shard_profile):
+    """Phase 15: GPT-1.3B at full width and depth (phase 6's model, batch
+    8) under ``ShardParallel`` with the ILP's mesh-shape search and under
+    ``Zero2Parallel``, both over the card named twice: the first loss,
+    Adam's first moment after one step and the parameters after 2 steps
+    against the one-device step from the same weights and batch
+    (``spmd_step_run``'s checks), twice phase 6's flash launches per step,
+    the plan, the collectives, peak memory and the step time (a one-card
+    number: the two virtual devices share the card).  Returns the flash
+    launches of the run."""
+    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
+                           attention_impl="flash", remat_blocks=True)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 8).items()}
+    ref_grads = one_device_grads(cfg, batch)
+    state = train_state(cfg)
+    ref_step = make_train_step(shard_method())
+    reset_launch_counts()
+    ref_losses = []
+    for i in range(2):
+        state, loss = ref_step(state, batch)
+        ref_losses.append(float(loss))
+        if i == 0:
+            ref_mu = gathered_mu(state)
+    ref_per_step = tuple(c // 2 for c in launch_counts())
+    ref_params = gathered_params(state)
+    del state, ref_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = [0, 0, 0]
+    card = card_line()
+    devices = ["cuda:0"] * 2
+    for label, method in (
+            ("spmd ShardParallel",
+             alpa_tpu_torch.ShardParallel(devices=devices)),
+            ("spmd Zero2Parallel",
+             alpa_tpu_torch.Zero2Parallel(devices=devices))):
+        counts, m = spmd_step_run(label, cfg, method, batch, ref_losses[0],
+                                  ref_mu, ref_params, ref_grads,
+                                  ref_per_step, 2, devices)
+        total = [a + b for a, b in zip(total, counts)]
+        tflops = compute_gpt_tflops(8, cfg.seq_len, cfg.num_layers,
+                                    cfg.hidden_size, cfg.vocab_size, 1,
+                                    m["latency"])
+        print(f"{label} metrics [{card}]: step {m['latency']:.5f} s on one "
+              f"card (two virtual devices share it; phase 6's one-device "
+              f"step {shard_profile['latency']:.5f} s), "
+              f"{8 * cfg.seq_len / m['latency']:.1f} tokens/s, {tflops:.3f} "
+              f"TFLOPS of the card, peak allocated "
+              f"{m['peak'] / 2**30:.3f} GiB "
+              f"(phase 6: {shard_profile['peak'] / 2**30:.3f} GiB)")
+    del ref_params, ref_grads, ref_mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tuple(total)
+
+
+def four_cards():
+    """``--four-cards``: GPT-1.3B at batch 32 (8 per card) under
+    ``DataParallel``, ``Zero2Parallel`` and the ILP's ``ShardParallel`` over
+    four cards (collectives over NCCL), 3 steps each, the first against
+    phase 12's one-card ``ShardParallel(num_micro_batches=4)`` step at batch
+    32 (``spmd_step_run``'s checks)."""
+    n = torch.cuda.device_count()
+    check(n >= 4, f"--four-cards needs four cards, found {n}")
+    cards = [f"cuda:{i}" for i in range(4)]
+    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
+                           attention_impl="flash", remat_blocks=True)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 32).items()}
+    ref_grads = one_device_grads(cfg, batch)
+    state = train_state(cfg)
+    ref_step = make_train_step(
+        alpa_tpu_torch.ShardParallel(devices=["cuda:0"], num_micro_batches=4))
+    reset_launch_counts()
+    state, loss = ref_step(state, batch)
+    ref_loss = float(loss)
+    ref_per_step = tuple(c // 4 for c in launch_counts())
+    ref_params, ref_mu = gathered_params(state), gathered_mu(state)
+    del state, ref_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    failures = []
+    for label, method in (
+            ("four cards DataParallel",
+             alpa_tpu_torch.DataParallel(devices=cards)),
+            ("four cards Zero2Parallel",
+             alpa_tpu_torch.Zero2Parallel(devices=cards)),
+            ("four cards ShardParallel",
+             alpa_tpu_torch.ShardParallel(devices=cards))):
+        try:
+            _, m = spmd_step_run(label, cfg, method, batch, ref_loss, ref_mu,
+                                 ref_params, ref_grads, ref_per_step, 4,
+                                 cards, timed_steps=2, compare_after=1,
+                                 profile=True)
+        except SmokeFailure as e:
+            # the other methods still run and print their readings
+            failures.append(str(e))
+            continue
+        tflops = compute_gpt_tflops(32, cfg.seq_len, cfg.num_layers,
+                                    cfg.hidden_size, cfg.vocab_size, 4,
+                                    m["latency"])
+        peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+        coll = sum(row["bytes"] for row in m["collectives"].values())
+        print(f"{label} metrics [{card} x4]: step {m['latency']:.5f} s, "
+              f"{32 * cfg.seq_len / m['latency']:.1f} tokens/s, {tflops:.3f} "
+              f"TFLOPS per card, MFU "
+              f"{compute_mfu(tflops, SPEC['peak_bf16_tflops']):.4f} "
+              f"of 4 x {SPEC['peak_bf16_tflops']} TFLOP/s bf16; collectives "
+              f"{coll} bytes per step, NCCL kernels {m['nccl_s']:.5f} device s "
+              f"per step (summed over the cards); ILP objective of the plan "
+              f"{m['objective']:.3f} beside the measured step; peak allocated "
+              f"per card {['%.3f' % p for p in peaks]} GiB")
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+    check(not failures, "; ".join(failures))
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_bwd_dq_bf16_kernel<64>`` from its mangled name."""
     # the last "flash_": nvcc names an anonymous namespace after the file
@@ -2210,8 +2695,9 @@ def timed(name, fn, *args):
 
 
 def main(args) -> int:
-    if args not in ([], ["--two-cards"]):
-        print("usage: chip_smoke.py [--two-cards]", file=sys.stderr)
+    if args not in ([], ["--two-cards"], ["--four-cards"]):
+        print("usage: chip_smoke.py [--two-cards | --four-cards]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -2221,7 +2707,7 @@ def main(args) -> int:
     build_kernels()
     if args:
         try:
-            two_cards()
+            two_cards() if args == ["--two-cards"] else four_cards()
         except SmokeFailure as e:
             print(f"FAIL: {e}", file=sys.stderr)
             return 1
@@ -2252,11 +2738,13 @@ def main(args) -> int:
         timed("shard grad-acc fidelity", phase_grad_acc_fidelity)
         acc = timed("shard grad-acc", phase_shard_grad_acc, shard_profile)
         timed("planner", phase_planner)
+        timed("spmd fidelity", phase_spmd_fidelity)
+        spmd = timed("spmd", phase_spmd, shard_profile)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
-                             + remat[0] + auto[0] + infer + acc[0])
+                             + remat[0] + auto[0] + infer + acc[0] + spmd[0])
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
                                      "training": train_fwd,
@@ -2264,19 +2752,22 @@ def main(args) -> int:
                                      "pipeshard_remat_blocks": remat[0],
                                      "pipeshard_auto": auto[0],
                                      "pipeshard_infer": infer,
-                                     "shard_grad_acc": acc[0]}
+                                     "shard_grad_acc": acc[0],
+                                     "shard_spmd": spmd[0]}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
-    for entry, e, n, p, r, a, g in zip(bwd_entries, engine[1:],
-                                       (train_dq, train_dkv), pipe[1:],
-                                       remat[1:], auto[1:], acc[1:]):
-        entry["launches"] = e + n + p + r + a + g
+    for entry, e, n, p, r, a, g, m in zip(bwd_entries, engine[1:],
+                                          (train_dq, train_dkv), pipe[1:],
+                                          remat[1:], auto[1:], acc[1:],
+                                          spmd[1:]):
+        entry["launches"] = e + n + p + r + a + g + m
         entry["launches_by_path"] = {"serving_engine": e,
                                      "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
                                      "pipeshard_auto": a,
                                      "pipeshard_infer": 0,
-                                     "shard_grad_acc": g}
+                                     "shard_grad_acc": g,
+                                     "shard_spmd": m}
     print(card_line())
     print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {

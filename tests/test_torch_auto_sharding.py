@@ -14,9 +14,8 @@ on the test session's 8 virtual CPU devices, the port on ``["cpu"] * 8``.
   ``convert.py``'s transposes) equal JAX's, or, where they differ, the
   port's model costs JAX's assignment the same as its own (a tie: the
   port's graph solved with its inputs pinned to JAX's specs reaches the
-  port's objective, to 1e-9 relative).  For the 2-layer GPT at GPT-1.3B's
-  width two leaves differ without a tie on one mesh: the open fault listed
-  in ROADMAP section C, pinned here by name so that it can only shrink.
+  port's objective, to 1e-9 relative), for the MLP cases and the 2-layer
+  GPT at GPT-1.3B's width on every mesh and attention.
 * The rule-based plans of ``DataParallel``, ``Zero2Parallel`` and
   ``Zero3Parallel`` equal JAX's.
 """
@@ -530,15 +529,13 @@ def _gpt_pair(attention_impl):
             _port_flat(tstep, tstate, {"input_ids": ids_t, "labels": ids_t}))
 
 
-# The open fault (ROADMAP C.1): leaves of the 2-layer GPT whose specs
-# differ from JAX's without a tie, per (attention, logical mesh).  With
-# the reference attention on (2, 4), the out projection's weight, where
-# JAX's plan costs the port 0.911 (block 0) and 83889 (block 1) more than
-# its own of 4.356e7.  Every leaf not listed equals JAX's or ties.
-GPT_OPEN_DIFFERENCES = {
-    ("reference", (2, 4)): {"[0].params['h.0.attn.out.weight']",
-                            "[0].params['h.1.attn.out.weight']"},
-}
+# Leaves of the 2-layer GPT whose specs may differ from JAX's without a
+# tie, per (attention, logical mesh): none.  ROADMAP C.1 (the reference
+# attention on (2, 4), the out projection's weight) was repaired by
+# reading ``masked_fill``'s mask as the lead operand and the causal mask
+# as a free 2-D node, as JAX's ``jnp.where`` and ``broadcasted_iota``
+# trace.
+GPT_OPEN_DIFFERENCES = {}
 
 
 @functools.lru_cache(maxsize=None)

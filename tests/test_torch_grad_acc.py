@@ -240,8 +240,10 @@ def test_one_device_methods_accumulate(method):
 
 
 def test_multi_device_mesh_raises_after_planning(monkeypatch):
-    """On two devices the ILP plans the step, then the compile refuses to
-    run it (ROADMAP A.3.2)."""
+    """On two devices the ILP plans the full-batch step once, and the step
+    then runs over both devices with accumulation, equal to the
+    one-device accumulating step (the name is the one from before the
+    multi-device executor, when this compile raised)."""
     from alpa_tpu_torch.shard_parallel import solver
     planned = []
     real = solver.plan_auto_sharding
@@ -251,15 +253,24 @@ def test_multi_device_mesh_raises_after_planning(monkeypatch):
         return planned[-1]
 
     monkeypatch.setattr(solver, "plan_auto_sharding", plan)
-    _, _, tstate, tbatch = _mlp_states()
-    step = alpa_tpu_torch.parallelize(
-        functools.partial(_port_step, loss_fn=functools.partial(
-            _mse, mean=torch.mean)),
-        method=alpa_tpu_torch.ShardParallel(devices=["cpu"] * 2,
-                                            num_micro_batches=2))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3\.2"):
-        step(tstate, tbatch)
+    body = functools.partial(_port_step, loss_fn=functools.partial(
+        _mse, mean=torch.mean))
+    runs = []
+    for devices in (["cpu"], ["cpu"] * 2):
+        _, _, tstate, tbatch = _mlp_states()
+        step = alpa_tpu_torch.parallelize(
+            body, method=alpa_tpu_torch.ShardParallel(devices=devices,
+                                                      num_micro_batches=2))
+        state, losses = _run(step, tstate, tbatch)
+        runs.append((losses, ttesting.gather_tree(state.params)))
     assert len(planned) == 1 and planned[0][3] == (1, 2)
+    ex = step.get_last_executable()
+    assert ex.spmd is not None and len(ex.devices) == 2
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
+    for name, want in runs[0][1].items():
+        np.testing.assert_allclose(runs[1][1][name].numpy(), want.numpy(),
+                                   rtol=0, atol=1e-5 * float(
+                                       want.abs().max()))
 
 
 ########################################

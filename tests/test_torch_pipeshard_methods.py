@@ -137,9 +137,10 @@ def test_get_3d_parallel_method_equals_jax():
     """``get_3d_parallel_method(dp=1, op=1, pp=2)``: pipeshard over two
     one-device stages of ``AutoLayerOption(layer_num=2)``, 1F1B; the steps
     equal JAX's method's.  pp=1 degenerates into ``ShardParallel`` on a
-    (dp, op) logical mesh, planned by rules, which then refuses to run over
-    two devices (ROADMAP A.3.2); a stage of more than one device raises
-    (ROADMAP A.3.2); the degrees must multiply to the device count."""
+    (dp, op) logical mesh, planned by rules, which runs over two devices
+    and equals JAX's ``ShardParallel`` with the same option on two virtual
+    devices; a stage of more than one device raises (ROADMAP A.3.2); the
+    degrees must multiply to the device count."""
     j_state, t_state, batch = _pair()
     j_method = alpa_tpu.get_3d_parallel_method(
         num_micro_batches=2, data_parallel=1, operator_parallel=1,
@@ -164,9 +165,14 @@ def test_get_3d_parallel_method_equals_jax():
         allow_degenerate_into_shard_parallel=False), PipeshardParallel)
     two = get_3d_parallel_method(2, 2, 1, 1, devices=["cpu"] * 2)
     assert two.as_option.logical_mesh_shape == (2, 1)
-    _, t_state, batch = _pair()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3\.2"):
-        alpa_tpu_torch.parallelize(_port_step, method=two)(t_state, batch)
+    j_two = alpa_tpu.ShardParallel(
+        devices=jax.devices()[:2], num_micro_batches=2,
+        auto_sharding_option=alpa_tpu.get_3d_parallel_method(
+            2, 2, 1, 1, devices=_jax_mesh(2)).as_option)
+    j_state, t_state, batch = _pair()
+    _assert_same_training(alpa_tpu.parallelize(_jax_step, method=j_two),
+                          alpa_tpu_torch.parallelize(_port_step, method=two),
+                          j_state, t_state, batch)
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3\.2"):
         get_3d_parallel_method(2, 2, 1, 2, devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="#devices"):

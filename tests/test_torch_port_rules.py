@@ -11,6 +11,7 @@ import torch
 
 import alpa_tpu_torch
 from alpa_tpu_torch import device_mesh
+from alpa_tpu_torch import testing as ttesting
 from alpa_tpu_torch.model.gpt_model import GPTConfig
 from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.ops import flash_attention as fa
@@ -146,20 +147,46 @@ def test_init_and_parallelize_default_to_cuda_and_raise_without_it(
         alpa_tpu_torch.shutdown()
 
 
-def test_shard_parallel_never_runs_many_devices_on_one():
-    """A plan over two devices is made, then refused (ROADMAP A.3.2), with
-    or without accumulation; the JAX package's constraint-emission fields
-    raise when set."""
-    two = alpa_tpu_torch.ShardParallel(devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"2 devices.*A\.3\.2"):
-        alpa_tpu_torch.parallelize(lambda x: x, method=two)(torch.ones(2))
-    two_acc = alpa_tpu_torch.ShardParallel(devices=["cpu", "cpu"],
-                                           num_micro_batches=2)
-    with pytest.raises(NotImplementedError, match=r"2 devices.*A\.3\.2"):
-        alpa_tpu_torch.parallelize(lambda x: x, method=two_acc)(
-            torch.ones(2))
-    with pytest.raises(NotImplementedError, match=r"A\.3\.2"):
-        alpa_tpu_torch.AutoShardingOption(emit_sharding_constraints=False)
+def test_shard_parallel_never_runs_many_devices_on_one(monkeypatch):
+    """A step over two devices runs the partitioned program once per
+    device on that device's block (half the batch each), with or without
+    accumulation, never the whole step on one device; the JAX package's
+    ``emit_sharding_constraints=False`` is accepted, and a
+    ``constrain_min_elements`` off its default raises with its reason."""
+    from alpa_tpu_torch.shard_parallel import spmd_partition
+    seen = []
+    real = spmd_partition.SpmdProgram._module
+
+    def module(self, step, device):
+        inner = real(self, step, device)
+
+        def run(*args):
+            seen.append(tuple(tuple(a.shape) for a in args
+                              if isinstance(a, torch.Tensor)))
+            return inner(*args)
+        return run
+
+    monkeypatch.setattr(spmd_partition.SpmdProgram, "_module", module)
+    for k in (None, 2):
+        seen.clear()
+        state, batch = ttesting.create_mlp_train_state_and_batch(
+            batch_size=32, input_dim=4, hidden_dim=4, output_dim=4)
+        method = alpa_tpu_torch.DataParallel(devices=["cpu", "cpu"],
+                                             num_micro_batches=k)
+        step = ttesting.get_mlp_train_step(method, True)
+        step(state, batch)
+        ex = step.get_last_executable()
+        segments = {part: sum(st.kind == "segment" for st in steps)
+                    for part, steps in ex.program.parts.items()}
+        # each segment ran once per device (the compute-grad part once per
+        # microbatch), on the device's block: 16 // k rows of the 32
+        assert len(seen) == 2 * ((k or 1) * segments["compute"] +
+                                 segments["apply"])
+        assert any((16 // (k or 1), 4) in shapes for shapes in seen)
+        assert not any((32 // (k or 1), 4) in shapes for shapes in seen)
+    alpa_tpu_torch.AutoShardingOption(emit_sharding_constraints=False)
+    with pytest.raises(NotImplementedError, match="constrain_min_elements"):
+        alpa_tpu_torch.AutoShardingOption(constrain_min_elements=1)
     with pytest.raises(NotImplementedError, match="multi-host"):
         alpa_tpu_torch.init(cluster="distributed", devices=["cpu"])
 
