@@ -279,10 +279,16 @@ class DeviceCluster:
 
 class VirtualPhysicalMesh:
     """Compile-time mesh: a (host, device) grid that is sliced into stage
-    meshes before any of them is used (``alpa_tpu/device_mesh.py:361``)."""
+    meshes before any of them is used (``alpa_tpu/device_mesh.py:361``).
+    ``device_ids``: each position's index in the mesh it was sliced from
+    (its own row-major order, unsliced), which names the position where
+    one device is named several times."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, device_ids=None):
         self.devices = PhysicalDeviceMesh(devices).devices
+        self.device_ids = (np.arange(self.devices.size).reshape(
+            self.devices.shape) if device_ids is None else
+            np.asarray(device_ids).reshape(self.devices.shape))
 
     @property
     def num_hosts(self) -> int:
@@ -303,13 +309,15 @@ class VirtualPhysicalMesh:
     def slice_1d(self, dim: int, indices: Sequence[Sequence[int]]
                  ) -> List["VirtualPhysicalMesh"]:
         """Submeshes along hosts (``dim=0``) or devices (``dim=1``)."""
-        return [VirtualPhysicalMesh(self.devices[list(idx), :] if dim == 0
-                                    else self.devices[:, list(idx)])
+        return [VirtualPhysicalMesh(self.devices[list(idx), :], self.device_ids[
+            list(idx), :]) if dim == 0 else VirtualPhysicalMesh(
+                self.devices[:, list(idx)], self.device_ids[:, list(idx)])
                 for idx in indices]
 
     def slice_2d(self, host_indices, device_indices) -> "VirtualPhysicalMesh":
-        return VirtualPhysicalMesh(
-            self.devices[np.ix_(list(host_indices), list(device_indices))])
+        index = np.ix_(list(host_indices), list(device_indices))
+        return VirtualPhysicalMesh(self.devices[index],
+                                   self.device_ids[index])
 
     def get_logical_mesh(self, mesh_shape: Optional[Sequence[int]] = None,
                          mesh_alpha=None, mesh_beta=None
@@ -341,7 +349,7 @@ def init_global_cluster(cluster: str = "local",
     if cluster != "local" or (num_nodes or 1) != 1:
         raise NotImplementedError(
             f"cluster={cluster!r} with num_nodes={num_nodes}: multi-host "
-            "clusters are not ported yet (ROADMAP A.3, A.5)")
+            "clusters are not ported yet (ROADMAP A.1)")
     global_cluster = DeviceCluster(devices)
     global_physical_mesh = global_cluster.get_physical_mesh(
         num_devices_per_host=num_devices_per_node)

@@ -14,7 +14,8 @@ On more than one device both run the partitioned program of the step
 (``shard_parallel/spmd_partition.SpmdProgram``) over the logical mesh's
 devices (``_SpmdExecution``): plain inputs are sharded at entry by their
 Specs (``_prepare_args``), a ``DistributedArray`` under its own Spec is
-taken as it is, donated state shards are written in place on every
+taken as it is, a donated argument no device holds is released once its
+blocks are copied, donated state shards are written in place on every
 device, each state output comes back as a ``DistributedArray`` under its
 input's Spec, and the other outputs (the loss) come back replicated,
 from the mesh's first device.  ``get_collective_counts()`` gives each
@@ -118,6 +119,25 @@ class _SpmdExecution:
                 flat.append(first)
         return flat
 
+    def _release_donated_args(self, flat_args, per_pos_in):
+        """Release each donated argument's storage that no device's input
+        holds (its blocks were copied) and no undonated argument shares,
+        before the program runs: from the call on a donated value is the
+        executable's, as JAX deletes a donated buffer, and the state is
+        not held twice through the step."""
+        def ptr(x):
+            return x.untyped_storage().data_ptr()
+
+        keep = {ptr(x) for vals in per_pos_in for x in vals
+                if isinstance(x, torch.Tensor)}
+        keep.update(ptr(x) for x, d in zip(flat_args, self.donated_invars)
+                    if not d and isinstance(x, torch.Tensor))
+        for x, d in zip(flat_args, self.donated_invars):
+            if d and isinstance(x, torch.Tensor) and ptr(x) not in keep:
+                storage = x.untyped_storage()
+                if storage.resizable():
+                    storage.resize_(0)
+
     def _free_donated_shards(self, per_pos_in, per_pos_out):
         """Release each donated input shard's storage that no output and
         no undonated input holds."""
@@ -206,6 +226,7 @@ class NormalMeshExecutable(MeshExecutable, _SpmdExecution):
         program = self.program
         self._reset_peaks()
         per_pos_in = self._shard_args(flat_args)
+        self._release_donated_args(flat_args, per_pos_in)
         stores = program.initial_store(per_pos_in)
         program.run_part("compute", stores)
         program.set_externals(stores, program.pre_values(stores))
@@ -339,6 +360,7 @@ class GradAccMeshExecutable(MeshExecutable, _SpmdExecution):
         program, n = self.spmd, self.num_micro_batches
         self._reset_peaks()
         per_pos_in = self._shard_args(flat_args)
+        self._release_donated_args(flat_args, per_pos_in)
         chunks = [[x.chunk(n) if self.batch_invars[i] else None
                    for i, x in enumerate(vals)] for vals in per_pos_in]
         if self._accs is None:

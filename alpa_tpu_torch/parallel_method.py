@@ -5,13 +5,12 @@ a function and a mesh into an executable.  Ported: ``ShardParallel`` (with
 gradient accumulation, the auto-sharding planner and manual specs),
 ``DataParallel``, ``Zero2Parallel`` and ``Zero3Parallel``;
 ``PipeshardParallel`` with manual, automatic and follow layers (remat
-layers too), uniform, manual and automatic stages, and one device per stage
-mesh; ``LocalPipelineParallel``; and ``get_3d_parallel_method``.  The
-intra-op methods run over any number of devices of one host (the SPMD
-executor, ``shard_parallel/spmd_partition.py``); a pipeshard stage of
-more than one device still raises, citing ROADMAP A.3.2: intra-op
-sharding inside a stage, with its resharding between stage meshes, is
-not ported yet.
+layers too), uniform, manual and automatic stages, on stage meshes of one
+device or several (each planned as the JAX package plans a stage, run by
+the SPMD executor, values moved between meshes as tiles);
+``LocalPipelineParallel``; and ``get_3d_parallel_method``.  Everything
+runs over the devices of one host (the SPMD executor,
+``shard_parallel/spmd_partition.py``).
 """
 from typing import Any, Optional, Sequence, Union
 
@@ -135,7 +134,8 @@ class Zero3Parallel(ShardParallel):
 
 
 class PipeshardParallel(ParallelMethod):
-    """Inter-op (pipeline) parallelism over stage meshes of one device each
+    """Inter-op (pipeline) parallelism over stage meshes, each planned for
+    intra-op parallelism over its devices
     (``alpa_tpu/parallel_method.py:100``): the step is traced once, cut into
     forward and backward stages at the layer markers, and run by a static
     instruction program under ``pipeline_schedule`` ("gpipe", "1f1b",
@@ -150,9 +150,15 @@ class PipeshardParallel(ParallelMethod):
     ``AutoLayerOption``, ``FollowLayerOption`` (any of them with
     ``remat_layer``), by default ``AutoLayerOption(layer_num=min(8,
     #devices))``; ``stage_option``: ``UniformStageOption`` (the default),
-    ``ManualStageOption`` or ``AutoStageOption``.
-    ``default_auto_sharding_option`` and ``stage_input_shardings`` raise
-    (ROADMAP A.3.2), as does a stage mesh of more than one device."""
+    ``ManualStageOption`` or ``AutoStageOption``.  A stage mesh of more
+    than one device is planned with ``default_auto_sharding_option`` (by
+    default ``AutoShardingOption()``: the intra-op ILP on the stage's graph,
+    at the stage's logical shape if one is given); with
+    ``enable_auto_sharding=False`` every stage input is replicated, unless
+    a ZeRO stage of 2 or 3 shards the optimizer state (and parameters)
+    over the stage's devices, as the JAX package plans a stage.
+    ``stage_input_shardings`` is accepted and unused, as in the JAX
+    package."""
     donates_in_place = False
 
     def __init__(self,
@@ -164,21 +170,16 @@ class PipeshardParallel(ParallelMethod):
                  layer_option: Any = None,
                  stage_option: Any = None,
                  stage_input_shardings=None):
-        if default_auto_sharding_option is not None or \
-                stage_input_shardings is not None:
-            raise NotImplementedError(
-                "default_auto_sharding_option and stage_input_shardings need "
-                "intra-op sharding inside a pipeline stage, which is not "
-                "ported yet (ROADMAP A.3.2; ShardParallel runs over several "
-                "devices)")
         if devices is not None and not isinstance(devices,
                                                   VirtualPhysicalMesh):
             devices = VirtualPhysicalMesh(list(devices))
         self.devices = devices
         self.num_micro_batches = num_micro_batches
+        self.as_option = default_auto_sharding_option or AutoShardingOption()
         self.pipeline_schedule = pipeline_schedule
         self.layer_option = layer_option
         self.stage_option = stage_option
+        self.stage_input_shardings = stage_input_shardings
 
     def compile_executable(self, fun, *, avals, batch_invars,
                            donated_invars):
@@ -186,10 +187,11 @@ class PipeshardParallel(ParallelMethod):
             compile_pipeshard_executable
         mesh = self.devices or get_global_virtual_physical_mesh(
             create_if_not_exist=True)
+        in_paths = getattr(fun, "in_paths", None) or ("",) * len(avals)
         return compile_pipeshard_executable(
             fun, mesh, avals, batch_invars, donated_invars,
             self.num_micro_batches, self.pipeline_schedule,
-            self.layer_option, self.stage_option)
+            self.layer_option, self.stage_option, self.as_option, in_paths)
 
 
 class LocalPipelineParallel(ParallelMethod):
@@ -222,12 +224,14 @@ def get_3d_parallel_method(num_micro_batches: int,
                            allow_degenerate_into_shard_parallel: bool = True):
     """The dp x op x pp method (``alpa_tpu/parallel_method.py:144``): the
     cluster in ``pipeline_parallel`` equal submeshes, one stage of
-    ``AutoLayerOption(layer_num=pipeline_parallel)`` layers on each.  With
+    ``AutoLayerOption(layer_num=pipeline_parallel)`` layers on each, on a
+    (dp, op) logical mesh of its dp * op devices.  With
     ``pipeline_parallel == 1`` (and degeneration allowed) it is
     ``ShardParallel`` on a (dp, op) logical mesh, planned by rules and
-    run over the devices.  With ``pipeline_parallel > 1`` a stage of more
-    than one device raises (ROADMAP A.3.2: intra-op sharding inside a
-    stage is not ported yet)."""
+    run over the devices.  With ``pipeline_parallel > 1`` the option is
+    ``enable_auto_sharding=False``, under which the JAX package replicates
+    every stage input (the stage computed alike on each of its devices;
+    ROADMAP C records it), and the port does the same."""
     if devices is not None and not isinstance(devices, VirtualPhysicalMesh):
         devices = VirtualPhysicalMesh(list(devices))
     mesh = devices or get_global_virtual_physical_mesh(
@@ -243,16 +247,21 @@ def get_3d_parallel_method(num_micro_batches: int,
             auto_sharding_option=AutoShardingOption(
                 enable_auto_sharding=False, force_data_parallel=(op == 1),
                 logical_mesh_shape=(dp, op)))
-    if dp * op != 1:
-        raise NotImplementedError(
-            f"get_3d_parallel_method with data_parallel={dp}, "
-            f"operator_parallel={op} and pipeline_parallel={pp}: a (dp, op) "
-            "logical mesh in each pipeline stage needs intra-op sharding "
-            "inside a stage, which is not ported yet (ROADMAP A.3.2)")
+    per_stage = dp * op
+    if per_stage >= mesh.num_devices_per_host:
+        submesh = (per_stage // mesh.num_devices_per_host,
+                   mesh.num_devices_per_host)
+    else:
+        submesh = (1, per_stage)
     return PipeshardParallel(
         devices=mesh, num_micro_batches=num_micro_batches,
+        default_auto_sharding_option=AutoShardingOption(
+            enable_auto_sharding=False, force_data_parallel=(op == 1),
+            logical_mesh_shape=(dp, op)),
         pipeline_schedule="1f1b",
         layer_option=AutoLayerOption(layer_num=pp),
         stage_option=ManualStageOption(
             forward_stage_layer_ids=[[i] for i in range(pp)],
-            submesh_physical_shapes=[[1, 1] for _ in range(pp)]))
+            submesh_physical_shapes=[list(submesh) for _ in range(pp)],
+            submesh_logical_shapes=[(dp, op) for _ in range(pp)],
+            submesh_autosharding_option_dicts=[{} for _ in range(pp)]))

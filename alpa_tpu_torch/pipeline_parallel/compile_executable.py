@@ -9,10 +9,14 @@ Counterpart of the training path of ``compile_pipeshard_executable``
   between the flipped markers, the gradient marker, apply-grad)
   -> split at the gradient marker (apply_grad.py)
   -> slice into layer computations (computation.py)
-  -> group layers into stages, slice the mesh (stage_construction.py)
+  -> group layers into stages, slice the mesh (stage_construction.py):
+     per stage a submesh of one or more devices, a logical shape and its
+     AutoShardingOption overrides
   -> merge, prune stage outputs, rewrite gradients into accumulators
   -> divide by the number of microbatches, partition apply-grad by mesh
-  -> PipeshardDriverExecutable (pipeshard_executable.py)
+  -> PipeshardDriverExecutable (pipeshard_executable.py), which plans
+     each stage of several devices as the JAX package does and
+     partitions it for its devices
 
 A function with no gradient marker takes the inference path, the JAX
 package's ``_compile_inference``: traced again under the layer transform
@@ -111,7 +115,9 @@ def compile_pipeshard_executable(fun: Callable,
                                  num_micro_batches: int,
                                  pipeline_schedule: str,
                                  layer_option: Optional[LayerOption],
-                                 stage_option: Optional[StageOption]
+                                 stage_option: Optional[StageOption],
+                                 as_option=None,
+                                 in_paths: Optional[Sequence[str]] = None
                                  ) -> PipeshardDriverExecutable:
     tic = time.perf_counter()
     num_micro_batches = num_micro_batches or 1
@@ -130,7 +136,8 @@ def compile_pipeshard_executable(fun: Callable,
                                   fake_args, layer_option)
         return _compile_inference(
             gm, virtual_mesh, avals, batch_invars, num_micro_batches,
-            stage_option, tic, time.perf_counter() - tic)
+            stage_option, tic, time.perf_counter() - tic, as_option,
+            in_paths)
     if pipeline_schedule == "inference":
         raise ValueError(
             "pipeline_schedule='inference' runs forward-only functions; "
@@ -167,11 +174,11 @@ def compile_pipeshard_executable(fun: Callable,
                                     []).append(comp)
 
     # ---- stages ----
-    fwd_stage_layer_ids, submeshes, stage_dp_info = \
-        cluster_layers_and_slice_mesh(
+    fwd_stage_layer_ids, submeshes, logical_shapes, as_dicts, \
+        stage_dp_info = cluster_layers_and_slice_mesh(
             num_layers, virtual_mesh, stage_option, layer_comps=fwd_comps,
-            num_micro_batches=num_micro_batches, schedule=pipeline_schedule)
-    mesh_devices = _stage_devices(submeshes)
+            num_micro_batches=num_micro_batches, schedule=pipeline_schedule,
+            auto_sharding_option=as_option)
     num_stages = len(fwd_stage_layer_ids)
     fwd_stages = [merge_computations([fwd_comps[i] for i in ids],
                                      f"stage_{s}_fwd")
@@ -221,9 +228,10 @@ def compile_pipeshard_executable(fun: Callable,
             apply_nodes, var_mesh, num_stages, global_outvars, force_mesh=0)
 
     executable = PipeshardDriverExecutable(
-        mesh_devices=mesh_devices, fwd_stages=fwd_stages,
-        bwd_stages=bwd_stages, apply_comps=apply_comps, root=gm,
-        schedule_name=pipeline_schedule,
+        meshes=submeshes, logical_shapes=logical_shapes,
+        as_dicts=as_dicts, as_option=as_option, in_paths=in_paths,
+        fwd_stages=fwd_stages, bwd_stages=bwd_stages,
+        apply_comps=apply_comps, root=gm, schedule_name=pipeline_schedule,
         num_micro_batches=num_micro_batches, global_invars=global_invars,
         global_outvars=global_outvars,
         in_dtypes=[dtype for _, dtype in avals], batch_invars=batch_invars,
@@ -236,22 +244,10 @@ def compile_pipeshard_executable(fun: Callable,
     return executable
 
 
-def _stage_devices(submeshes) -> List[torch.device]:
-    """The one device of each stage mesh; a wider mesh raises."""
-    devices = []
-    for s, sub in enumerate(submeshes):
-        if sub.num_devices != 1:
-            raise NotImplementedError(
-                f"stage {s} has a mesh of {sub.num_devices} devices; "
-                "intra-op sharding inside a stage is not ported yet "
-                "(ROADMAP A.3.2): give each stage one device")
-        devices.append(sub.devices.flat[0])
-    return devices
-
-
 def _compile_inference(gm: fx.GraphModule, virtual_mesh, avals,
                        batch_invars, num_micro_batches, stage_option, tic,
-                       trace_seconds) -> PipeshardDriverExecutable:
+                       trace_seconds, as_option=None, in_paths=None
+                       ) -> PipeshardDriverExecutable:
     """Forward-only pipeshard compile (``_compile_inference`` of the JAX
     package): forward stages only, the stage DP's inference objective, the
     ``"inference"`` schedule, no apply-grad, nothing donated."""
@@ -270,18 +266,20 @@ def _compile_inference(gm: fx.GraphModule, virtual_mesh, avals,
         mark_missing_vars_in_backward_computation_pipeline_marks(
             computations)
     computations = pipeline_dce(computations, global_outvars)
-    fwd_stage_layer_ids, submeshes, stage_dp_info = \
-        cluster_layers_and_slice_mesh(
+    fwd_stage_layer_ids, submeshes, logical_shapes, as_dicts, \
+        stage_dp_info = cluster_layers_and_slice_mesh(
             len(computations), virtual_mesh, stage_option,
             layer_comps=computations, num_micro_batches=num_micro_batches,
-            objective="inference")
+            objective="inference", auto_sharding_option=as_option)
     fwd_stages = [merge_computations([computations[i] for i in ids],
                                      f"stage_{s}_fwd")
                   for s, ids in enumerate(fwd_stage_layer_ids)]
     _prune_stage_outvars(fwd_stages, [], global_outvars)
     executable = PipeshardDriverExecutable(
-        mesh_devices=_stage_devices(submeshes), fwd_stages=fwd_stages,
-        bwd_stages=[], apply_comps=[], root=gm, schedule_name="inference",
+        meshes=submeshes, logical_shapes=logical_shapes,
+        as_dicts=as_dicts, as_option=as_option, in_paths=in_paths,
+        fwd_stages=fwd_stages, bwd_stages=[], apply_comps=[], root=gm,
+        schedule_name="inference",
         num_micro_batches=num_micro_batches, global_invars=global_invars,
         global_outvars=global_outvars,
         in_dtypes=[dtype for _, dtype in avals], batch_invars=batch_invars,

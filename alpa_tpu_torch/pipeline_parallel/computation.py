@@ -33,17 +33,15 @@ class PipelineComputation:
     outvars: List[fx.Node]
     nodes: List[fx.Node]
 
-    def get_runnable(self, root: torch.nn.Module,
-                     device: torch.device) -> fx.GraphModule:
-        """The computation as a ``GraphModule`` on ``device``, taking
-        ``invars`` and returning the list of ``outvars``.  Constants
-        (``get_attr``) are copied in; every device an op names (factory
-        functions and casts traced on another device) and every constant
-        move to ``device``."""
+    def to_graph(self) -> fx.Graph:
+        """The computation as an ``fx.Graph`` of its own, taking ``invars``
+        (placeholders carrying their traced values) and returning the list
+        of ``outvars``; constants stay ``get_attr`` nodes."""
         graph = fx.Graph()
         env: Dict[fx.Node, fx.Node] = {}
         for v in self.invars:
             env[v] = graph.placeholder(v.name)
+            env[v].meta = dict(v.meta)
 
         def arg(v):
             if v not in env and v.op == "get_attr":
@@ -53,6 +51,16 @@ class PipelineComputation:
         for node in self.nodes:
             env[node] = graph.node_copy(node, arg)
         graph.output([arg(v) for v in self.outvars])
+        return graph
+
+    def get_runnable(self, root: torch.nn.Module,
+                     device: torch.device) -> fx.GraphModule:
+        """The computation as a ``GraphModule`` on ``device``, taking
+        ``invars`` and returning the list of ``outvars``.  Constants
+        (``get_attr``) are copied in; every device an op names (factory
+        functions and casts traced on another device) and every constant
+        move to ``device``."""
+        graph = self.to_graph()
         _retarget(graph, torch.device(device))
         gm = fx.GraphModule(root, graph)
         for node in graph.nodes:

@@ -68,10 +68,16 @@ import numpy as np
 import torch
 from torch import fx
 
+from alpa_tpu_torch.device_mesh import DistributedArray, PhysicalDeviceMesh
 from alpa_tpu_torch.global_env import global_config
 from alpa_tpu_torch.ops import flash_attention as _flash
 from alpa_tpu_torch.pipeline_parallel.computation import PipelineComputation
-from alpa_tpu_torch.pipeline_parallel.cross_mesh_resharding import reshard
+from alpa_tpu_torch.pipeline_parallel.cross_mesh_resharding import (
+    MeshSharding, ReshardingTask, VirtualDistributedArray, as_shards,
+    naive_transfer_bytes, plan_resharding)
+from alpa_tpu_torch.shard_parallel.sharding_spec import (local_shape,
+                                                         local_slices,
+                                                         replicated_spec)
 from alpa_tpu_torch.pipeline_parallel.runtime_emitter import (
     DispatchRaceChecker, PipelineInstruction, PipelineInstType,
     emit_free_instructions, lower_to_register_file, partition_streams)
@@ -169,7 +175,7 @@ class StageExecutable:
 
     def __init__(self, comp: PipelineComputation, mesh_id: int,
                  device: torch.device, root: torch.nn.Module,
-                 donate: Sequence[int] = ()):
+                 donate: Sequence[int] = (), device_id: int = 0):
         self.name = comp.name
         self.mesh_id = mesh_id
         self.invars = list(comp.invars)
@@ -182,10 +188,265 @@ class StageExecutable:
         self.free_after = [i for i in donate if i not in written]
         self.donate_idx: Tuple[int, ...] = tuple(sorted(
             written | set(self.free_after)))
+        self.in_shardings = [_whole(v, device_id) for v in self.invars]
+        self.out_shardings = [_whole(v, device_id) for v in self.outvars]
 
     def __call__(self, args):
         with torch.no_grad():
             return self.module(*args)
+
+
+def _distribute_full(full: torch.Tensor, spec, mesh, used: set
+                     ) -> DistributedArray:
+    """``full`` as a ``DistributedArray`` under ``spec`` on ``mesh``: the
+    first position whose block is all of ``full``, on its device, holds
+    ``full`` itself unless ``used`` already names it; every other position
+    a copy of its block (each device writes its own in place)."""
+    shards = []
+    for p, device in enumerate(mesh.flat_devices()):
+        block = full
+        for d, (off, size) in enumerate(local_slices(
+                full.shape, spec, mesh.coords(p), mesh.shape)):
+            if size != full.shape[d]:
+                block = block.narrow(d, off, size)
+        key = full.untyped_storage().data_ptr()
+        if block is full and full.device == device and key not in used:
+            used.add(key)
+            shards.append(full)
+        else:
+            shards.append(block.to(device, copy=True).contiguous())
+    return DistributedArray(shards, spec, mesh, tuple(full.shape),
+                            full.dtype)
+
+
+def _tensors(x) -> List[torch.Tensor]:
+    """The tensors a value holds: a ``DistributedArray``'s shards, or the
+    tensor itself."""
+    if isinstance(x, DistributedArray):
+        return list(x.shards)
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _same_tiles(v, a: MeshSharding, b: MeshSharding) -> bool:
+    """Whether two shardings of ``v`` put the same block on each device."""
+    if a == b:
+        return True
+    if a.device_ids != b.device_ids:
+        return False
+    shape = tuple(v.meta["val"].shape)
+    return (VirtualDistributedArray.from_sharding(shape, a).device_tiles ==
+            VirtualDistributedArray.from_sharding(shape, b).device_tiles)
+
+
+def _ndim(v) -> int:
+    val = v.meta.get("val")
+    return val.dim() if isinstance(val, torch.Tensor) else 0
+
+
+def _whole(v, device_id: int) -> MeshSharding:
+    """A value on a mesh of one device: whole, on that device."""
+    return MeshSharding(replicated_spec(_ndim(v)), (1, 1), (device_id,))
+
+
+#: the spec of a stage output the plan leaves as the program computes it
+NATURAL = None
+
+
+class SpmdStageExecutable:
+    """One computation on a stage mesh of several devices, planned as the
+    JAX package's ``StageExecutable.plan`` plans a stage
+    (``alpa_tpu/pipeline_parallel/pipeshard_executable.py:87``) and run by
+    the SPMD partitioner over the mesh's devices, uncaptured.
+
+    ``plan()`` decides the input specs: with ``enable_auto_sharding`` the
+    ILP on the stage's graph (``solver.plan_auto_sharding``: no input
+    taken as batch, the stage's logical shape and ``AutoShardingOption``
+    overrides, the stage's input paths); otherwise the rule-based plan on
+    an ``(n, 1)`` logical mesh under ZeRO stage 2 or 3, else every input
+    replicated.  The driver may then unify the specs of values that stages
+    of one mesh share (``unify_same_mesh_shardings``) before ``compile()``
+    fixes them: the program is planned again with its inputs pinned (the
+    ILP's pinned solve after an ILP plan, the propagation of a rule-based
+    one), its accumulator outputs pinned to their donated inputs' specs
+    (``donated_out_specs``), the outputs a consumer on the mesh pinned to
+    its spec, new state (``state_out``: an output the step returns where
+    it takes the old value) to its old value's spec, the others as
+    computed, and partitioned
+    (``spmd_partition.SpmdProgram``).  Values are ``DistributedArray``s
+    over the stage's logical mesh; a donated input is written in place on
+    every device."""
+
+    def __init__(self, comp: PipelineComputation, mesh_id: int,
+                 physical_mesh: PhysicalDeviceMesh, device_ids,
+                 root: torch.nn.Module, as_option, logical_shape,
+                 as_overrides, in_paths: Sequence[str],
+                 donate: Sequence[int] = (), acc_out: Optional[Dict] = None,
+                 state_out: Optional[Dict] = None):
+        self.name = comp.name
+        self.mesh_id = mesh_id
+        self.invars = list(comp.invars)
+        self.outvars = list(comp.outvars)
+        self.num_nodes = len(comp.nodes)
+        self.physical_mesh = physical_mesh
+        self.num_devices = physical_mesh.num_devices
+        self.device_ids = tuple(int(i) for i in np.asarray(device_ids).flat)
+        self.donate = list(donate)
+        self.donate_idx: Tuple[int, ...] = tuple(sorted(donate))
+        # summed output -> its accumulator input; new state -> old state
+        self.acc_out = dict(acc_out or {})
+        self.state_out = dict(state_out or {})
+        # old state -> (its spec, the logical shape it is read under): set
+        # by the driver from every stage that reads it
+        self.state_specs: Dict[fx.Node, Tuple] = {}
+        self.in_paths = list(in_paths)
+        self.module = comp.get_runnable(root, physical_mesh.flat_devices[0])
+        self.avals = [(tuple(v.meta["val"].shape), v.meta["val"].dtype)
+                      for v in self.invars]
+        self.pinned_out: Dict[fx.Node, Tuple] = {}
+        self.plan_seconds = 0.0
+        self.program = None
+        self.plan(as_option, logical_shape, as_overrides)
+
+    def plan(self, as_option, logical_shape, as_overrides):
+        from alpa_tpu_torch.shard_parallel.auto_sharding import (
+            plan_rule_based, resolved_zero_stage)
+        from alpa_tpu_torch.shard_parallel.sharding_spec import Aval
+        from alpa_tpu_torch.shard_parallel.solver import plan_auto_sharding
+        tic = time.perf_counter()
+        opt = as_option.copy()
+        self.search = None
+        if as_option.enable_auto_sharding:
+            if logical_shape is not None:
+                opt.logical_mesh_shape = tuple(logical_shape)
+            for k, v in (as_overrides or {}).items():
+                if not hasattr(opt, k):
+                    raise ValueError(
+                        f"unknown AutoShardingOption field {k!r} in "
+                        "submesh_autosharding_option_dicts")
+                setattr(opt, k, v)
+            self.logical_mesh, in_specs, (graph, _), shape = \
+                plan_auto_sharding(self.module, self.avals, self.in_paths,
+                                   [], self.physical_mesh, opt,
+                                   traced=self.module)
+            self.search = graph.search
+            self.rule_based = False
+        else:
+            shape = (self.num_devices, 1)
+            self.logical_mesh = self.physical_mesh.get_logical_mesh(shape)
+            if resolved_zero_stage(as_option) in (2, 3):
+                in_specs = list(plan_rule_based(
+                    shape, [Aval(*a) for a in self.avals], self.in_paths, [],
+                    as_option))
+            else:
+                in_specs = [replicated_spec(len(a[0])) for a in self.avals]
+            self.rule_based = True
+        self.option = opt
+        self.in_specs = [tuple(sp) for sp in in_specs]
+        self.plan_seconds = time.perf_counter() - tic
+
+    def sharding(self, spec) -> MeshSharding:
+        return MeshSharding(tuple(spec), tuple(self.logical_mesh.shape),
+                            self.device_ids)
+
+    @property
+    def in_shardings(self) -> List[MeshSharding]:
+        return [self.sharding(sp) for sp in self.in_specs]
+
+    def donated_out_specs(self) -> Dict[fx.Node, Tuple]:
+        """Accumulator outputs (added into their input in place), locked to
+        that input's spec."""
+        pos = {v: i for i, v in enumerate(self.invars)}
+        return {ov: self.in_specs[pos[acc]] for ov, acc in
+                self.acc_out.items() if acc in pos}
+
+    def compile(self):
+        from alpa_tpu_torch.shard_parallel.solver import (propagate_pinned,
+                                                          solve_pinned)
+        from alpa_tpu_torch.shard_parallel.spmd_partition import SpmdProgram
+        tic = time.perf_counter()
+        locked = self.donated_out_specs()
+        out_specs = [locked.get(ov, self.pinned_out.get(ov, NATURAL))
+                     for ov in self.outvars]
+        # new state keeps its old value's spec (as XLA keeps a donated
+        # buffer's for the output it aliases), where the old value is read
+        # under this logical shape
+        shape = tuple(self.logical_mesh.shape)
+        for j, ov in enumerate(self.outvars):
+            got = self.state_specs.get(self.state_out.get(ov))
+            if out_specs[j] is NATURAL and got is not None and \
+                    got[1] == shape:
+                out_specs[j] = got[0]
+        plan = propagate_pinned if self.rule_based else solve_pinned
+        graph, choice = plan(self.module, self.avals, self.in_paths, [],
+                             self.logical_mesh, self.option, self.in_specs)
+        donated = [i in self.donate for i in range(len(self.invars))]
+        self.program = SpmdProgram(self.module, graph, choice,
+                                   self.logical_mesh, self.in_specs,
+                                   out_specs, donated, natural_outputs=True)
+        self.pinned_search = graph.search
+        self.out_specs = list(self.program.out_specs)
+        self.aliased = self.program.aliased
+        written = set(self.aliased.values())
+        self.free_after = [i for i in self.donate if i not in written]
+        self.out_shardings = [self.sharding(sp) for sp in self.out_specs]
+        self._out_avals = [(tuple(v.meta["val"].shape), v.meta["val"].dtype)
+                           for v in self.outvars]
+        self.plan_seconds += time.perf_counter() - tic
+
+    def distribute(self, shards, spec, shape, dtype) -> DistributedArray:
+        return DistributedArray(shards, spec, self.logical_mesh, shape, dtype)
+
+    def __call__(self, args):
+        program = self.program
+        per_pos = [[as_shards(a)[p] for a in args]
+                   for p in range(self.num_devices)]
+        stores = program.initial_store(per_pos)
+        program.run_part("compute", stores)
+        program.run_part("apply", stores)
+        outs = program.output_values(stores)
+        del stores
+        return [self.distribute([o[j] for o in outs], spec, shape, dtype)
+                for j, (spec, (shape, dtype)) in enumerate(zip(
+                    self.out_specs, self._out_avals))]
+
+
+def unify_same_mesh_shardings(execs, var_alias: Dict[fx.Node, fx.Node]):
+    """Stages of one mesh agree on the specs of the values they share
+    (``_unify_same_mesh_shardings``, ``alpa_tpu/pipeline_parallel/
+    pipeshard_executable.py:176``): an accumulator's summed output keeps its
+    donated input's spec, the later readers of a value adopt the first
+    reader's spec, and its producer's output is pinned to it, so that no
+    relayout runs between them.  A spec is adopted only between stages of
+    one logical shape (the port's Specs name a logical mesh's axes); a
+    value read under another shape is relaid out by the runtime.
+    ``var_alias`` names one value by two nodes (the gradient marker's
+    output and the accumulator's summed value)."""
+    def canon(v):
+        return var_alias.get(v, v)
+
+    wide = [e for e in execs if isinstance(e, SpmdStageExecutable)]
+    chosen: Dict[Tuple[int, fx.Node], Tuple[Tuple, Tuple]] = {}
+    for ex in wide:
+        shape = tuple(ex.logical_mesh.shape)
+        for ov, spec in ex.donated_out_specs().items():
+            chosen[(ex.mesh_id, canon(ov))] = (spec, shape)
+    for ex in wide:
+        shape = tuple(ex.logical_mesh.shape)
+        for pos, v in enumerate(ex.invars):
+            key = (ex.mesh_id, canon(v))
+            if key in chosen:
+                spec, at = chosen[key]
+                if at == shape:
+                    ex.in_specs[pos] = spec
+            else:
+                chosen[key] = (ex.in_specs[pos], shape)
+    for ex in wide:
+        shape = tuple(ex.logical_mesh.shape)
+        locked = ex.donated_out_specs()
+        for v in ex.outvars:
+            got = chosen.get((ex.mesh_id, canon(v)))
+            if got is not None and got[1] == shape and v not in locked:
+                ex.pinned_out[v] = got[0]
 
 
 def launch_counts() -> Tuple[int, int, int]:
@@ -290,7 +551,8 @@ class CapturedRun:
 
 def _to_tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.to(device, non_blocking=True)
+        # asynchronous only into a card: the host reads a host copy at once
+        return x.to(device, non_blocking=torch.device(device).type == "cuda")
     return torch.as_tensor(np.asarray(x) if isinstance(x, np.ndarray) else x,
                            dtype=dtype, device=device)
 
@@ -384,10 +646,28 @@ class _CapturedStep:
         return moved, held_back
 
 
+def _refuse_wide_stages_over_cards(mesh_device_lists):
+    """Stage meshes of several devices run over one card (named as often as
+    the mesh has devices) and the host.  Over distinct cards the two-level
+    step's gradient of the tied embedding misses the one-device step's by
+    4.6e-02 of its largest entry on four H100s, untraced (ROADMAP C.4), so
+    such a pipeline is refused until that is repaired."""
+    if max(len(devs) for devs in mesh_device_lists) == 1:
+        return
+    cards = sorted({d.index or 0 for devs in mesh_device_lists
+                    for d in devs if d.type == "cuda"})
+    if len(cards) > 1:
+        raise NotImplementedError(
+            f"stage meshes of several devices over distinct cards {cards}: "
+            "the two-level step over several cards gives a wrong gradient "
+            "of a weight two stages share (ROADMAP C.4); name one card for "
+            "every device of the pipeline (devices=['cuda:0'] * n)")
+
+
 class PipeshardDriverExecutable:
     """Stages, schedule and instruction program of one pipeshard step."""
 
-    def __init__(self, *, mesh_devices: Sequence[torch.device],
+    def __init__(self, *, meshes: Sequence[Any],
                  fwd_stages: List[PipelineComputation],
                  bwd_stages: List[PipelineComputation],
                  apply_comps: List[PipelineComputation],
@@ -396,8 +676,20 @@ class PipeshardDriverExecutable:
                  global_outvars: List[Any], in_dtypes: Sequence[torch.dtype],
                  batch_invars: Sequence[bool],
                  donated_invars: Sequence[bool], grad_pairs,
-                 acc_info: Dict[fx.Node, Tuple[fx.Node, fx.Node, int]]):
-        self.mesh_devices = [torch.device(d) for d in mesh_devices]
+                 acc_info: Dict[fx.Node, Tuple[fx.Node, fx.Node, int]],
+                 logical_shapes: Optional[Sequence[Any]] = None,
+                 as_dicts: Optional[Sequence[Dict]] = None,
+                 as_option: Any = None,
+                 in_paths: Optional[Sequence[str]] = None):
+        # each stage mesh (a ``VirtualPhysicalMesh``): its devices and their
+        # ids in the virtual mesh it was sliced from
+        self.mesh_device_lists = [[torch.device(d) for d in m.devices.flat]
+                                  for m in meshes]
+        self.mesh_device_ids = [tuple(int(i) for i in m.device_ids.flat)
+                                for m in meshes]
+        self.mesh_devices = [devs[0] for devs in self.mesh_device_lists]
+        self.mesh_sizes = [len(devs) for devs in self.mesh_device_lists]
+        _refuse_wide_stages_over_cards(self.mesh_device_lists)
         self.num_meshes = len(fwd_stages)
         self.num_micro_batches = num_micro_batches
         self.global_invars = global_invars
@@ -409,12 +701,39 @@ class PipeshardDriverExecutable:
         self.acc_info = acc_info
         self.acc_pairs = {acc: summed for acc, summed, _ in acc_info.values()}
         self._summed = set(self.acc_pairs.values())
+        summed_to_acc = {summed: acc for acc, summed in self.acc_pairs.items()}
         self.has_bwd = bool(bwd_stages)
-        self.stage_execs = [
-            StageExecutable(c, s, self.mesh_devices[s], root)
-            for s, c in enumerate(fwd_stages)] + [
-            StageExecutable(c, s, self.mesh_devices[s], root)
-            for s, c in enumerate(bwd_stages)]
+        paths = dict(zip(global_invars, in_paths or ()))
+        logical_shapes = list(logical_shapes or [None] * self.num_meshes)
+        as_dicts = list(as_dicts or [{}] * self.num_meshes)
+        if as_option is None:
+            from alpa_tpu_torch.shard_parallel.auto_sharding import \
+                AutoShardingOption
+            as_option = AutoShardingOption()
+
+        # new state -> old: the step returns its state where it takes it
+        state_out = {
+            o: i for o, i, d in zip(global_outvars, global_invars,
+                                    donated_invars)
+            if d and isinstance(o, fx.Node) and o is not i and
+            isinstance(o.meta.get("val"), torch.Tensor) and
+            (tuple(o.meta["val"].shape), o.meta["val"].dtype) ==
+            (tuple(i.meta["val"].shape), i.meta["val"].dtype)}
+
+        def make(comp, m, donate=()):
+            if self.mesh_sizes[m] == 1:
+                return StageExecutable(comp, m, self.mesh_devices[m], root,
+                                       donate, self.mesh_device_ids[m][0])
+            return SpmdStageExecutable(
+                comp, m, PhysicalDeviceMesh(meshes[m].devices),
+                self.mesh_device_ids[m], root, as_option, logical_shapes[m],
+                as_dicts[m], [paths.get(v, "") for v in comp.invars], donate,
+                {ov: summed_to_acc[ov] for ov in comp.outvars
+                 if ov in summed_to_acc},
+                {ov: state_out[ov] for ov in comp.outvars if ov in state_out})
+
+        self.stage_execs = [make(c, s) for s, c in enumerate(fwd_stages)] + [
+            make(c, s) for s, c in enumerate(bwd_stages)]
         for e in self.stage_execs:
             # a backward stage adds into its accumulators in place
             e.donate_idx = tuple(i for i, v in enumerate(e.invars)
@@ -431,11 +750,29 @@ class PipeshardDriverExecutable:
             for v in comp.invars:
                 use_count[v] = use_count.get(v, 0) + 1
         self.apply_execs = [
-            StageExecutable(c, m, self.mesh_devices[m], root, donate=[
-                i for i, v in enumerate(c.invars)
-                if v in donated_global and use_count[v] == 1])
+            make(c, m, [i for i, v in enumerate(c.invars)
+                        if v in donated_global and use_count[v] == 1])
             if c.nodes or c.outvars else None
             for m, c in enumerate(apply_comps)]
+        # stages of several devices: agree on shared values' specs, then
+        # fix each plan and partition it
+        wide = [e for e in self.stage_execs + self.apply_execs
+                if isinstance(e, SpmdStageExecutable)]
+        if wide:
+            post_alias = {post: acc_info[pre][1]
+                          for pre, post in grad_pairs if pre in acc_info}
+            unify_same_mesh_shardings(wide, post_alias)
+            olds = set(state_out.values())
+            state_specs = {v: (sp, tuple(e.logical_mesh.shape))
+                           for e in wide for v, sp in zip(e.invars,
+                                                          e.in_specs)
+                           if v in olds}
+            for e in wide:
+                e.state_specs = state_specs
+                e.compile()
+        # (mesh, logical shape) -> the logical mesh its values live on
+        self._logical_meshes = {(e.mesh_id, tuple(e.logical_mesh.shape)):
+                                e.logical_mesh for e in wide}
         index = {v: i for i, v in enumerate(global_invars)}
         self._written_inputs = sorted(
             index[e.invars[i]] for e in self.apply_execs if e is not None
@@ -460,8 +797,11 @@ class PipeshardDriverExecutable:
         self._moved = 0
         self._keep_ptrs: set = set()
         self.last_dispatch_stats: Dict[str, Any] = {}
-        # CUDA graphs: the first call warms up, the second captures
-        self._use_graphs = all(d.type == "cuda" for d in self.mesh_devices)
+        # CUDA graphs: the first call warms up, the second captures; a mesh
+        # of several devices runs its partitioned program uncaptured, and
+        # so does the rest of its executable (ROADMAP A.3.2)
+        self._use_graphs = (all(d.type == "cuda" for d in self.mesh_devices)
+                            and max(self.mesh_sizes) == 1)
         self._capture = True
         self._warm = False
         self._captured: Optional[_CapturedStep] = None
@@ -519,9 +859,16 @@ class PipeshardDriverExecutable:
                       for pre, post in self.grad_pairs if pre in self.acc_info}
         instructions: List[PipelineInstruction] = []
         location: Dict[Tuple[Any, int], Dict[int, None]] = {}
-        # global input -> meshes it is placed on at launch
+        # (node, instance, mesh) -> the value's sharding on that mesh
+        sharding_at: Dict[Tuple[Any, int, int], MeshSharding] = {}
+        # global input -> meshes it is placed on at launch, and its
+        # sharding on each (a mesh of several devices)
         self.input_place: Dict[fx.Node, List[int]] = {}
+        self.input_sharding: Dict[Tuple[fx.Node, int], MeshSharding] = {}
         self.acc_allocs: List[Tuple[fx.Node, int]] = []
+        self.acc_sharding: Dict[Tuple[fx.Node, int], MeshSharding] = {}
+        self.planned_resharding_bytes = 0.0
+        self.naive_resharding_bytes = 0.0
         first_mb_of: Dict[int, int] = {}
 
         def key_of(v, mb, first_mb):
@@ -533,45 +880,70 @@ class PipeshardDriverExecutable:
                 return (v, mb) if v in batch_var else (v, -1)
             return (v, mb)
 
-        def ensure_on_mesh(key, mesh_id, info):
+        def place(v, mesh_id, sharding):
+            place = self.input_place.setdefault(v, [])
+            if mesh_id not in place:
+                place.append(mesh_id)
+                self.input_sharding[(v, mesh_id)] = sharding
+
+        def reshard_inst(key, src, dst, sharding, info):
+            v = key[0]
+            inst = PipelineInstruction(
+                PipelineInstType.RESHARD, var_key=key, src_mesh=src,
+                dst_mesh=dst, info=info)
+            inst.resharding = self._plan_transfer(
+                v, sharding_at[(v, key[1], src)], src, sharding, dst)
+            instructions.append(inst)
+
+        def ensure_on_mesh(key, mesh_id, sharding, info):
             v = key[0]
             if key not in location:
                 if v not in ginvar_idx:
                     raise ValueError(f"{info} reads {v}, which no earlier "
                                      "instruction produces")
-                place = self.input_place.setdefault(v, [])
-                if mesh_id not in place:
-                    place.append(mesh_id)
-                location[key] = dict.fromkeys(place)
-            if mesh_id in location[key]:
-                return
-            if v in ginvar_idx and v not in batch_var:
-                # a non-batch global input read on several meshes (the
-                # tied embedding) is placed on each of them at launch
-                self.input_place[v].append(mesh_id)
+                place(v, mesh_id, sharding)
+                location[key] = dict.fromkeys(self.input_place[v])
+                for m in self.input_place[v]:
+                    sharding_at[(v, key[1], m)] = \
+                        self.input_sharding[(v, m)]
+            if mesh_id not in location[key]:
+                if v in ginvar_idx and v not in batch_var:
+                    # a non-batch global input read on several meshes (the
+                    # tied embedding) is placed on each of them at launch
+                    place(v, mesh_id, sharding)
+                    location[key][mesh_id] = None
+                    sharding_at[(v, key[1], mesh_id)] = sharding
+                    return
+                reshard_inst(key, next(iter(location[key])), mesh_id,
+                             sharding, info)
                 location[key][mesh_id] = None
+                sharding_at[(v, key[1], mesh_id)] = sharding
                 return
-            instructions.append(PipelineInstruction(
-                PipelineInstType.RESHARD, var_key=key,
-                src_mesh=next(iter(location[key])), dst_mesh=mesh_id,
-                info=info))
-            location[key][mesh_id] = None
+            if not _same_tiles(v, sharding_at[(v, key[1], mesh_id)],
+                               sharding):
+                # on this mesh under another sharding: a relayout
+                reshard_inst(key, mesh_id, mesh_id, sharding,
+                             f"relayout:{info}")
+                sharding_at[(v, key[1], mesh_id)] = sharding
 
-        def emit_run(exec_: StageExecutable, stage_id: int, mb: int,
-                     mesh_id: int):
+        def emit_run(exec_, stage_id: int, mb: int, mesh_id: int):
             first_mb = first_mb_of.setdefault(id(exec_), mb)
             in_keys = []
-            for v in exec_.invars:
+            for pos, v in enumerate(exec_.invars):
                 k = key_of(v, mb, first_mb)
+                sharding = exec_.in_shardings[pos]
                 if v in self.acc_pairs and k == (v, -1):
                     self.acc_allocs.append((v, mesh_id))
+                    self.acc_sharding[(v, mesh_id)] = sharding
                     location[k] = {mesh_id: None}
-                ensure_on_mesh(k, mesh_id, exec_.name)
+                    sharding_at[(v, -1, mesh_id)] = sharding
+                ensure_on_mesh(k, mesh_id, sharding, exec_.name)
                 in_keys.append(k)
             out_keys = [(v, -1) if v in self._summed else (v, mb)
                         for v in exec_.outvars]
-            for k in out_keys:
+            for k, sharding in zip(out_keys, exec_.out_shardings):
                 location[k] = {mesh_id: None}
+                sharding_at[(k[0], k[1], mesh_id)] = sharding
             instructions.append(PipelineInstruction(
                 PipelineInstType.RUN, stage_id=stage_id, micro_batch=mb,
                 input_keys=in_keys, output_keys=out_keys, dst_mesh=mesh_id,
@@ -617,17 +989,46 @@ class PipeshardDriverExecutable:
                 protected.update((v, mb, m) for mb, m in meshes)
         self.instructions = emit_free_instructions(instructions, protected)
 
+    def _plan_transfer(self, v, src_sh: MeshSharding, src: int,
+                       dst_sh: MeshSharding, dst: int):
+        """The planned transfer of ``v`` from ``src_sh`` on mesh ``src`` to
+        ``dst_sh`` on mesh ``dst``: its tile plan (whose bytes the
+        executable sums with the naive plan's) and a callable moving a
+        value."""
+        val = v.meta["val"]
+        shape, itemsize = tuple(val.shape), val.element_size()
+        plan = plan_resharding(shape, itemsize, src_sh, dst_sh)
+        self.planned_resharding_bytes += plan.transfer_bytes
+        self.naive_resharding_bytes += naive_transfer_bytes(shape, itemsize,
+                                                            dst_sh)
+        task = ReshardingTask(plan, self.mesh_device_lists[src],
+                              self.mesh_device_lists[dst])
+        return task, functools.partial(self._distribute, dst, dst_sh,
+                                       shape=shape, dtype=val.dtype)
+
+    def _distribute(self, mesh_id: int, sharding: MeshSharding, shards,
+                    shape, dtype):
+        """A value of mesh ``mesh_id`` from its shards: the tensor itself
+        on a mesh of one device, else a ``DistributedArray``."""
+        if self.mesh_sizes[mesh_id] == 1:
+            return shards[0]
+        return DistributedArray(shards, sharding.spec, self._logical_meshes[
+            (mesh_id, tuple(sharding.mesh_shape))], shape, dtype)
+
     def _shared_input_keys(self) -> Dict[Tuple[Any, int, int],
                                          Tuple[Any, int, int]]:
-        """A non-batch input placed on several meshes of one device is one
-        tensor: map each of its keys to the first, so a write in place
-        waits for every mesh's readers."""
+        """A non-batch input placed on several one-device meshes of one
+        device is one tensor: map each of its keys to the first, so a write
+        in place waits for every mesh's readers (on a mesh of several
+        devices it is placed as shards of its own)."""
         alias = {}
         for v, meshes in self.input_place.items():
             if self.batch_invars[self._input_index[v]]:
                 continue
             first: Dict[torch.device, int] = {}
             for m in meshes:
+                if self.mesh_sizes[m] > 1:
+                    continue
                 f = first.setdefault(self.mesh_devices[m], m)
                 if f != m:
                     alias[(v, -1, m)] = (v, -1, f)
@@ -674,8 +1075,8 @@ class PipeshardDriverExecutable:
                                       "sequential" if warm_up else mode)
             self._warm = True
         self.executed_resharding_bytes = self._moved
-        devices = list(dict.fromkeys(d for d in self.mesh_devices
-                                     if d.type == "cuda"))
+        devices = list(dict.fromkeys(d for devs in self.mesh_device_lists
+                                     for d in devs if d.type == "cuda"))
         if devices:
             self._peak_bytes = max(torch.cuda.max_memory_allocated(d)
                                    for d in devices)
@@ -683,35 +1084,80 @@ class PipeshardDriverExecutable:
 
     def _placements(self, inputs):
         """``(key, value)`` of every input placement: each batch slice and
-        each other input on every mesh that reads it."""
+        each other input on every mesh that reads it, on a mesh of several
+        devices as a ``DistributedArray`` under the sharding its first
+        reader there takes (one the last step returned under it, as it
+        is; a whole block on the tensor's own device, once per step, as
+        the tensor itself, every other block a copy of its own)."""
         n_mb = self.num_micro_batches
+        used: set = set()   # the tensors a mesh's position holds as they are
         for v, meshes in self.input_place.items():
             i = self._input_index[v]
             for m in meshes:
-                x = _to_tensor(inputs[i], self.in_dtypes[i],
-                               self.mesh_devices[m])
+                if self.mesh_sizes[m] > 1:
+                    for key, x in self._place_wide(v, i, m, inputs[i], used):
+                        yield key, x, i
+                    continue
+                x = inputs[i]
+                if isinstance(x, DistributedArray):
+                    x = x.gather(self.mesh_devices[m])
+                x = _to_tensor(x, self.in_dtypes[i], self.mesh_devices[m])
                 if self.batch_invars[i]:
                     for mb, part in enumerate(x.chunk(n_mb)):
                         yield (v, mb, m), part, i
                 else:
                     yield (v, -1, m), x, i
 
+    def _place_wide(self, v, i, m, x, used):
+        sharding = self.input_sharding[(v, m)]
+        mesh = self._logical_meshes[(m, tuple(sharding.mesh_shape))]
+        if not self.batch_invars[i] and isinstance(x, DistributedArray) and \
+                x.spec == sharding.spec and x.dtype == self.in_dtypes[i] and \
+                x.logical_mesh.shape == mesh.shape and \
+                x.logical_mesh.flat_devices() == mesh.flat_devices():
+            yield (v, -1, m), x
+            return
+        first = self.mesh_devices[m]
+        if isinstance(x, DistributedArray):
+            x = x.gather(first)
+        full = _to_tensor(x, self.in_dtypes[i], first)
+        if self.batch_invars[i]:
+            for mb, part in enumerate(full.chunk(self.num_micro_batches)):
+                yield (v, mb, m), DistributedArray.from_full(
+                    part, sharding.spec, mesh)
+        else:
+            yield (v, -1, m), _distribute_full(full, sharding.spec, mesh,
+                                               used)
+    def _zero_accumulator(self, acc, m):
+        val = acc.meta["val"]
+        if self.mesh_sizes[m] == 1:
+            return torch.zeros(val.shape, dtype=val.dtype,
+                               device=self.mesh_devices[m])
+        sharding = self.acc_sharding[(acc, m)]
+        mesh = self._logical_meshes[(m, tuple(sharding.mesh_shape))]
+        shape = local_shape(val, sharding.spec, mesh.shape)
+        return DistributedArray(
+            [torch.zeros(shape, dtype=val.dtype, device=d)
+             for d in mesh.flat_devices()], sharding.spec, mesh,
+            tuple(val.shape), val.dtype)
+
     def _run_eager(self, exec_: StageExecutable, args):
         outs = exec_(args)
         for i in exec_.free_after:
-            _release(args[i], self._keep_ptrs)
+            for t in _tensors(args[i]):
+                _release(t, self._keep_ptrs)
         return outs
 
     def _transfer_eager(self, inst: PipelineInstruction):
-        dst = self.mesh_devices[inst.dst_mesh]
+        task, wrap = inst.resharding
 
-        def transfer(x):
-            y, n = reshard(x, dst)
+        def planned(x):
+            shards, n = task(as_shards(x))
             if n:
                 with self._acct_lock:
                     self._moved += n
-            return y
-        return transfer
+            return wrap(shards)
+        return planned
 
     def _launch_eager(self, flat_args, inputs, mode):
         """The stage graphs run as they are, on the current stream."""
@@ -723,9 +1169,7 @@ class PipeshardDriverExecutable:
         for key, x, _ in self._placements(inputs):
             env[key] = x
         for acc, m in self.acc_allocs:
-            val = acc.meta["val"]
-            env[(acc, -1, m)] = torch.zeros(val.shape, dtype=val.dtype,
-                                            device=self.mesh_devices[m])
+            env[(acc, -1, m)] = self._zero_accumulator(acc, m)
         runs, transfers = self._eager_tables()
         get = self._dispatch(mode, env, runs, transfers, None, graphs=False)
         outs = self._collect_outputs(flat_args, get, copy_out=False)
@@ -746,7 +1190,8 @@ class PipeshardDriverExecutable:
         stats: Dict[str, Any] = {"mode": mode, "graphs": graphs,
                                  "n_instructions": len(self.instructions),
                                  "captures": self.capture_count,
-                                 "recaptures": self.recapture_count}
+                                 "recaptures": self.recapture_count,
+                                 "meshes": self._mesh_modes(graphs)}
         if mode in ("registers", "overlap"):
             prog = self._program(mode, runs, transfers, step)
             regs: List[Any] = [None] * prog.num_slots
@@ -780,6 +1225,15 @@ class PipeshardDriverExecutable:
         stats["per_inst_us"] = loop / max(1, len(self.instructions)) * 1e6
         self.last_dispatch_stats = stats
         return get
+
+    def _mesh_modes(self, graphs: bool) -> List[str]:
+        """How each mesh's stage runs ran: replayed CUDA graphs, the stage
+        graphs uncaptured, or (a mesh of several devices) the partitioned
+        program over its devices, uncaptured; in an executable with such a
+        mesh every mesh runs uncaptured (ROADMAP A.3.2)."""
+        return [f"spmd over {n} devices, uncaptured" if n > 1 else
+                ("cuda graphs" if graphs else "uncaptured")
+                for n in self.mesh_sizes]
 
     def _exec_inst(self, idx, inst, env, runs, transfers):
         if inst.opcode == PipelineInstType.RUN:
@@ -1200,6 +1654,8 @@ class PipeshardDriverExecutable:
             elif kind == "env":
                 (v, i), m = payload
                 x = get((v, i, m))
+                if isinstance(x, DistributedArray) and not x.shape:
+                    x = x.shards[0]
                 if j in feedback:
                     i, buf = feedback[j]
                     if x.data_ptr() != buf.data_ptr():
@@ -1251,21 +1707,24 @@ class PipeshardDriverExecutable:
                 for x in self._captured.static.values()}
 
     def _free_donated(self, flat_args, outs):
-        """Release the storage of donated input tensors that no output and
-        no undonated input shares (the counterpart of JAX deleting a
-        donated buffer)."""
+        """Release the storage of donated input tensors (and shards) that no
+        output and no undonated input shares (the counterpart of JAX
+        deleting a donated buffer)."""
         def ptr(x):
             return x.untyped_storage().data_ptr()
 
-        keep = {ptr(x) for x in outs if isinstance(x, torch.Tensor)}
-        keep.update(ptr(x) for x, d in zip(flat_args, self.donated_invars)
-                    if isinstance(x, torch.Tensor) and not d)
+        keep = {ptr(t) for x in outs for t in _tensors(x)}
+        keep.update(ptr(t) for x, d in zip(flat_args, self.donated_invars)
+                    if not d for t in _tensors(x))
         keep.update(self._owned_ptrs())
         for x, d in zip(flat_args, self.donated_invars):
-            if d and isinstance(x, torch.Tensor) and ptr(x) not in keep:
-                storage = x.untyped_storage()
-                if storage.resizable():
-                    storage.resize_(0)
+            if not d:
+                continue
+            for t in _tensors(x):
+                if ptr(t) not in keep:
+                    storage = t.untyped_storage()
+                    if storage.resizable():
+                        storage.resize_(0)
 
     def __call__(self, *args):
         return self.launch_on_driver(*args)
@@ -1285,6 +1744,39 @@ class PipeshardDriverExecutable:
 
     def get_instruction_streams(self):
         return self._instruction_streams
+
+    def get_collective_counts(self) -> Dict[str, Dict[str, Any]]:
+        """Per collective kind, ``{"count", "bytes", "backend"}`` of one step:
+        the collectives of every RUN of a stage of several devices (its
+        partitioned program's, once per RUN)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for inst in self.instructions:
+            e = inst.executable
+            if inst.opcode != PipelineInstType.RUN or \
+                    not isinstance(e, SpmdStageExecutable):
+                continue
+            for rec in e.program.records:
+                row = out.setdefault(rec.kind, {"count": 0, "bytes": 0,
+                                                "backend": rec.backend})
+                row["count"] += 1
+                row["bytes"] += rec.nbytes
+                if row["backend"] != rec.backend:
+                    row["backend"] = "mixed"
+        return out
+
+    def get_resharding_stats(self) -> Dict[str, Any]:
+        """The step's RESHARDs: cross-mesh and relayouts, and the bytes the
+        tile plans and the naive plans move (``planned_resharding_bytes``,
+        ``naive_resharding_bytes``); the bytes the last launch moved
+        between distinct devices are ``executed_resharding_bytes``."""
+        reshards = [i for i in self.instructions
+                    if i.opcode == PipelineInstType.RESHARD]
+        return {"cross_mesh": sum(i.src_mesh != i.dst_mesh
+                                  for i in reshards),
+                "relayouts": sum(i.src_mesh == i.dst_mesh for i in reshards),
+                "planned_bytes": self.planned_resharding_bytes,
+                "naive_bytes": self.naive_resharding_bytes,
+                "executed_bytes": self.executed_resharding_bytes}
 
     def get_total_allocation_size(self) -> int:
         """``torch.cuda.max_memory_allocated`` after the last launch, the

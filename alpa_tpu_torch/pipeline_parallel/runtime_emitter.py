@@ -53,6 +53,8 @@ class PipelineInstruction:
     info: str = ""
     # RUN: the stage's runnable
     executable: Any = dataclasses.field(default=None, repr=False)
+    # RESHARD: its planned transfer (the tile plan and its executor)
+    resharding: Any = dataclasses.field(default=None, repr=False)
 
     def __repr__(self):
         if self.opcode == PipelineInstType.RUN:

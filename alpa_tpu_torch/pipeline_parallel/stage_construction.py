@@ -2,10 +2,12 @@
 
 Counterpart of ``alpa_tpu/pipeline_parallel/stage_construction.py``:
 ``UniformStageOption``, ``ManualStageOption`` and ``AutoStageOption`` (the
-OSDI'22 stage DP of ``stage_dp.py``, whose optimum must put every stage on
-one device until a stage of several devices can run, ROADMAP A.3.2), submesh
-enumeration and mesh slicing.  The compile cache of the DP's decisions is
-not ported (ROADMAP A.6).
+OSDI'22 stage DP of ``stage_dp.py``), submesh enumeration and mesh
+slicing.  Each stage gets a submesh of one or more devices, a logical
+shape for its intra-op plan (None: the planner searches the shapes) and
+its ``AutoShardingOption`` overrides
+(``submesh_autosharding_option_dicts``).  The compile cache of the DP's
+decisions is not ported (ROADMAP A.6).
 """
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -39,13 +41,14 @@ class ManualStageOption(StageOption):
 class AutoStageOption(StageOption):
     """Search the layer -> stage clustering and the submesh shapes with the
     stage DP.  ``memory_budget_per_device`` (bytes, None: unconstrained) and
-    ``stage_imbalance_tolerance`` are ported.  ``submesh_logical_shape_space``
-    is searched by the intra-op planner, and is kept for the API.  The
-    fields of the communication term and of measured profiling
-    (``use_hlo_cost_model``, ``profiling_mode``,
-    ``profiling_database_filename``, ``measured_candidates_limit``,
-    ``measured_compile_workers``) and ``cached_compute_cost`` raise when set
-    to anything but their defaults (ROADMAP A.3.2, A.6)."""
+    ``stage_imbalance_tolerance`` are ported, and ``use_hlo_cost_model``
+    (False: the ILP on every merged span, as on small search spaces; True:
+    per-layer ILPs summed over larger ones).  ``submesh_logical_shape_space``
+    is searched by the intra-op planner, and is kept for the API.  Measured
+    profiling (``profiling_mode="measured"``, ``measured_candidates_limit``,
+    ``measured_compile_workers``), a profiling database
+    (``profiling_database_filename``) and ``cached_compute_cost`` raise when
+    set to anything but their defaults (ROADMAP A.6)."""
     submesh_physical_shape_space: str = "power_of_two"
     submesh_logical_shape_space: str = "single_node_model_parallel"
     stage_imbalance_tolerance: float = np.inf
@@ -145,20 +148,33 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
                                   layer_comps=None,
                                   num_micro_batches: int = 1,
                                   schedule: str = "1f1b",
-                                  objective: str = "training"):
-    """``(forward_stage_layer_ids, submeshes, stage_dp_info)``; the info is
-    None unless the stage DP ran (``AutoStageOption``, with ``objective``
-    "training" or "inference")."""
+                                  objective: str = "training",
+                                  auto_sharding_option=None):
+    """``(forward_stage_layer_ids, submeshes, logical_shapes, as_dicts,
+    stage_dp_info)``: per stage its layers, its submesh, its logical mesh
+    shape (None: searched by the intra-op planner) and its
+    ``AutoShardingOption`` overrides.  The info is None unless the stage DP
+    ran (``AutoStageOption``, with ``objective`` "training" or "inference";
+    its communication term plans with ``auto_sharding_option``)."""
     stage_option = stage_option or UniformStageOption()
     if isinstance(stage_option, ManualStageOption):
-        return (stage_option.forward_stage_layer_ids,
-                get_sliced_virtual_submeshes(
-                    virtual_mesh, stage_option.submesh_physical_shapes), None)
+        fwd_ids = stage_option.forward_stage_layer_ids
+        logical_shapes = (stage_option.submesh_logical_shapes or
+                          [None] * len(fwd_ids))
+        as_dicts = (stage_option.submesh_autosharding_option_dicts or
+                    [{}] * len(fwd_ids))
+        return (fwd_ids, get_sliced_virtual_submeshes(
+            virtual_mesh, stage_option.submesh_physical_shapes),
+            [tuple(s) if s is not None else None for s in logical_shapes],
+            [dict(d) for d in as_dicts], None)
     if isinstance(stage_option, AutoStageOption):
         from alpa_tpu_torch.pipeline_parallel.stage_dp import auto_stage_dp
-        return auto_stage_dp(num_forward_layers, virtual_mesh, stage_option,
-                             layer_comps, num_micro_batches,
-                             schedule=schedule, objective=objective)
+        fwd_ids, submeshes, info = auto_stage_dp(
+            num_forward_layers, virtual_mesh, stage_option, layer_comps,
+            num_micro_batches, schedule=schedule, objective=objective,
+            auto_sharding_option=auto_sharding_option)
+        return (fwd_ids, submeshes, [None] * len(fwd_ids),
+                [{} for _ in fwd_ids], info)
     num_stages = stage_option.num_stages
     if num_stages is None:
         num_stages = (virtual_mesh.num_hosts if virtual_mesh.num_hosts > 1
@@ -177,4 +193,5 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
                 f"{num_stages} equal pipeline stages; pass a stage_option "
                 "with num_stages dividing the device count")
         shapes = [(1, virtual_mesh.num_devices // num_stages)] * num_stages
-    return fwd_ids, get_sliced_virtual_submeshes(virtual_mesh, shapes), None
+    return (fwd_ids, get_sliced_virtual_submeshes(virtual_mesh, shapes),
+            [None] * num_stages, [{} for _ in range(num_stages)], None)

@@ -1,30 +1,25 @@
 """Auto stage construction: the cost tensor and the OSDI'22 stage DP.
 
 Counterpart of ``alpa_tpu/pipeline_parallel/stage_dp.py``.  The cost
-tensor ``C[i, j, m]`` (layers i..j on submesh choice m) holds the compute
-term of the JAX package's static cost model (``estimate_stage_cost``):
-the layers' forward flops (``node_flops``) x seconds per flop / the
-submesh's devices, at the card's bf16 peak.  The DP minimizing
-``sum(stage costs) + (B - 1) * max(stage cost)`` runs in the port's own
-native copy, ``csrc/stage_dp.cc``, built with ``g++`` at first use
-(``ops/_build.py``); ``_stage_dp_python`` is the same algorithm in Python,
-which the tests hold the native solver to.
+tensor ``C[i, j, m]`` (layers i..j on submesh choice m) holds the JAX
+package's static cost model (``mesh_profiling.estimate_stage_cost``), on
+its uncalibrated path: the layers' forward flops (``node_flops``) x
+``DEFAULT_SEC_PER_FLOP`` / the submesh's devices, plus, on a submesh of
+more than one device, the intra-op ILP's objective x 1e-7 on a logical
+mesh of the submesh's shape (``(n, 1)`` within a host).  On small search
+spaces (``L * L * M <= 256``, or ``use_hlo_cost_model=False``) the ILP
+runs on every merged span; on larger ones once per layer, a span's cost
+the sum of its layers'.  The DP minimizing ``sum(stage costs) + (B - 1) *
+max(stage cost)`` runs in the port's own native copy,
+``csrc/stage_dp.cc``, built with ``g++`` at first use (``ops/_build.py``);
+``_stage_dp_python`` is the same algorithm in Python, which the tests
+hold the native solver to.
 
-The communication term of a stage of more than one device is the intra-op
-ILP's objective; the ILP and the executor of its plans over several
-devices are ported (``shard_parallel/``), but the term waits for pipeline
-stages of more than one device (ROADMAP A.3.2).  Without
-it the port's
-costs equal JAX's on one-device submeshes and are no higher on the others;
-the DP is monotone in the costs, so a partition that is optimal here and
-uses only one-device submeshes is optimal for JAX too.  A partition with a
-stage of more than one device raises ``NotImplementedError`` instead of
-returning a plan JAX would not choose.  The options of the communication
-term, of measured profiling and of the cost-tensor disk cache raise as well
-(ROADMAP A.3.2, A.6).  A forward-only function takes the inference
-objective (JAX's ``objective="inference"``): B -> 4096, so the slowest
-stage dominates, with one microbatch in flight per stage for the memory
-check and no optimizer state in it.
+Measured profiling, a profiling database (the calibration) and the
+cost-tensor disk cache raise (ROADMAP A.6).  A forward-only function takes
+the inference objective (JAX's ``objective="inference"``): B -> 4096, so
+the slowest stage dominates, with one microbatch in flight per stage for
+the memory check and no optimizer state in it.
 """
 import ctypes
 import dataclasses
@@ -34,8 +29,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from alpa_tpu_torch.mesh_profiling import DEFAULT_SEC_PER_FLOP
 from alpa_tpu_torch.ops import _build
-from alpa_tpu_torch.telemetry.perf import GPU_SPECS
 from alpa_tpu_torch.util import node_flops
 
 # Must match csrc/stage_dp.cc kAbiVersion.
@@ -45,9 +40,8 @@ _ABI_VERSION = 2
 _INFLIGHT_MODES = {"1f1b": 0, "pipedream_flush": 0, "gpipe": 1,
                    "1f1b_overlap_friendly": 2, "inference": 3}
 
-# seconds per flop of the cost model: the H100 SXM's dense bf16 peak (the
-# divisor of the port's MFU)
-SEC_PER_FLOP = 1.0 / (GPU_SPECS["h100-sxm"]["peak_bf16_tflops"] * 1e12)
+# seconds per flop of the cost model (uncalibrated, as in the JAX package)
+SEC_PER_FLOP = DEFAULT_SEC_PER_FLOP
 
 _lock = threading.Lock()
 _lib = None
@@ -196,27 +190,26 @@ def layer_flops(layer_comps) -> List[float]:
 
 
 def _check_unported_fields(stage_option):
-    """Raise on an ``AutoStageOption`` field of the communication term, of
-    measured profiling or of the cost cache set to other than its
+    """Raise on an ``AutoStageOption`` field of measured profiling, of the
+    profiling database or of the cost cache set to other than its
     default."""
     defaults = {f.name: f.default for f in dataclasses.fields(stage_option)}
     unported = {
-        "use_hlo_cost_model": "it chooses how the communication term is "
-                              "computed, which needs stages of more than "
-                              "one device (ROADMAP A.3.2)",
         "profiling_database_filename": "a profiling database calibrates the "
-                                       "communication term, which needs "
-                                       "stages of more than one device "
-                                       "(ROADMAP A.3.2)",
+                                       "cost model into measured seconds, "
+                                       "which needs the profiling and "
+                                       "calibration modules (ROADMAP A.6)",
         "profiling_mode": "measured profiling compiles and times candidate "
-                          "stages, which needs intra-op sharding (ROADMAP "
-                          "A.3.2) and the compile cache (ROADMAP A.6)",
+                          "stages, which needs the compile cache and the "
+                          "calibration (ROADMAP A.6)",
         "measured_candidates_limit": "it bounds measured profiling, which "
-                                     "needs intra-op sharding (ROADMAP A.3.2)",
+                                     "needs the compile cache and the "
+                                     "calibration (ROADMAP A.6)",
         "measured_compile_workers": "it bounds measured profiling, which "
-                                    "needs intra-op sharding (ROADMAP A.3.2)",
-        "cached_compute_cost": "the cost-tensor disk cache is not ported "
-                               "yet (ROADMAP A.6)",
+                                    "needs the compile cache and the "
+                                    "calibration (ROADMAP A.6)",
+        "cached_compute_cost": "the cost-tensor disk cache belongs to the "
+                               "compile cache, not ported yet (ROADMAP A.6)",
     }
     for name, why in unported.items():
         value = getattr(stage_option, name)
@@ -225,18 +218,60 @@ def _check_unported_fields(stage_option):
                 f"AutoStageOption({name}={value!r}): {why}")
 
 
+def cost_logical_mesh(shape):
+    """The cost model's logical mesh of a submesh of ``shape`` (hosts,
+    devices per host), as the JAX package builds it: ``(n, 1)`` within a
+    host, beta 0.1 on an axis across hosts and 0.01 on the others."""
+    from alpa_tpu_torch.device_mesh import LogicalDeviceMesh
+    h, d = shape
+    logical = (h * d, 1) if h == 1 else (h, d)
+    return LogicalDeviceMesh(None, np.arange(h * d).reshape(logical),
+                             mesh_beta=(0.1 if h > 1 else 0.01, 0.01))
+
+
+def stage_cost_tensor(layer_comps, choices, stage_option, as_option,
+                      info: Optional[dict] = None) -> np.ndarray:
+    """``C[i, j, m]``: layers i..j on submesh ``choices[m]``
+    (``estimate_stage_cost``, exactly per merged span on small search
+    spaces or with ``use_hlo_cost_model=False``, else as per-layer prefix
+    sums)."""
+    from alpa_tpu_torch.mesh_profiling import estimate_stage_cost
+    L, M = len(layer_comps), len(choices)
+    exact = (not stage_option.use_hlo_cost_model) or L * L * M <= 256
+    costs = np.full((L, L, M), np.inf)
+    for m, shape in enumerate(choices):
+        logical = cost_logical_mesh(shape)
+        if exact:
+            for i in range(L):
+                for j in range(i, L):
+                    costs[i, j, m] = estimate_stage_cost(
+                        layer_comps[i:j + 1], logical, as_option, info=info)
+        else:
+            per_layer = [estimate_stage_cost([c], logical, as_option,
+                                             info=info)
+                         for c in layer_comps]
+            pref = np.concatenate([[0.0], np.cumsum(per_layer)])
+            for i in range(L):
+                for j in range(i, L):
+                    costs[i, j, m] = pref[j + 1] - pref[i]
+    return costs
+
+
 def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
                   num_micro_batches, schedule: str = "1f1b",
-                  objective: str = "training"):
-    """Fill the cost tensor's compute term and run the DP: the auto branch
-    of ``cluster_layers_and_slice_mesh``.  Returns ``(forward stage layer
+                  objective: str = "training", auto_sharding_option=None):
+    """Fill the cost tensor and run the DP: the auto branch of
+    ``cluster_layers_and_slice_mesh``.  Returns ``(forward stage layer
     ids, submeshes, info)``; ``info`` has the partition, the submesh
-    choices, the per-layer flops, the solver and its seconds.
+    choices, the per-layer flops, the cost tensor, the ILP solves behind
+    it and their seconds, the solver and its seconds.
     ``objective="inference"`` solves with B = 4096 and the "inference"
     inflight mode (JAX's ``inference_dp`` objective)."""
     from alpa_tpu_torch.pipeline_parallel.stage_construction import (
         get_sliced_virtual_submeshes, get_submesh_choices)
     from alpa_tpu_torch.mesh_profiling import estimate_stage_memory_split
+    from alpa_tpu_torch.shard_parallel.auto_sharding import \
+        AutoShardingOption
 
     _check_unported_fields(stage_option)
     tic = time.perf_counter()
@@ -247,14 +282,16 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
     L, M = num_layers, len(choices)
     flops = layer_flops(layer_comps)
     mem_budget = float(stage_option.memory_budget_per_device or 0.0)
-    costs = np.full((L, L, M), np.inf)
+    cost_info = {"ilp_solves": 0, "ilp_seconds": 0.0}
+    costs = stage_cost_tensor(layer_comps, choices, stage_option,
+                              auto_sharding_option or AutoShardingOption(),
+                              cost_info)
     mem_param = np.zeros((L, L, M))
     mem_act = np.zeros((L, L, M))
-    for m, n_dev in enumerate(sizes):
-        for i in range(L):
-            for j in range(i, L):
-                costs[i, j, m] = sum(flops[i:j + 1]) * SEC_PER_FLOP / n_dev
-                if mem_budget > 0:
+    if mem_budget > 0:
+        for m, n_dev in enumerate(sizes):
+            for i in range(L):
+                for j in range(i, L):
                     mem_param[i, j, m], mem_act[i, j, m] = \
                         estimate_stage_memory_split(layer_comps[i:j + 1],
                                                     n_dev, objective)
@@ -282,21 +319,13 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
     if part is None:
         raise RuntimeError(
             "auto stage construction found no feasible partition")
-    wide = [(a, b, choices[m]) for a, b, m in part if sizes[m] > 1]
-    if wide:
-        raise NotImplementedError(
-            f"the stage DP's optimum {[(a, b, choices[m]) for a, b, m in part]}"
-            f" puts layers on submeshes of more than one device {wide}: their "
-            "cost lacks the intra-op ILP's communication term and such a "
-            "stage needs intra-op sharding (ROADMAP A.3.2); give the pipeline "
-            "one device per stage with ManualStageOption or "
-            "UniformStageOption")
     fwd_ids = [list(range(a, b)) for a, b, _ in part]
     submeshes = get_sliced_virtual_submeshes(
         virtual_mesh, [list(choices[m]) for _, _, m in part])
     info = {"partition": [(a, b, choices[m]) for a, b, m in part],
             "choices": choices, "layer_flops": flops, "costs": costs,
-            "objective": objective,
+            "objective": objective, "ilp_solves": cost_info["ilp_solves"],
+            "ilp_seconds": cost_info["ilp_seconds"],
             "solver": "native stage_dp.cc", "solve_seconds": solve_seconds,
             "seconds": time.perf_counter() - tic}
     return fwd_ids, submeshes, info

@@ -14,11 +14,11 @@ function's arguments, e.g. ``[0].params['h.0.attn.qkv.weight']`` or
 
 Two fields mean GSPMD constraint emission in the JAX package.  The port
 realises every plan the same way, whatever ``emit_sharding_constraints``
-says: the program's strategy graph is solved again with its inputs
-pinned to their final specs (``solver.solve_pinned``) and every value
-takes the Spec that solve gives it.  With nothing forced that is the
-ILP's own plan (``True``, the default, in JAX); it is also the port's
-stand-in for GSPMD's propagation from the inputs (``False`` in JAX).
+says: the program's strategy graph is built again with its inputs
+pinned to their final specs and every value takes the Spec it decides:
+solved by the ILP for an ILP plan (``solver.solve_pinned``; with nothing
+forced, the ILP's own plan), propagated from the inputs for a
+rule-based one (``solver.propagate_pinned``, GSPMD's part in JAX).
 ``constrain_min_elements`` is accepted at its default, and any other
 value raises: the partitioner constrains small values too, and a size
 below which values are left to propagation is not ported.

@@ -14,9 +14,11 @@ Counterpart of ``alpa_tpu/shard_parallel/compile_executable.py``
 On a one-device mesh every spec is replicated and the ILP has one
 answer, so nothing is traced for the plan.  Over more than one device
 the program that runs (the full-batch trace, or the trace at microbatch
-shapes with accumulation) is solved again with its inputs pinned to the
-final specs (``solver.solve_pinned``) and partitioned
-(``spmd_partition.SpmdProgram``).
+shapes with accumulation) is planned again with its inputs pinned to the
+final specs and partitioned (``spmd_partition.SpmdProgram``): solved by
+the ILP after an ILP plan (``solver.solve_pinned``), and after a
+rule-based plan propagated from the inputs as GSPMD propagates JAX's
+(``solver.propagate_pinned``), the program's interior not re-planned.
 """
 import time
 from typing import Callable, Optional, Sequence
@@ -68,7 +70,8 @@ def compile_shard_executable(fun: Callable,
                                                       trace_flat)
     tic = time.perf_counter()
     batch_flat_idx = [i for i, b in enumerate(batch_invars) if b]
-    plan_info = {"shape": (1, 1), "graph": None, "logical_mesh": None}
+    plan_info = {"shape": (1, 1), "graph": None, "logical_mesh": None,
+                 "rule_based": False}
     device = physical_mesh.devices.flat[0]
     multi = physical_mesh.num_devices > 1
     grad_acc = num_micro_batches is not None and num_micro_batches > 1
@@ -93,7 +96,7 @@ def compile_shard_executable(fun: Callable,
         in_specs = list(plan_rule_based(
             shape, [Aval(tuple(s), d) for s, d in avals], in_paths,
             batch_flat_idx, as_option))
-        plan_info.update(shape=shape,
+        plan_info.update(shape=shape, rule_based=True,
                          logical_mesh=physical_mesh.get_logical_mesh(shape))
     plan_seconds = time.perf_counter() - tic - trace_seconds
 
@@ -155,7 +158,8 @@ def _compile_spmd(fun, physical_mesh, avals, in_paths, donated_invars,
     """Steps 3-4 over more than one device: the program that runs
     (traced at microbatch shapes with accumulation), its pinned solve, its
     partition, and the executable."""
-    from alpa_tpu_torch.shard_parallel.solver import (solve_pinned,
+    from alpa_tpu_torch.shard_parallel.solver import (propagate_pinned,
+                                                      solve_pinned,
                                                       trace_flat)
     from alpa_tpu_torch.shard_parallel.spmd_partition import SpmdProgram
     batch_flat_idx = [i for i, b in enumerate(batch_invars) if b]
@@ -181,9 +185,9 @@ def _compile_spmd(fun, physical_mesh, avals, in_paths, donated_invars,
                 else replicated_spec(len(s))
                 for spec, (s, d) in zip(in_specs, prog_avals)]
     solve_tic = time.perf_counter()
-    graph, choice = solve_pinned(
-        traced, prog_avals, in_paths, batch_flat_idx, logical_mesh,
-        as_option, in_specs)
+    plan = propagate_pinned if plan_info["rule_based"] else solve_pinned
+    graph, choice = plan(traced, prog_avals, in_paths, batch_flat_idx,
+                         logical_mesh, as_option, in_specs)
     plan_seconds += time.perf_counter() - solve_tic
     out_node = next(n for n in traced.graph.nodes if n.op == "output")
     out_avals = []

@@ -6,18 +6,22 @@ traced (``trace_flat``, ``make_fx`` on fake tensors: the counterpart of
 (``ilp.py``) for every candidate logical mesh shape, and the cheapest
 solution's input specs returned, with the forced ZeRO-2/3 specs on top.
 
-``solve_pinned`` is the plan that executes: the strategy graph solved
-again with every input restricted to its final Spec (after the ZeRO
-forcing and the user's manual specs), over the strategies the
+``solve_pinned`` is the plan that executes an ILP plan: the strategy
+graph solved again with every input restricted to its final Spec (after
+the ZeRO forcing and the user's manual specs), over the strategies the
 partitioner executes as they are.  When nothing was forced, its inputs
 take the ILP's specs.  ``spmd_partition.py`` realises it.
 
-A difference by design: the rule-based plans of ``DataParallel``, the
-ZeRO methods and ``get_3d_parallel_method(k, dp, op, 1)`` fix only the
-inputs' specs (``auto_sharding.plan_rule_based``).  The JAX package hands
-them to GSPMD, which propagates them through the program; the port's
-stand-in for that propagation is the pinned solve, the ILP choosing every
-other value's strategy with the inputs fixed.
+The rule-based plans of ``DataParallel``, the ZeRO methods,
+``get_3d_parallel_method`` and a pipeline stage planned without the ILP
+fix only the inputs' specs (``auto_sharding.plan_rule_based``).  The JAX
+package hands them to GSPMD, which propagates them from the inputs and
+re-plans nothing.  ``propagate_pinned`` is that propagation: the same
+pinned graph, each value taking in program order the strategy that
+costs least against the values already decided, so that products follow
+the batch-sharded inputs, gradients are reduced where the update reads
+them (reduce-scattered into sharded ZeRO state) and ZeRO-3 parameters
+are gathered at their use; no ILP runs.
 
 Left out, as their modules are not ported: the compile cache and the
 calibration token of its key (ROADMAP A.6), ``grad_quantize``'s strategies
@@ -204,5 +208,64 @@ def solve_pinned(traced: fx.GraphModule, in_avals: Sequence[Any],
                      "nodes": len(graph.nodes), "edges": len(graph.edges),
                      "solver": info["solver"],
                      "solve_seconds": info["seconds"],
+                     "objective": solution_cost(graph, choice)}]
+    return graph, choice
+
+
+def propagate_strategies(graph) -> List[int]:
+    """A choice per node of ``graph``, GSPMD's way: every node of one
+    strategy keeps it; every other node, in the order the graph was built
+    (the program's order), takes the strategy that reshards least of its
+    operands already decided, then (on ties) communicates least itself,
+    then reshards least against the other values already decided (its
+    consumers, and the side operands of elementwise ops that follow it),
+    then the first."""
+    n = len(graph.nodes)
+    incident: List[List[Tuple[Any, bool]]] = [[] for _ in range(n)]
+    for e in graph.edges:
+        incident[e.dst].append((e, True))
+        incident[e.src].append((e, False))
+    choice: List[Optional[int]] = [0 if len(node.strategies) == 1 else None
+                                   for node in graph.nodes]
+    for node in graph.nodes:
+        if choice[node.idx] is not None:
+            continue
+        k = len(node.strategies)
+        operands, consumers = np.zeros(k), np.zeros(k)
+        own = np.array([st.comm_cost + st.tie_bias
+                        for st in node.strategies])
+        for e, inbound in incident[node.idx]:
+            other = e.src if inbound else e.dst
+            if choice[other] is None:
+                continue
+            if inbound and not e.consistency:
+                operands = operands + e.cost[choice[other], :]
+            elif inbound:
+                consumers = consumers + e.cost[choice[other], :]
+            else:
+                consumers = consumers + e.cost[:, choice[other]]
+        choice[node.idx] = int(np.lexsort((consumers, own, operands))[0])
+    return choice
+
+
+def propagate_pinned(traced: fx.GraphModule, in_avals: Sequence[Any],
+                     in_paths: Sequence[str], batch_flat_idx: Sequence[int],
+                     logical_mesh, option: AutoShardingOption, in_specs):
+    """``(graph, choice)`` of ``traced`` with every input pinned to its
+    spec in ``in_specs`` (the graph ``solve_pinned`` builds, a select
+    following its data as GSPMD propagates it), the other nodes decided
+    by ``propagate_strategies``: GSPMD's propagation of a rule-based plan,
+    with no ILP."""
+    avals = [Aval(tuple(shape), dtype) for shape, dtype in in_avals]
+    tic = time.perf_counter()
+    graph = build_strategy_graph(traced.graph, avals, logical_mesh,
+                                 batch_flat_idx, option, in_paths,
+                                 pins=dict(enumerate(in_specs)),
+                                 realizable=True, propagation=True)
+    choice = propagate_strategies(graph)
+    graph.search = [{"shape": tuple(logical_mesh.shape), "pinned": True,
+                     "nodes": len(graph.nodes), "edges": len(graph.edges),
+                     "solver": "propagation",
+                     "solve_seconds": time.perf_counter() - tic,
                      "objective": solution_cost(graph, choice)}]
     return graph, choice

@@ -183,8 +183,11 @@ class Partitioner:
 
     def __init__(self, gm: fx.GraphModule, graph, choice, logical_mesh,
                  in_specs: Sequence[Spec],
-                 out_specs: Sequence[Optional[Spec]]):
+                 out_specs: Sequence[Optional[Spec]],
+                 natural_outputs: bool = False):
         self.gm = gm
+        self.natural_outputs = natural_outputs
+        self.result_specs: List[Spec] = []
         self.sg = graph
         self.choice = choice
         self.mesh = logical_mesh
@@ -1035,12 +1038,17 @@ class Partitioner:
         for i, v in enumerate(results):
             if not isinstance(v, fx.Node):
                 outs.append(v)
+                self.result_specs.append(())
                 continue
             val = self.gval(v)
-            spec = (self.out_specs[i] if i < len(self.out_specs) and
-                    self.out_specs[i] is not None else
-                    (replicated_spec(val.dim()) if _is_tensor(val) else ()))
             self.current = f"output {i}"
+            if i < len(self.out_specs) and self.out_specs[i] is not None:
+                spec = self.out_specs[i]
+            elif self.natural_outputs and _is_tensor(val):
+                spec = self.complete_spec(v)
+            else:
+                spec = replicated_spec(val.dim()) if _is_tensor(val) else ()
+            self.result_specs.append(tuple(spec))
             outs.append(self.value(v, spec) if _is_tensor(val)
                         else self.env[v][0])
         self.g.output(outs)
@@ -1145,18 +1153,22 @@ def _meta_like(val):
 
 class SpmdProgram:
     """The partitioned program of a traced step: ``parts`` ("compute",
-    "apply"; one "apply" part without a gradient marker) of ``Step``s,
+    "apply"; one "compute" part without a gradient marker) of ``Step``s,
     run over the logical mesh's devices by ``run_part``.  ``records``:
     every collective of one run of the program, in order (the executables'
     ``get_collective_counts()`` sums them per step)."""
 
     def __init__(self, gm: fx.GraphModule, graph, choice, logical_mesh,
-                 in_specs, out_specs, donated: Sequence[bool] = ()):
+                 in_specs, out_specs, donated: Sequence[bool] = (),
+                 natural_outputs: bool = False):
         from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
             alias_donated_inputs
         part = Partitioner(gm, graph, choice, logical_mesh, in_specs,
-                           out_specs)
+                           out_specs, natural_outputs)
         pg = part.run()
+        # each output's Spec (``natural_outputs``: an output given no Spec
+        # keeps the one the program computes it under, complete)
+        self.out_specs = part.result_specs
         self.partitioner_stats = {"gather_views": part.gather_views,
                                   "barriers": dict(part.barriers)}
         self.logical_mesh = logical_mesh

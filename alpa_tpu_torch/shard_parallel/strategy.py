@@ -175,6 +175,9 @@ class Edge:
     src: int
     dst: int
     cost: np.ndarray   # cost[s_src, s_dst]
+    # JAX's consistency edge of an elementwise op's side operand (not an
+    # operand of the node it enters)
+    consistency: bool = False
 
 
 @dataclasses.dataclass
@@ -610,10 +613,13 @@ def follow_dimmap(node: fx.Node, operand: fx.Node) -> Optional[DimMap]:
 SELECT_OPS = _ops("where", "masked_fill")
 
 
-def pick_lead_operand(node: fx.Node) -> Optional[fx.Node]:
+def pick_lead_operand(node: fx.Node, predicate_leads: bool = True
+                      ) -> Optional[fx.Node]:
     """The operand to follow: the largest tensor one (the first of
-    equals); for a select (``SELECT_OPS``) the predicate."""
-    if node.target in SELECT_OPS:
+    equals); for a select (``SELECT_OPS``) the predicate, unless
+    ``predicate_leads`` is off (GSPMD's propagation: a select follows its
+    data, the predicate a constant broadcast to it)."""
+    if node.target in SELECT_OPS and predicate_leads:
         pred = node.args[0] if node.target in _ops("where") else node.args[1]
         if _val(pred) is not None:
             return pred
@@ -694,7 +700,8 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                          logical_mesh, batch_flat_idx: Sequence[int],
                          option, in_paths: Sequence[str] = (),
                          pins: Optional[Dict[int, Spec]] = None,
-                         realizable: bool = False) -> StrategyGraph:
+                         realizable: bool = False,
+                         propagation: bool = False) -> StrategyGraph:
     """The strategy graph of ``graph`` (traced at the shapes of
     ``in_avals``, one placeholder per flat argument) on ``logical_mesh``
     (``alpa_tpu/shard_parallel/strategy.py:853``).  ``pins``: flat input
@@ -704,7 +711,9 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
     a dim that aten merged (``B*S``) only on its outermost part, and the
     flash ops and a ``reduction="none"`` ``nll_loss`` may run on batch
     or row shards, ``split`` and ``cat`` on shards along their unsharded
-    dim (JAX's graph has barriers there)."""
+    dim (JAX's graph has barriers there).  ``propagation``: the graph of
+    a rule-based plan's propagation (``solver.propagate_pinned``), in
+    which a select follows its data rather than its predicate."""
     pins = pins or {}
     from alpa_tpu_torch.shard_parallel.auto_sharding import (
         is_opt_state_path, is_param_path, resolved_zero_stage)
@@ -889,7 +898,7 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                 l_spec, _ = map_spec(st_l.out_spec, l_dm, ndim)
                 C[si, li] = drop_cost + resharding_cost(aval, o_spec, l_spec,
                                                         logical_mesh)
-        edges.append(Edge(o_idx, l_idx, C))
+        edges.append(Edge(o_idx, l_idx, C, consistency=True))
 
     def side_edges(out, lead_val, sides, src_idx, composed,
                    select=False):
@@ -1337,7 +1346,7 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
             continue
 
         if not multi:
-            lead = pick_lead_operand(node)
+            lead = pick_lead_operand(node, not propagation)
             dm = follow_dimmap(node, lead) if lead is not None else None
             src = get_source(lead) if dm is not None else None
             if src is not None:

@@ -441,15 +441,28 @@ def test_donation_frees_and_marks_the_old_state_deleted():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(default_auto_sharding_option=object()), "A.3"),
+    (dict(default_auto_sharding_option=alpa_tpu_torch.AutoShardingOption(
+        zero_stage="2")), "A.3"),
     (dict(stage_input_shardings=[None]), "A.3"),
 ], ids=["auto-sharding", "stage-input-shardings"])
 def test_unported_options_raise_with_their_roadmap_item(kwargs, item):
-    kw = dict(devices=["cpu"] * 2, layer_option=ManualLayerOption(),
+    """Once unported (ROADMAP ``item``), now ported: the option is taken
+    and the step on two stages of two devices equals the serial step (an
+    ``AutoShardingOption`` plans each stage; ``stage_input_shardings`` is
+    accepted and unused, as in the JAX package)."""
+    del item
+    _, t_state, batch = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
+    _, serial, _ = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
+    kw = dict(devices=["cpu"] * 4, layer_option=ManualLayerOption(),
               stage_option=UniformStageOption(2))
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        PipeshardParallel(**kw)
+    method = PipeshardParallel(**kw)
+    t_state, t_losses = _run(alpa_tpu_torch.parallelize(
+        _port_step, method=method), t_state, batch)
+    serial, s_losses = _run(_port_step, serial, _port_batch(batch))
+    np.testing.assert_allclose(t_losses, s_losses, **MLP_TOL)
+    ttesting.assert_allclose(ttesting.gather_tree(t_state.params),
+                             serial.params, **MLP_TOL)
 
 
 def _raises_at_compile(method, step, state, batch, item):
@@ -482,14 +495,23 @@ def test_inference_schedule_and_forward_only_function_raise():
 
 
 def test_multi_device_stage_and_gpt_remat_raise():
-    """A stage mesh of two devices raises citing ROADMAP A.3; GPT's per-block
-    remat inside a pipeshard trace runs, except with the "dots" policy,
-    which raises citing A.5.3."""
+    """A stage mesh of two devices (which raised until intra-op sharding
+    inside a stage was ported) runs, each stage planned by the ILP on its
+    two devices, and equals the serial step; GPT's per-block remat inside
+    a pipeshard trace runs, except with the "dots" policy, which raises
+    citing A.5.3."""
     _, t_state, batch = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
+    _, serial, _ = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
     two_per_stage = PipeshardParallel(
         devices=["cpu"] * 4, layer_option=ManualLayerOption(),
         stage_option=ManualStageOption([[0], [1]], [(1, 2), (1, 2)]))
-    _raises_at_compile(two_per_stage, _port_step, t_state, batch, "A.3")
+    pstep = alpa_tpu_torch.parallelize(_port_step, method=two_per_stage)
+    t_state, t_losses = _run(pstep, t_state, batch)
+    serial, s_losses = _run(_port_step, serial, _port_batch(batch))
+    np.testing.assert_allclose(t_losses, s_losses, **MLP_TOL)
+    ttesting.assert_allclose(ttesting.gather_tree(t_state.params),
+                             serial.params, **MLP_TOL)
+    assert pstep.get_last_executable().mesh_sizes == [2, 2]
 
     cfg = tgm.GPTConfig(remat_blocks=True, remat_policy="dots",
                         pipeline_boundary_every=2, **GPT_SHAPE)

@@ -139,8 +139,10 @@ def test_get_3d_parallel_method_equals_jax():
     equal JAX's method's.  pp=1 degenerates into ``ShardParallel`` on a
     (dp, op) logical mesh, planned by rules, which runs over two devices
     and equals JAX's ``ShardParallel`` with the same option on two virtual
-    devices; a stage of more than one device raises (ROADMAP A.3.2); the
-    degrees must multiply to the device count."""
+    devices; pp=2 with dp=2 puts each stage on a (2, 1) logical mesh of
+    two devices, every stage input replicated as JAX plans a stage without
+    the ILP, and trains as the serial step; the degrees must multiply to
+    the device count."""
     j_state, t_state, batch = _pair()
     j_method = alpa_tpu.get_3d_parallel_method(
         num_micro_batches=2, data_parallel=1, operator_parallel=1,
@@ -173,8 +175,17 @@ def test_get_3d_parallel_method_equals_jax():
     _assert_same_training(alpa_tpu.parallelize(_jax_step, method=j_two),
                           alpa_tpu_torch.parallelize(_port_step, method=two),
                           j_state, t_state, batch)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3\.2"):
-        get_3d_parallel_method(2, 2, 1, 2, devices=["cpu"] * 4)
+    wide = get_3d_parallel_method(2, 2, 1, 2, devices=["cpu"] * 4)
+    assert wide.stage_option.submesh_logical_shapes == [(2, 1), (2, 1)]
+    assert not wide.as_option.enable_auto_sharding
+    _, t_state, batch = _pair()
+    _, serial, _ = _pair()
+    pstep = alpa_tpu_torch.parallelize(_port_step, method=wide)
+    t_state, t_loss = pstep(t_state, batch)
+    serial, s_loss = _port_step(serial, {k: torch.as_tensor(v)
+                                         for k, v in batch.items()})
+    np.testing.assert_allclose(float(t_loss), float(s_loss), rtol=1e-5)
+    assert pstep.get_last_executable().mesh_sizes == [2, 2]
     with pytest.raises(ValueError, match="#devices"):
         get_3d_parallel_method(2, 1, 1, 3, devices=["cpu"] * 2)
 

@@ -4,10 +4,12 @@ The native solver (``alpa_tpu_torch/csrc/stage_dp.cc``, built with g++)
 and the Python one must return the JAX package's partitions, identical, on
 the random cost and memory tensors of
 ``tests/pipeline_parallel/test_stage_dp_validation.py`` in every inflight
-mode.  ``AutoStageOption`` must choose JAX's partition on the fixtures with
-the communication term off on both sides: JAX's cost model pinned to the
-port's one seconds-per-flop constant and its intra-op ILP made to raise
-(which JAX's ``estimate_stage_cost`` takes as a zero communication term).
+mode.  ``AutoStageOption`` must choose JAX's partition on the fixtures: on one
+device with the communication term off on both sides (JAX's cost model
+pinned to the port's seconds-per-flop constant and its intra-op ILP made
+to raise, which JAX's ``estimate_stage_cost`` takes as a zero
+communication term), and on two devices with it on, both cost models on
+their uncalibrated path.
 The layers' product flops in the two cost tensors are equal.  The rest of
 a layer's flops is not compared here: JAX's forward layer also holds the
 linearization's residual ops (relu's mask, the square's derivative), which
@@ -317,11 +319,22 @@ def _port_mlp_step(state, batch):
     return state.apply_gradients(grads=grads), loss
 
 
-def test_multi_device_optimum_raises_roadmap_a3(jax_cost_model_without_comm):
-    """On two devices, JAX's DP (communication term off) puts all layers in
-    one stage on a (1, 2) submesh: no pipelined plan beats it.  The port
-    reaches the same optimum and raises, citing ROADMAP A.3, instead of
-    returning a plan whose stage cost lacks its communication term."""
+def test_multi_device_optimum_raises_roadmap_a3(monkeypatch):
+    """On two devices (where, without a communication term, the port once
+    raised citing ROADMAP A.3 rather than run a stage of two devices):
+    both stage DPs, with the communication term on their uncalibrated path
+    (JAX's calibration set to None), choose the same partition, and the
+    port's step runs it and equals JAX's (rtol 1e-5)."""
+    monkeypatch.setattr(jprof, "get_effective_calibration", lambda: None)
+    monkeypatch.setattr(jprof, "get_global_calibration", lambda: None)
+    seen = {}
+    solve = jdp.stage_dp_solve
+
+    def recording_solve(costs, *args, **kwargs):
+        seen["part"] = solve(costs, *args, **kwargs)
+        return seen["part"]
+
+    monkeypatch.setattr(jdp, "stage_dp_solve", recording_solve)
     j_state, t_state, jb, batch = _mlp_states()
     j_pstep = alpa_tpu.parallelize(_jax_mlp_step,
                                    method=alpa_tpu.PipeshardParallel(
@@ -330,13 +343,7 @@ def test_multi_device_optimum_raises_roadmap_a3(jax_cost_model_without_comm):
                                        layer_option=jlc.AutoLayerOption(
                                            layer_num=2),
                                        stage_option=jstage.AutoStageOption()))
-    # JAX's compile would go on to shard the stage with the ILP, which is
-    # off here: it ends once the DP has solved
-    jax_cost_model_without_comm["stop_after_solve"] = True
-    with pytest.raises(_Solved):
-        j_pstep(j_state, jb)
-    assert _jax_partition(jax_cost_model_without_comm, 2) == \
-        [(0, 2, (1, 2))]
+    _, j_loss = j_pstep(j_state, jb)
     t_pstep = alpa_tpu_torch.parallelize(_port_mlp_step,
                                          method=PipeshardParallel(
                                              devices=["cpu"] * 2,
@@ -344,18 +351,19 @@ def test_multi_device_optimum_raises_roadmap_a3(jax_cost_model_without_comm):
                                              layer_option=AutoLayerOption(
                                                  layer_num=2),
                                              stage_option=AutoStageOption()))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3") as err:
-        t_pstep(t_state, batch)
-    assert "(0, 2, (1, 2))" in str(err.value)
+    _, t_loss = t_pstep(t_state, batch)
+    info = t_pstep.get_last_executable().stage_dp_info
+    assert info["partition"] == _jax_partition(seen, 2)
+    assert info["ilp_solves"] == 3   # the (1, 2) submesh's three spans
+    np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-5)
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("profiling_mode", "measured", "A.3"),
+    ("profiling_mode", "measured", "A.6"),
     ("cached_compute_cost", "costs.npz", "A.6"),
-    ("profiling_database_filename", "db.json", "A.3"),
-    ("use_hlo_cost_model", False, "A.3"),
-    ("measured_candidates_limit", 4, "A.3"),
-    ("measured_compile_workers", 1, "A.3"),
+    ("profiling_database_filename", "db.json", "A.6"),
+    ("measured_candidates_limit", 4, "A.6"),
+    ("measured_compile_workers", 1, "A.6"),
 ])
 def test_unported_auto_stage_fields_raise(field, value, item):
     _, t_state, _, batch = _mlp_states()
@@ -365,6 +373,29 @@ def test_unported_auto_stage_fields_raise(field, value, item):
         layer_option=AutoLayerOption(layer_num=2), stage_option=option))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         step(t_state, batch)
+
+
+def test_use_hlo_cost_model_chooses_exact_or_per_layer_costs():
+    """``use_hlo_cost_model=False`` solves the ILP of every merged span
+    (three on the (1, 2) submesh of 2 layers); on a search space above
+    ``L * L * M = 256`` the default sums per-layer ILPs (one per layer and
+    wide submesh), as the JAX package's ``auto_stage_dp`` does."""
+    _, t_state, _, batch = _mlp_states()
+    step = alpa_tpu_torch.parallelize(_port_mlp_step, method=PipeshardParallel(
+        devices=["cpu"] * 2, num_micro_batches=2,
+        layer_option=AutoLayerOption(layer_num=2),
+        stage_option=AutoStageOption(use_hlo_cost_model=False)))
+    step(t_state, batch)
+    ex = step.get_last_executable()
+    assert ex.stage_dp_info["ilp_solves"] == 3
+    comps = ex.fwd_layer_comps
+    info = {}
+    option = AutoStageOption()
+    costs = tdp.stage_cost_tensor(comps * 6, [(1, 1), (1, 2), (1, 4),
+                                              (1, 8)], option,
+                                  alpa_tpu_torch.AutoShardingOption(), info)
+    assert info["ilp_solves"] == 12 * 3   # L = 12: 12 * 12 * 4 > 256
+    assert np.allclose(costs[0, 11], 6 * costs[0, 1])
 
 
 def test_memory_budget_and_imbalance_tolerance_follow_jax():
