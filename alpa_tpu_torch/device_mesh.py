@@ -24,6 +24,7 @@ tensor per mesh position under a ``Spec`` (Alpa's ``DistributedArray``;
 JAX's ``jax.Array`` holds them as its ``addressable_shards``).  Multi-host
 clusters are not ported.
 """
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -97,6 +98,21 @@ class LogicalDeviceMesh:
             return 0.0
         a, b, tie = self._ab("reduce_scatter", mesh_dim)
         return a + b * (n - 1) / n * num_bytes + tie
+
+    def reduce_scatter_cost_quantized(self, num_bytes: float,
+                                      mesh_dim: int,
+                                      itemsize: int = 4) -> float:
+        """The reduce-scatter of a gradient through the blockwise codec
+        (``pipeline_parallel.reshard_codec``): one byte per element and
+        one fp32 scale per 256 elements on the wire, and the encode and
+        decode charged as two more latencies."""
+        n = self.shape[mesh_dim]
+        if n == 1:
+            return 0.0
+        a, b, tie = self._ab("reduce_scatter", mesh_dim)
+        elems = max(0.0, float(num_bytes)) / max(1, int(itemsize))
+        qb = elems + 4.0 * (math.ceil(elems / 256) if elems else 0)
+        return 3 * a + b * (n - 1) / n * qb + tie
 
     def all_to_all_cost(self, num_bytes: float, mesh_dim: int) -> float:
         n = self.shape[mesh_dim]

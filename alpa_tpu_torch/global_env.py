@@ -20,6 +20,29 @@ environment variables and defaults:
   shape (600) when ``AutoShardingOption.solver_timeout`` is not given.
 * ``zero_stage``: the default of ``AutoShardingOption.zero_stage``
   ("auto", "0", "2" or "3").
+* ``resharding_execution``: how a cross-mesh RESHARD runs: "device_put"
+  (each destination shard assembled from its pieces, through the edge's
+  strategy or codec) or "planned" (the tile plan as it is, with its
+  intra-mesh leg: ``ReshardingTask``'s "tiled" mode, or "broadcast" where
+  ``resharding_mode`` is "broadcast"; no strategy, no codec).
+* ``resharding_mode``: "send_recv" or "broadcast".
+* ``resharding_loadbalance_mode``: "normal" balances source selection,
+  broadcast routing and the send order; "no_loadbalance" takes the first
+  holder and plan order.
+* ``reshard_strategy``: "auto" (per edge by the cost model) or one of
+  ``RESHARD_STRATEGIES``, forced where eligible.
+* ``reshard_quantize``: "off", "int8" or "fp8": the activation codec on
+  cross-mesh fp32/bf16 edges of at least ``reshard_quantize_min_bytes``
+  (65536), never on weights.
+* ``grad_quantize``: "off", "int8" or "fp8": the ILP may route a ZeRO
+  gradient's reduce-scatter through the gradient codec, and gradient
+  accumulation compresses each microbatch's eligible gradient (at least
+  ``grad_quantize_min_bytes``) with error feedback
+  (``grad_error_feedback``, on).
+* ``resharding_transfer_latency_s``, ``resharding_wire_model`` ("call" or
+  "link") and ``resharding_wire_bandwidth`` (bytes/s, 0 = off): the wire
+  model the strategy cost reads.  JAX also idles for it to emulate a
+  link; the port runs on real links and only prices with it.
 
 The dispatch mode is the JAX driver's "auto" choice: overlap where it is
 eligible, else register-file replay.  ``_pipeline_dispatch_mode`` is a
@@ -56,6 +79,31 @@ class GlobalConfig:
         self.ilp_time_limit = int(os.environ.get("ALPA_TPU_ILP_TIME_LIMIT",
                                                  "600"))
         self.zero_stage = os.environ.get("ALPA_TPU_ZERO_STAGE", "auto")
+        # cross-mesh resharding
+        self.resharding_mode = os.environ.get("ALPA_TPU_RESHARDING_MODE",
+                                              "send_recv")
+        self.resharding_execution = os.environ.get(
+            "ALPA_TPU_RESHARDING_EXEC", "device_put")
+        self.resharding_loadbalance_mode = os.environ.get(
+            "ALPA_TPU_RESHARDING_LOADBALANCE", "normal")
+        self.resharding_transfer_latency_s = float(os.environ.get(
+            "ALPA_TPU_TRANSFER_LATENCY", "0"))
+        self.resharding_wire_model = os.environ.get("ALPA_TPU_WIRE_MODEL",
+                                                    "call")
+        self.resharding_wire_bandwidth = float(os.environ.get(
+            "ALPA_TPU_WIRE_BANDWIDTH", "0"))
+        self.reshard_strategy = os.environ.get("ALPA_TPU_RESHARD_STRATEGY",
+                                               "auto")
+        self.reshard_quantize = os.environ.get("ALPA_TPU_RESHARD_QUANTIZE",
+                                               "off")
+        self.reshard_quantize_min_bytes = int(os.environ.get(
+            "ALPA_TPU_RESHARD_QUANTIZE_MIN_BYTES", "65536"))
+        # quantized gradient collectives
+        self.grad_quantize = os.environ.get("ALPA_TPU_GRAD_QUANTIZE", "off")
+        self.grad_quantize_min_bytes = int(os.environ.get(
+            "ALPA_TPU_GRAD_QUANTIZE_MIN_BYTES", "65536"))
+        self.grad_error_feedback = os.environ.get(
+            "ALPA_TPU_GRAD_ERROR_FEEDBACK", "on") != "off"
 
 
 global_config = GlobalConfig()

@@ -28,6 +28,9 @@ import numpy as np
 import torch
 
 from alpa_tpu_torch.device_mesh import DistributedArray, PhysicalDeviceMesh
+from alpa_tpu_torch.shard_parallel.grad_acc import (compress_spmd,
+                                                    new_grad_codec,
+                                                    quantized_accumulators)
 
 _exec_uuids = itertools.count(1)
 
@@ -291,11 +294,15 @@ class GradAccMeshExecutable(MeshExecutable, _SpmdExecution):
         self.spmd = spmd
         if spmd is not None:
             self._setup_spmd(spmd, avals, donated_invars, out_specs)
+            self._quantized = quantized_accumulators([
+                n.meta.get("val") if n is not None else None
+                for n in spmd.pres])
             return
         self.device = physical_mesh.flat_devices[0]
         self.dtypes = [dtype for _, dtype in avals]
         self.donated_invars = list(donated_invars)
         self.program = program
+        self._quantized = quantized_accumulators(program.acc_vals)
         index = {v: i for i, v in enumerate(program.placeholders)}
         n_acc = len(program.acc_vals)
         compute = program.compute
@@ -341,11 +348,19 @@ class GradAccMeshExecutable(MeshExecutable, _SpmdExecution):
         n = self.num_micro_batches
         slices = {i: x.chunk(n) for i, x in enumerate(inputs)
                   if self.batch_invars[i]}
+        # a quantized accumulator's microbatch gradient is added into a
+        # zeroed buffer of its own, then compressed into the accumulator
+        codec = new_grad_codec(self._quantized, self.device)
+        fresh = {j: torch.empty_like(self._accs[j]) for j in self._quantized}
         for mb in range(n):
+            for buf in fresh.values():
+                buf.zero_()
             self.compute_exec([
-                self._accs[i] if kind == "acc" else
+                fresh.get(i, self._accs[i]) if kind == "acc" else
                 (slices[i][mb] if i in slices else inputs[i])
                 for kind, i in self._compute_in])
+            for j, buf in fresh.items():
+                self._accs[j].add_(codec.compress((0, j), buf))
         outs = self.apply_exec([self._accs[i] if kind == "acc" else inputs[i]
                                 for kind, i in self._apply_in])
         flat_out = [outs[i] if kind == "apply" else
@@ -365,13 +380,18 @@ class GradAccMeshExecutable(MeshExecutable, _SpmdExecution):
                    for i, x in enumerate(vals)] for vals in per_pos_in]
         if self._accs is None:
             self._accs = [[None] * len(program.pres) for _ in self.devices]
+        codecs = [new_grad_codec(self._quantized, d) for d in self.devices]
         stores = None
         for mb in range(n):
             stores = program.initial_store([
                 [c[mb] if c is not None else x for x, c in zip(vals, cs)]
                 for vals, cs in zip(per_pos_in, chunks)])
             program.run_part("compute", stores)
-            for p, vals in enumerate(program.pre_values(stores)):
+            pre = program.pre_values(stores)
+            if self._quantized:
+                pre = compress_spmd(pre, self._quantized, codecs,
+                                    program.pre_layouts, self.logical_mesh)
+            for p, vals in enumerate(pre):
                 accs = self._accs[p]
                 for j, v in enumerate(vals):
                     if v is None:

@@ -17,6 +17,7 @@ from alpa_tpu_torch.pipeline_parallel.computation import (PipelineComputation,
                                                           is_marker_output,
                                                           marker_outputs)
 from alpa_tpu_torch.pipeline_parallel.primitive_def import is_marker
+from alpa_tpu_torch.shard_parallel.strategy import ACCUMULATES
 
 aten = torch.ops.aten
 
@@ -62,6 +63,7 @@ def compute_grad_to_accumulate_grad(
                 acc = graph.create_node("placeholder", f"acc_{g.name}")
                 summed = graph.call_function(aten.add_.Tensor, (acc, g))
             acc.meta["val"] = summed.meta["val"] = g.meta.get("val")
+            summed.meta[ACCUMULATES] = True
             comp.nodes.append(summed)
             comp.invars.append(acc)
             read = any(g in c.invars for c in computations if c is not comp)

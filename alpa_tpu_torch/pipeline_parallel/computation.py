@@ -23,6 +23,8 @@ from alpa_tpu_torch.pipeline_parallel.primitive_def import (is_boundary,
                                                             is_marker,
                                                             marker_name)
 
+aten = torch.ops.aten
+
 
 @dataclasses.dataclass
 class PipelineComputation:
@@ -142,15 +144,77 @@ def slice_graph_by_full_pipeline_marks(nodes: Sequence[fx.Node]
     return computations
 
 
+#: ops that only view their first operand: a saved tensor made by a chain
+#: of them from a computation's input is remade where it is read
+_VIEW_OPS = frozenset({
+    aten.t.default, aten.transpose.int, aten.permute.default,
+    aten.view.default, aten._unsafe_view.default, aten.reshape.default,
+    aten.unsqueeze.default, aten.squeeze.dim, aten.expand.default,
+    aten.alias.default})
+
+
+def _view_chain(v: fx.Node, comp: PipelineComputation):
+    """``(chain, root)`` when ``v`` is made from ``root``, a global input
+    or an input of ``comp`` (the computation that made ``v``), by view ops
+    only (``chain`` in program order); else None."""
+    chain = []
+    while v.op == "call_function" and v.target in _VIEW_OPS and \
+            len(v.all_input_nodes) == 1:
+        chain.append(v)
+        v = v.args[0]
+    if chain and (v.op == "placeholder" or v in comp.invars):
+        return chain[::-1], v
+    return None
+
+
+def _remake_views(graph: fx.Graph, comp: PipelineComputation,
+                  defined_by: Dict[fx.Node, int],
+                  computations: List[PipelineComputation]):
+    """Where ``comp`` reads a view another computation made of its input
+    (autograd saves ``t(W)`` of a forward layer's weight ``W``), read the
+    input and remake the view in ``comp``, as JAX's backward reads the
+    weight itself: the view's spec is then the weight's."""
+    remade: Dict[fx.Node, fx.Node] = {}
+    known = set(comp.nodes)
+    for node in list(comp.nodes):
+        for v in list(node.all_input_nodes):
+            src = defined_by.get(v)
+            if v in known or src is None or src == defined_by.get(node):
+                continue
+            if v not in remade:
+                found = _view_chain(v, computations[src])
+                if found is None:
+                    continue
+                chain, cur = found
+                copies = []
+                with graph.inserting_before(comp.nodes[0]):
+                    for n in chain:
+                        cur = graph.node_copy(
+                            n, lambda a, c=cur, o=n.args[0]: c if a is o
+                            else a)
+                        copies.append(cur)
+                comp.nodes[:0] = copies
+                for c in copies:
+                    defined_by[c] = defined_by[node]
+                remade[v] = cur
+            node.replace_input_with(v, remade[v])
+
+
 def mark_missing_vars_in_backward_computation_pipeline_marks(
         computations: List[PipelineComputation]
 ) -> List[PipelineComputation]:
     """A backward computation reads forward values that never passed a
     marker (autograd's saved tensors) and global inputs: add them to its
-    invars.  Every invar another computation makes (those, and glue that
-    joined an earlier computation) is exported from there."""
+    invars; a saved view of another computation's input is remade from
+    that input (``_remake_views``).  Every invar another computation makes
+    (those, and glue that joined an earlier computation) is exported from
+    there."""
     defined_by = {n: ci for ci, comp in enumerate(computations)
                   for n in comp.nodes}
+    for comp in computations:
+        if comp.nodes:
+            _remake_views(comp.nodes[0].graph, comp, defined_by,
+                          computations)
     for ci, comp in enumerate(computations):
         known = set(comp.invars) | set(comp.nodes)
         for node in comp.nodes:

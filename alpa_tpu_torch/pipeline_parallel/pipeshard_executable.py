@@ -74,7 +74,8 @@ from alpa_tpu_torch.ops import flash_attention as _flash
 from alpa_tpu_torch.pipeline_parallel.computation import PipelineComputation
 from alpa_tpu_torch.pipeline_parallel.cross_mesh_resharding import (
     MeshSharding, ReshardingTask, VirtualDistributedArray, as_shards,
-    naive_transfer_bytes, plan_resharding)
+    make_transfer, naive_transfer_bytes, plan_resharding)
+from alpa_tpu_torch.pipeline_parallel.reshard_codec import QuantizedTransfer
 from alpa_tpu_torch.shard_parallel.sharding_spec import (local_shape,
                                                          local_slices,
                                                          replicated_spec)
@@ -795,13 +796,20 @@ class PipeshardDriverExecutable:
         self._race_checker = None
         self._acct_lock = threading.Lock()
         self._moved = 0
+        self.executed_cross_mesh_bytes = 0.0
+        self.executed_intra_mesh_bytes = 0.0
         self._keep_ptrs: set = set()
         self.last_dispatch_stats: Dict[str, Any] = {}
         # CUDA graphs: the first call warms up, the second captures; a mesh
         # of several devices runs its partitioned program uncaptured, and
-        # so does the rest of its executable (ROADMAP A.3.2)
+        # so does the rest of its executable (ROADMAP A.3.2), as does a
+        # step whose RESHARDs run the activation codec
         self._use_graphs = (all(d.type == "cuda" for d in self.mesh_devices)
-                            and max(self.mesh_sizes) == 1)
+                            and max(self.mesh_sizes) == 1 and not any(
+                                isinstance(i.resharding[0],
+                                           QuantizedTransfer)
+                                for i in self.instructions
+                                if i.opcode == PipelineInstType.RESHARD))
         self._capture = True
         self._warm = False
         self._captured: Optional[_CapturedStep] = None
@@ -869,6 +877,7 @@ class PipeshardDriverExecutable:
         self.acc_sharding: Dict[Tuple[fx.Node, int], MeshSharding] = {}
         self.planned_resharding_bytes = 0.0
         self.naive_resharding_bytes = 0.0
+        self.naive_cross_mesh_bytes = 0.0
         first_mb_of: Dict[int, int] = {}
 
         def key_of(v, mb, first_mb):
@@ -892,7 +901,8 @@ class PipeshardDriverExecutable:
                 PipelineInstType.RESHARD, var_key=key, src_mesh=src,
                 dst_mesh=dst, info=info)
             inst.resharding = self._plan_transfer(
-                v, sharding_at[(v, key[1], src)], src, sharding, dst)
+                v, sharding_at[(v, key[1], src)], src, sharding, dst,
+                weight=key[1] < 0)
             instructions.append(inst)
 
         def ensure_on_mesh(key, mesh_id, sharding, info):
@@ -990,21 +1000,47 @@ class PipeshardDriverExecutable:
         self.instructions = emit_free_instructions(instructions, protected)
 
     def _plan_transfer(self, v, src_sh: MeshSharding, src: int,
-                       dst_sh: MeshSharding, dst: int):
-        """The planned transfer of ``v`` from ``src_sh`` on mesh ``src`` to
-        ``dst_sh`` on mesh ``dst``: its tile plan (whose bytes the
-        executable sums with the naive plan's) and a callable moving a
-        value."""
+                       dst_sh: MeshSharding, dst: int, weight: bool):
+        """The transfer of ``v`` from ``src_sh`` on mesh ``src`` to
+        ``dst_sh`` on mesh ``dst``: its tile plan, the one that runs (whose
+        bytes the executable sums with the naive plan's), lowered as JAX's
+        emitter lowers a RESHARD (``runtime_emitter.py:1330``): under
+        ``resharding_execution="planned"`` a cross-mesh edge is planned
+        with the all-gather rewrite and runs its plan as it is
+        (``ReshardingTask`` in "tiled" or, with
+        ``resharding_mode="broadcast"``, "broadcast" mode); else it is
+        planned without and ``make_transfer`` picks the direct, collective
+        or quantized executor (never quantized for a ``weight``, a value
+        every microbatch shares); and a callable wrapping the shards."""
+        execution = global_config.resharding_execution
+        if execution not in ("device_put", "planned"):
+            raise ValueError("global_config.resharding_execution must be "
+                             f"'device_put' or 'planned', got {execution!r}")
+        planned = execution == "planned" and src != dst
         val = v.meta["val"]
         shape, itemsize = tuple(val.shape), val.element_size()
-        plan = plan_resharding(shape, itemsize, src_sh, dst_sh)
+        dst_mesh = self._logical_meshes.get((dst, tuple(dst_sh.mesh_shape)))
+        plan = plan_resharding(shape, itemsize, src_sh, dst_sh,
+                               allow_allgather_rewrite=planned,
+                               logical_mesh=dst_mesh)
+        naive = naive_transfer_bytes(shape, itemsize, dst_sh)
         self.planned_resharding_bytes += plan.transfer_bytes
-        self.naive_resharding_bytes += naive_transfer_bytes(shape, itemsize,
-                                                            dst_sh)
-        task = ReshardingTask(plan, self.mesh_device_lists[src],
+        self.naive_resharding_bytes += naive
+        if src != dst:
+            self.naive_cross_mesh_bytes += naive
+        src_devs, dst_devs = (self.mesh_device_lists[src],
                               self.mesh_device_lists[dst])
-        return task, functools.partial(self._distribute, dst, dst_sh,
-                                       shape=shape, dtype=val.dtype)
+        if planned:
+            mode = ("broadcast" if global_config.resharding_mode ==
+                    "broadcast" else "tiled")
+            transfer = ReshardingTask(plan, src_devs, dst_devs, mode)
+        else:
+            transfer = make_transfer(plan, src_sh, dst_sh, src_devs,
+                                     dst_devs, val.dtype, cross=src != dst,
+                                     weight=weight,
+                                     dst_logical_mesh=dst_mesh)
+        return transfer, functools.partial(self._distribute, dst, dst_sh,
+                                           shape=shape, dtype=val.dtype)
 
     def _distribute(self, mesh_id: int, sharding: MeshSharding, shards,
                     shape, dtype):
@@ -1064,6 +1100,8 @@ class PipeshardDriverExecutable:
         mode = self._dispatch_mode()
         inputs = self._unshare_written_inputs(flat_args)
         self._moved = 0
+        self.executed_cross_mesh_bytes = 0.0
+        self.executed_intra_mesh_bytes = 0.0
         if self._use_graphs and self._capture and self._warm:
             outs = self._launch_graphs(flat_args, inputs, mode)
         else:
@@ -1151,11 +1189,18 @@ class PipeshardDriverExecutable:
     def _transfer_eager(self, inst: PipelineInstruction):
         task, wrap = inst.resharding
 
+        cross = inst.src_mesh != inst.dst_mesh
+
         def planned(x):
             shards, n = task(as_shards(x))
-            if n:
-                with self._acct_lock:
-                    self._moved += n
+            rep = task.last_report
+            with self._acct_lock:
+                self._moved += n
+                # a relayout moves its pieces inside its mesh
+                self.executed_cross_mesh_bytes += \
+                    rep.cross_mesh_bytes if cross else 0.0
+                self.executed_intra_mesh_bytes += rep.intra_mesh_bytes + (
+                    0.0 if cross else rep.cross_mesh_bytes)
             return wrap(shards)
         return planned
 
@@ -1768,15 +1813,31 @@ class PipeshardDriverExecutable:
         """The step's RESHARDs: cross-mesh and relayouts, and the bytes the
         tile plans and the naive plans move (``planned_resharding_bytes``,
         ``naive_resharding_bytes``); the bytes the last launch moved
-        between distinct devices are ``executed_resharding_bytes``."""
+        between distinct devices are ``executed_resharding_bytes``, and
+        the ``ExecutionReport``s of its uncaptured transfers sum to
+        ``executed_cross_mesh_bytes`` (cross-mesh edges) and
+        ``executed_intra_mesh_bytes`` (their intra-mesh legs and the
+        relayouts), beside ``naive_cross_mesh_bytes``, the naive plans of
+        the cross-mesh edges.
+        ``strategies``: the RESHARDs per executor ("direct_p2p", a
+        collective strategy, "quantized_int8", "tiled", ...)."""
         reshards = [i for i in self.instructions
                     if i.opcode == PipelineInstType.RESHARD]
+        kinds: Dict[str, int] = {}
+        for i in reshards:
+            t = i.resharding[0]
+            kind = getattr(t, "strategy", None) or t.mode
+            kinds[kind] = kinds.get(kind, 0) + 1
         return {"cross_mesh": sum(i.src_mesh != i.dst_mesh
                                   for i in reshards),
                 "relayouts": sum(i.src_mesh == i.dst_mesh for i in reshards),
                 "planned_bytes": self.planned_resharding_bytes,
                 "naive_bytes": self.naive_resharding_bytes,
-                "executed_bytes": self.executed_resharding_bytes}
+                "executed_bytes": self.executed_resharding_bytes,
+                "naive_cross_mesh_bytes": self.naive_cross_mesh_bytes,
+                "cross_mesh_bytes": self.executed_cross_mesh_bytes,
+                "intra_mesh_bytes": self.executed_intra_mesh_bytes,
+                "strategies": kinds}
 
     def get_total_allocation_size(self) -> int:
         """``torch.cuda.max_memory_allocated`` after the last launch, the

@@ -6,8 +6,9 @@ collective takes the list of the group's local tensors and returns the
 list of results, one per device:
 
 * ``all_reduce`` (sum, max or min), ``all_gather`` and ``reduce_scatter``
-  along a tensor dim, and ``all_to_all`` (split one dim, concatenate
-  another).
+  along a tensor dim, ``all_to_all`` (split one dim, concatenate
+  another), and ``broadcast`` of one device's tensor (cross-mesh
+  resharding's fan-out inside a destination mesh).
 * Where a group's devices are distinct CUDA cards the collective is
   NCCL's, through ``torch.cuda.nccl`` (one call over the group's
   tensors); ``all_to_all`` is an all-gather followed by each device's
@@ -15,19 +16,26 @@ list of results, one per device:
   (NCCL refuses a duplicated GPU), it is plain tensor ops: a sum or a
   ``cat`` over the list.  The choice follows from the devices
   (``backend_of``) and stands in each collective's record; it is not a
-  fallback, and an NCCL call that fails raises.
+  fallback, and an NCCL call that fails raises.  NCCL calls are
+  serialised by a process-wide lock (``_NCCL_LOCK``).
 
 Each result is a tensor of its own on its operand's device, never a view
 of another device's, so that a device's later in-place writes touch only
 its own values.
 """
 import dataclasses
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 # ncclRedOp_t
 _NCCL_OPS = {"sum": 0, "max": 2, "min": 3}
+#: one NCCL collective at a time in the process: a call launches on every
+#: device of its group, and two threads calling at once over the same
+#: cards (threaded dispatch with two stage meshes on one pair of cards)
+#: would interleave their launches differently on each card and hang
+_NCCL_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -73,7 +81,8 @@ def all_reduce(xs: Sequence[torch.Tensor], devices, op: str = "sum"
         import torch.cuda.nccl as nccl
         ins = [x.contiguous() for x in xs]
         outs = [torch.empty_like(x) for x in ins]
-        nccl.all_reduce(ins, outs, op=_NCCL_OPS[op])
+        with _NCCL_LOCK:
+            nccl.all_reduce(ins, outs, op=_NCCL_OPS[op])
         return outs
     total = _plain_reduce(xs, op)
     return [total] + [total.to(x.device, copy=True) for x in xs[1:]]
@@ -102,7 +111,8 @@ def all_gather(xs: Sequence[torch.Tensor], devices, dim: int
         ins = [_moved(x, dim) for x in xs]
         outs = [x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
                 for x in ins]
-        nccl.all_gather(ins, outs)
+        with _NCCL_LOCK:
+            nccl.all_gather(ins, outs)
         return [o.movedim(0, dim) for o in outs]
     home = xs[0].device
     full = torch.cat([x.to(home) for x in xs], dim)
@@ -117,11 +127,27 @@ def reduce_scatter(xs: Sequence[torch.Tensor], devices, dim: int,
         ins = [_moved(x, dim) for x in xs]
         outs = [x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
                 for x in ins]
-        nccl.reduce_scatter(ins, outs, op=_NCCL_OPS[op])
+        with _NCCL_LOCK:
+            nccl.reduce_scatter(ins, outs, op=_NCCL_OPS[op])
         return [o.movedim(0, dim) for o in outs]
     total = _plain_reduce(xs, op)
     return [c.to(x.device, copy=True).contiguous()
             for c, x in zip(total.chunk(n, dim), xs)]
+
+
+def broadcast(x: torch.Tensor, root: int, devices) -> List[torch.Tensor]:
+    """``x`` (on ``devices[root]``) on every device of the group: the
+    root's result is ``x`` itself, every other a tensor of its own."""
+    if backend_of(devices) == "nccl" and len(devices) > 1:
+        import torch.cuda.nccl as nccl
+        x = x.contiguous()
+        bufs = [x if i == root else torch.empty_like(x, device=d)
+                for i, d in enumerate(devices)]
+        with _NCCL_LOCK:
+            nccl.broadcast(bufs, root=root)
+        return bufs
+    return [x if i == root else x.to(d, copy=True)
+            for i, d in enumerate(devices)]
 
 
 def all_to_all(xs: Sequence[torch.Tensor], devices, split_dim: int,

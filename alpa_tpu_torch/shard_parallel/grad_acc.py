@@ -14,9 +14,19 @@ runs it (``mesh_executable.GradAccMeshExecutable``).  Over more than one
 device the step traced at microbatch shapes (``trace_for_grad_accumulation``)
 is partitioned whole (``spmd_partition.py``), and the executable keeps
 each device's partial gradients in its accumulators until one reduction
-before apply-grad.  The quantized
-gradient sync of the JAX package (``grad_quantize``) is not ported
-(ROADMAP A.5.7).
+before apply-grad.
+
+Quantized gradient sync (``global_config.grad_quantize``, JAX's
+``grad_acc.py:150-215``): each microbatch's contribution to an eligible
+accumulator (``quantized_accumulators``: fp32 or bf16, at least
+``grad_quantize_min_bytes``) goes through the gradient codec before it is
+added, with stochastic rounding and an error-feedback residual carried
+from microbatch to microbatch within the step (``new_grad_codec``: the
+uniforms from a generator seeded 0 each step, as JAX splits
+``PRNGKey(0)``).  Over N devices the codec takes the microbatch's whole
+gradient, as JAX's does: partial sums are reduced first and the sum is
+kept by the first device of each reduction group only
+(``compress_spmd``).  At "off" nothing changes.
 """
 import dataclasses
 from typing import Any, Callable, Dict, List, Sequence, Tuple
@@ -177,3 +187,57 @@ def rewrite_for_grad_accumulation(fun: Callable, in_avals: Sequence[Tuple],
         root=gm, placeholders=placeholders, compute=compute, apply=apply,
         acc_vals=[g.meta["val"] for g in pres], post_acc=post_acc,
         outputs=outputs)
+
+
+def quantized_accumulators(acc_vals: Sequence[torch.Tensor]
+                           ) -> Dict[int, str]:
+    """Accumulator index -> the gradient codec's mode, of each marked
+    value the codec takes under ``global_config.grad_quantize`` (JAX's
+    ``q_set``); empty at "off"."""
+    from alpa_tpu_torch.global_env import global_config
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import grad_eligible
+    mode = global_config.grad_quantize
+    if mode == "off":
+        return {}
+    return {j: mode for j, v in enumerate(acc_vals)
+            if v is not None and grad_eligible(tuple(v.shape), v.dtype, mode)}
+
+
+def new_grad_codec(quantized: Dict[int, str], device: torch.device):
+    """The codec state of one step (a generator seeded 0, no residuals),
+    or None without quantized accumulators."""
+    if not quantized:
+        return None
+    from alpa_tpu_torch.global_env import global_config
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import GradCodecState
+    generator = torch.Generator(device=device)
+    generator.manual_seed(0)
+    return GradCodecState(next(iter(quantized.values())), generator,
+                          global_config.grad_error_feedback)
+
+
+def compress_spmd(pre: List[List[Any]], quantized: Dict[int, str], codecs,
+                  layouts, logical_mesh) -> List[List[Any]]:
+    """One microbatch's marked values per device (``pre``), those of the
+    ``quantized`` accumulators through the codec of each device
+    (``codecs``, all seeded alike): a value left as a partial sum over
+    some mesh axes is all-reduced over them first, each device compresses
+    its block of the whole value, and only the first device of each
+    reduction group keeps it (the others add zeros), so that the apply
+    part's reduction returns the compressed sum exactly."""
+    from alpa_tpu_torch.shard_parallel.collectives import (CollectiveRecord,
+                                                           run_collective)
+    out = [list(vals) for vals in pre]
+    for j in quantized:
+        vals = [vals[j] for vals in pre]
+        partial = layouts[j].partial if layouts[j] is not None else ()
+        for ax in partial:
+            record = CollectiveRecord("all_reduce", ax,
+                                      tuple(vals[0].shape), vals[0].dtype,
+                                      0, "")
+            vals = run_collective(record, vals, logical_mesh)
+        for p, v in enumerate(vals):
+            g_hat = codecs[p].compress((p, j), v)
+            keep = all(logical_mesh.coords(p)[ax] == 0 for ax in partial)
+            out[p][j] = g_hat if keep else torch.zeros_like(g_hat)
+    return out

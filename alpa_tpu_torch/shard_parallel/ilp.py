@@ -74,7 +74,7 @@ def _solve_milp(graph: StrategyGraph, sizes: List[int], time_limit: float,
         for s, st in enumerate(n.strategies):
             c[o + s] = st.comm_cost
             if st.tie_bias > 0:
-                biased.append(o + s)
+                biased.append((o + s, st.tie_bias))
     for e, o in zip(graph.edges, edge_off):
         c[o:o + e.cost.size] = e.cost.reshape(-1)
     # normalized for the solver's conditioning
@@ -82,12 +82,14 @@ def _solve_milp(graph: StrategyGraph, sizes: List[int], time_limit: float,
     c = c / scale
     # tie_bias steers genuinely tied choices without entering the costs:
     # sized from the smallest real normalized cost, so that the summed
-    # bias never flips a real difference
+    # bias never flips a real difference; a bias above the usual 1e-6
+    # weighs that much more (at most twice)
     if biased:
         pos = c[c > 1e-12]
         eps = ((pos.min() if pos.size else 1.0) * 1e-3 /
                max(1, len(biased)))
-        c[np.asarray(biased)] += eps
+        for i, bias in biased:
+            c[i] += eps * min(2.0, bias / 1e-6)
 
     has_mem = bool(memory_budget)
     n_cons = len(graph.nodes) + sum(

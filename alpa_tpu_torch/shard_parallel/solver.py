@@ -23,9 +23,17 @@ the batch-sharded inputs, gradients are reduced where the update reads
 them (reduce-scattered into sharded ZeRO state) and ZeRO-3 parameters
 are gathered at their use; no ILP runs.
 
+With ``global_config.grad_quantize`` on, a ZeRO leaf's sharded strategy
+has a twin whose gradient reduce-scatter runs through the gradient codec
+(``strategy.py``, priced by ``reduce_scatter_cost_quantized``), so the
+ILP flips a tensor to it where the wire saving beats the encode and
+decode; ``_note_grad_quantized_choices`` counts the flipped tensors
+(``reshard_codec.STATS``) and ``quantized_choices`` lists them.  At
+"off" no twin exists and the plans are unchanged.
+
 Left out, as their modules are not ported: the compile cache and the
-calibration token of its key (ROADMAP A.6), ``grad_quantize``'s strategies
-and notes (A.5.7) and the trace spans (A.6).
+calibration and ``grad_quantize`` tokens of its key (ROADMAP A.6) and
+the trace spans (A.6).
 """
 import logging
 import time
@@ -145,8 +153,36 @@ def plan_auto_sharding(fun: Callable, in_avals: Sequence[Any],
         raise infeasible
     _, shape, logical_mesh, graph, choice = best
     graph.search = search
+    _note_grad_quantized_choices(graph, choice)
     return _assemble_plan(avals, in_paths, batch_flat_idx, option, shape,
                           logical_mesh, graph, choice, return_graph)
+
+
+def quantized_choices(graph, choice) -> List[Tuple[int, str, str]]:
+    """``(input index, its strategy, codec)`` of each input the solution
+    routes through the gradient codec."""
+    out = []
+    for node, s in zip(graph.nodes, choice):
+        st = node.strategies[s]
+        if node.kind == "invar" and st.codec:
+            out.append((node.invar_idx, st.name, st.codec))
+    return out
+
+
+def _note_grad_quantized_choices(graph, choice) -> None:
+    """Count each gradient tensor the solution routes through the codec,
+    with the wire bytes it saves."""
+    from alpa_tpu_torch.pipeline_parallel import reshard_codec
+    for node, s in zip(graph.nodes, choice):
+        codec = node.strategies[s].codec
+        if node.kind != "invar" or not codec:
+            continue
+        shape = tuple(node.aval.shape)
+        itemsize = torch.empty((), dtype=node.aval.dtype).element_size()
+        full = int(np.prod(shape, dtype=np.int64)) * itemsize
+        reshard_codec.note_grad_quantized(
+            codec, full, reshard_codec.grad_wire_bytes(shape, itemsize,
+                                                       codec))
 
 
 def _assemble_plan(avals, in_paths, batch_flat_idx, option, shape,

@@ -1178,6 +1178,7 @@ class SpmdProgram:
         self.records = part.records
         self.in_specs = part.in_specs
         self.pres = [node for node, _ in part.pres]
+        self.pre_layouts = [lay for _, lay in part.pres]
         self.root = fx.GraphModule(gm, pg)
         donate = [i for i, d in enumerate(donated) if d]
         invals = [p.meta.get("val") for p in part.placeholders] + [None]

@@ -114,6 +114,9 @@ NLL_BWD = aten.nll_loss_backward.default
 # multi-output opaque ops charging their inputs' gathers once (the JAX
 # flash path gathers at its layout reshapes, before the kernel)
 _GATHER_ONCE = ("alpa_tpu_torch.flash_fwd", "alpa_tpu_torch.flash_bwd")
+#: node meta key of a gradient accumulator's in-place add
+#: (``pipeline_parallel.apply_grad.compute_grad_to_accumulate_grad``)
+ACCUMULATES = "accumulates"
 PIPELINE_MARKER = "alpa_tpu_torch.pipeline_marker"
 PIPELINE_BOUNDARY = "alpa_tpu_torch.pipeline_boundary"
 
@@ -156,6 +159,9 @@ class Strategy:
     comm_kind: str = "all_reduce"
     # an objective nudge breaking genuine ties; not a communication cost
     tie_bias: float = 0.0
+    # a ZeRO leaf whose gradient reduce-scatter runs through the gradient
+    # codec ("int8" or "fp8"; ``global_config.grad_quantize``)
+    codec: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -618,13 +624,19 @@ def pick_lead_operand(node: fx.Node, predicate_leads: bool = True
     """The operand to follow: the largest tensor one (the first of
     equals); for a select (``SELECT_OPS``) the predicate, unless
     ``predicate_leads`` is off (GSPMD's propagation: a select follows its
-    data, the predicate a constant broadcast to it)."""
+    data, the predicate a constant broadcast to it).  An accumulator's
+    in-place ``add_(acc, g)`` (tagged ``ACCUMULATES``) is read as JAX's
+    functional ``add(g, acc)`` with the sum donated to ``acc``: the
+    gradient leads."""
     if node.target in SELECT_OPS and predicate_leads:
         pred = node.args[0] if node.target in _ops("where") else node.args[1]
         if _val(pred) is not None:
             return pred
+    args = node.args if node.target in ELEMENTWISE_OPS else node.args[:1]
+    if node.meta.get(ACCUMULATES):
+        args = args[::-1]
     best, best_size = None, -1
-    for a in node.args if node.target in ELEMENTWISE_OPS else node.args[:1]:
+    for a in args:
         for v in (a if isinstance(a, (list, tuple)) else [a]):
             val = _val(v)
             if val is None:
@@ -734,6 +746,9 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
             "R", replicated_spec(len(aval.shape)), 0.0)], label)
 
     # --- invar nodes ---
+    from alpa_tpu_torch.global_env import global_config
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import grad_eligible
+    gq_mode = global_config.grad_quantize
     zero = resolved_zero_stage(option)
     batch_set = set(batch_flat_idx)
     placeholders = [n for n in graph.nodes if n.op == "placeholder"]
@@ -773,6 +788,22 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                         f"zero{str(s)}", s, max(0.0, charge - credit),
                         mem_bytes=sharded_bytes(aval, s, mesh_shape),
                         comm_kind="reduce_scatter"))
+                    # its twin through the gradient codec, priced by the
+                    # quantized reduce-scatter, where the knob is on and
+                    # the leaf eligible (so plans at "off" are unchanged)
+                    if gq_mode != "off" and grad_eligible(
+                            aval.shape, aval.dtype, gq_mode):
+                        itemsize = torch.empty(
+                            (), dtype=aval.dtype).element_size()
+                        credit_q = sum(
+                            logical_mesh.all_reduce_cost(size, a) -
+                            logical_mesh.reduce_scatter_cost_quantized(
+                                size, a, itemsize) for a in axes)
+                        strategies.append(Strategy(
+                            f"zero{str(s)}_q{gq_mode}", s,
+                            max(0.0, charge - credit_q),
+                            mem_bytes=sharded_bytes(aval, s, mesh_shape),
+                            comm_kind="reduce_scatter", codec=gq_mode))
                 else:
                     strategies.append(Strategy(
                         str(s), s, 0.0,
@@ -780,7 +811,11 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                         tie_bias=1e-6))
         else:
             # JAX's tie preferences: a batch invar prefers its leading dim
-            # sharded, any other invar replication
+            # sharded, any other invar replication; a value a stage takes
+            # from another stage (no path among inputs with paths) breaks
+            # a tie between its sharded dims toward the leading one, where
+            # JAX's solver takes the lower-indexed strategy
+            value = bool(in_paths) and not path and i not in batch_set
             strategies = [
                 Strategy(str(s), s, 0.0,
                          mem_bytes=sharded_bytes(aval, s, mesh_shape),
@@ -788,7 +823,9 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
                              (i in batch_set and ndim and
                               (not s or not s[0])) or
                              (i not in batch_set and
-                              any(bool(d) for d in s))) else 0.0))
+                              any(bool(d) for d in s))) else 0.0) + (
+                             1e-7 * next((d for d, ax in enumerate(s) if ax),
+                                         0) if value else 0.0))
                 for s in specs]
         if i in pins:
             strategies = [Strategy(str(pins[i]), tuple(pins[i]), 0.0,
@@ -1215,9 +1252,18 @@ def build_strategy_graph(graph: fx.Graph, in_avals: Sequence[Any],
             x = node.args[0]
             xsrc = get_source(x)
             shape, dim = tuple(_val(x).shape), node.args[1] % _val(x).dim()
+            found = None if realizable else unmerged_operand(x)
+            if found is not None and len(found[1][dim]) == 1 and \
+                    get_source(found[0]) is not None:
+                # rows that a view merged (the loss's ``(B*S, V)``) are
+                # reduced as JAX reduces its unmerged logits: each row's
+                # statistics read only its row
+                src, groups = found
+                shape, dim = tuple(_val(src).shape), groups[dim][0]
+                xsrc = get_source(src)
             reduce_on(xsrc, shape, [dim], "reduce_max")
             row_sums[node] = reduce_on(xsrc, shape, [dim], "reduce_sum")
-            var_node[node] = xsrc
+            var_node[node] = get_source(x)
             continue
 
         if target is LOG_SOFTMAX_BWD and node.args[1] in row_sums:

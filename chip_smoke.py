@@ -194,6 +194,7 @@ Any failure exits non-zero.  The last line is
 and the line before it lists the kernels as JSON.
 """
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2144,7 +2145,8 @@ def planned_step(cfg, batch_size, device):
 
 def phase_planner(device="cuda"):
     """Phase 13: ``plan_auto_sharding`` on GPT-1.3B's train step (full
-    width, 24 layers, batch 8, bf16, flash, Adam), traced once on fake
+    width, depth cut to 12 layers to keep the run's time, batch 8, bf16,
+    flash, Adam), traced once on fake
     tensors, for the card's one-device mesh and a virtual 8-device mesh
     (the card named 8 times): the search's shapes, graph sizes, build and
     solve seconds, objective and the chosen specs."""
@@ -2156,8 +2158,8 @@ def phase_planner(device="cuda"):
                                                       trace_flat)
     from alpa_tpu_torch.shard_parallel.strategy import Edge
     from alpa_tpu_torch.global_env import global_config as gconf
-    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
-                           attention_impl="flash")
+    cfg = dataclasses.replace(config_from_spec(
+        "1.3B", dtype=torch.bfloat16, attention_impl="flash"), num_layers=12)
     fun, avals, paths, bidx = planned_step(cfg, 8, device)
     tic = time.perf_counter()
     traced = trace_flat(fun, avals, torch.device(device))
@@ -2656,7 +2658,8 @@ def tile_move_check():
             for dspec in specs:
                 src = cmr.MeshSharding(sspec, (1, 2), (0, 1))
                 dst = cmr.MeshSharding(dspec, (1, 2), (2, 3))
-                plan = cmr.plan_resharding(shape, 4, src, dst)
+                plan = cmr.plan_resharding(shape, 4, src, dst,
+                                           allow_allgather_rewrite=False)
                 blocks = [cmr.VirtualDistributedArray.from_sharding(
                     shape, sh).device_tiles for sh in (src, dst)]
                 busy = torch.randn(4096, 4096, device="cuda")
@@ -2690,7 +2693,9 @@ def phase_pipeshard_spmd_fidelity():
     kernels on their shares.  Then the tile executor's moving branch
     (``tile_move_check``), and the first pipeshard with its first stage on
     the card named twice and its second on the host named twice, held to
-    the same bounds.  Then ``AutoStageOption`` on the card named 4 times:
+    the same bounds.  Before them, the first pipeshard under each
+    cross-mesh execution and the activation codecs
+    (``reshard_variants_check``).  Then ``AutoStageOption`` on the card named 4 times:
     its partition, submeshes and solve seconds, and its first loss to 1e-5
     of the one-device step's."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2713,6 +2718,7 @@ def phase_pipeshard_spmd_fidelity():
     ref_counts = tuple(c // steps for c in launch_counts())
     ref_params = gathered_params(state)
     del state, train_step
+    direct = None
     for label, method, with_boundaries in two_level_fidelity_methods(
             ["cuda:0"]):
         state = sgd_state(layered if with_boundaries else base)
@@ -2746,9 +2752,13 @@ def phase_pipeshard_spmd_fidelity():
               f"{label}: parameter {worst} differs by {rel[worst]}")
         check(counts == want, f"{label}: flash launches {counts}, want "
               f"{want}")
+        if direct is None:
+            direct = (losses, params)
+            reshard_line(label, ex)
         del state, train_step, ex
         gc.collect()
         torch.cuda.empty_cache()
+    reshard_variants_check(layered, batch, *direct)
     checked = tile_move_check()
     # the moving branch inside the step: the first stage on the card named
     # twice, the second on the host named twice
@@ -2807,14 +2817,24 @@ def two_level_method(devices):
                              pipeline_schedule="1f1b")
 
 
-def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3):
+def alloc_retries(devices) -> int:
+    """The caching allocator's retries so far (an allocation that found no
+    cached block, freed the cache, synchronising the card, and tried
+    again), summed over the cards of ``devices``."""
+    return sum(torch.cuda.memory_stats(d).get("num_alloc_retries", 0)
+               for d in sorted(set(devices)))
+
+
+def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3,
+                  keep=False):
     """``method``'s step from the seed state, against ``ref`` (a
     pipeshard step with one device per stage: its first loss, Adam's
     first moment after one step, the parameters after 2 steps, the
     one-device step-0 gradients and the flash launches per step), by phase
     15's bounds; prints each stage's plan, the collectives and RESHARDs
     per step, the dispatch per mesh, the step time and the peak.  Returns
-    the flash launches of the run and the metrics."""
+    the flash launches of the run and the metrics (with ``keep``, also the
+    first moment after one step and the losses)."""
     gc.collect()
     torch.cuda.empty_cache()
     for d in sorted(set(devices)):
@@ -2827,7 +2847,10 @@ def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3):
     losses = [float(loss)]
     first_s = time.perf_counter() - tic
     ex = step.get_last_executable()
-    mu_rel = max_rel_diff(gathered_mu(state), ref["mu"])
+    mu = gathered_mu(state)
+    mu_rel = max_rel_diff(mu, ref["mu"])
+    if not keep:
+        del mu
     state, loss = step(state, batch)
     losses.append(float(loss))
     per_step = tuple(c // 2 for c in launch_counts())
@@ -2835,12 +2858,14 @@ def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3):
     param_rel, n_small, n_all, small_max = param_diffs(
         full_cpu(state.params), ref["params"], ref["grads"], bound)
     sync_cards(devices)
+    retries = alloc_retries(devices)
     tic = time.perf_counter()
     for _ in range(timed_steps):
         state, loss = step(state, batch)
         losses.append(loss)
     sync_cards(devices)
     latency = (time.perf_counter() - tic) / timed_steps
+    retries = alloc_retries(devices) - retries
     losses = [float(x) for x in losses]
     peak = ex.get_total_allocation_size()
     loss_rel = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
@@ -2861,13 +2886,8 @@ def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3):
     print(f"{label} collectives per step: " + ", ".join(
         f"{kind} {row['count']} calls {row['bytes']} bytes ({row['backend']})"
         for kind, row in sorted(coll.items())))
-    rs = ex.get_resharding_stats()
-    print(f"{label} resharding per step: {rs['cross_mesh']} cross-mesh "
-          f"RESHARDs and {rs['relayouts']} relayouts; tile plans "
-          f"{rs['planned_bytes']:.0f} bytes vs naive "
-          f"{rs['naive_bytes']:.0f} bytes; executed between distinct "
-          f"devices {rs['executed_bytes']} bytes; dispatch "
-          f"{ex.last_dispatch_stats['mode']} with meshes "
+    rs = reshard_line(label, ex)
+    print(f"{label} dispatch {ex.last_dispatch_stats['mode']} with meshes "
           f"{ex.last_dispatch_stats['meshes']}")
     print(f"{label}: Adam's first moment after one step max |diff| / max "
           f"|mu| per tensor {mu_rel[worst_m]:.3e} at {worst_m} (tol "
@@ -2884,7 +2904,8 @@ def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3):
           f"{8 * cfg.seq_len / latency:.1f} tokens/s, first call "
           f"{first_s:.3f} s (trace {ex.trace_seconds:.3f} s, planning, "
           f"partitioning and program {ex.compile_seconds:.3f} s), peak "
-          f"allocated {peak / 2**30:.3f} GiB")
+          f"allocated {peak / 2**30:.3f} GiB, allocator retries in the "
+          f"timed steps {retries}")
     check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
     check(mu_rel[worst_m] <= TWO_LEVEL_GRAD_TOL,
           f"{label}: first moment {worst_m} differs by {mu_rel[worst_m]}")
@@ -2900,7 +2921,10 @@ def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3):
           f"{ref['per_step']}")
     counts = launch_counts()
     metrics = {"latency": latency, "peak": peak, "first_s": first_s,
-               "per_step": per_step, "collectives": coll, "resharding": rs}
+               "per_step": per_step, "collectives": coll, "resharding": rs,
+               "split": rewrite_split(ex)}
+    if keep:
+        metrics.update(mu=mu, losses=losses)
     del state, step, ex
     gc.collect()
     torch.cuda.empty_cache()
@@ -2941,13 +2965,15 @@ def phase_pipeshard_spmd(phase8):
     phase 15's loss and parameter bounds and ``TWO_LEVEL_GRAD_TOL``
     (``two_level_run``).
     ``phase8``: phase 8's step, peak and pools, for the comparison line.
-    Returns the flash launches of the run and its metrics."""
+    Then phase 16b (``phase_two_level_tiled``).  Returns the flash
+    launches of phase 16's run and of phase 16b's."""
     cfg = pipeshard_config(pipeline_boundary_every=12)
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in lm_batch(cfg, 8).items()}
     ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
     counts, m = two_level_run("two-level", cfg, two_level_method(
-        ["cuda:0"] * 4), batch, ref, ["cuda:0"] * 4)
+        ["cuda:0"] * 4), batch, ref, ["cuda:0"] * 4, timed_steps=2,
+        keep=True)
     print(f"two-level vs phase 8 [{card_line()}]: step {m['latency']:.5f} s "
           f"(phase 8, one device per stage, CUDA graphs: "
           f"{phase8['latency']:.5f} s); peak allocated "
@@ -2955,11 +2981,517 @@ def phase_pipeshard_spmd(phase8):
           f"{phase8['peak'] / 2**30:.3f} GiB + pools "
           f"{(phase8['pool'] or 0) / 2**30:.3f} GiB); flash launches per "
           f"step {m['per_step']} (phase 8: {ref['per_step']})")
-    del ref
+    tiled = timed("two-level tiled", phase_two_level_tiled, cfg, batch, ref,
+                  m)
+    del ref, m
     gc.collect()
     torch.cuda.empty_cache()
-    return list(counts)
+    return list(counts), list(tiled)
 
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """``global_config`` with ``values`` set, restored after."""
+    old = {k: getattr(global_config, k) for k in values}
+    for k, v in values.items():
+        setattr(global_config, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(global_config, k, v)
+
+
+@contextlib.contextmanager
+def wrapped(cls, name, make):
+    """``cls.name`` replaced by ``make(original)``, restored after."""
+    orig = getattr(cls, name)
+    setattr(cls, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def wide_stages_over_cards():
+    """The refusal of stage meshes of several devices over distinct cards
+    (ROADMAP C.4) lifted, for C.4's bisection only."""
+    from alpa_tpu_torch.pipeline_parallel import pipeshard_executable
+    return wrapped(pipeshard_executable, "_refuse_wide_stages_over_cards",
+                   lambda orig: lambda mesh_device_lists: None)
+
+
+def reshard_line(label, ex):
+    """The step's RESHARDs by executor, and the bytes their plans, the
+    naive plans and their ``ExecutionReport``s give per step."""
+    rs = ex.get_resharding_stats()
+    print(f"{label} resharding per step: {rs['cross_mesh']} cross-mesh "
+          f"RESHARDs, {rs['relayouts']} relayouts, executors "
+          f"{rs['strategies']}; planned {rs['planned_bytes']:.0f} bytes, "
+          f"naive {rs['naive_bytes']:.0f} (cross-mesh edges "
+          f"{rs['naive_cross_mesh_bytes']:.0f}); executed cross-mesh "
+          f"{rs['cross_mesh_bytes']:.0f}, intra-mesh "
+          f"{rs['intra_mesh_bytes']:.0f}, between distinct devices "
+          f"{rs['executed_bytes']}")
+    return rs
+
+
+def rewrite_split(ex):
+    """The bytes a step's cross-mesh RESHARDs must move under the
+    all-gather rewrite, counted from each edge's destination tiles (not
+    from its requests): an edge planned with the rewrite to a block that
+    k devices of its mesh replicate crosses once (its naive bytes / k),
+    and its holders all-gather the other (k - 1) / k; any other edge
+    crosses whole, and a relayout moves its plan inside its mesh.
+    Returns the cross-mesh edges planned with the rewrite, the
+    naive bytes of those and of the others, and the expected cross-mesh
+    and intra-mesh bytes."""
+    n_rewrite, replicated, other, cross, intra = 0, 0, 0, 0, 0
+    for inst in ex.instructions:
+        if inst.opcode.name != "RESHARD":
+            continue
+        plan = inst.resharding[0].plan
+        if inst.src_mesh == inst.dst_mesh:
+            intra += int(plan.transfer_bytes)    # a relayout, direct
+            continue
+        holders = {}
+        for t in plan.dst_tiles:
+            holders[t.slices] = holders.get(t.slices, 0) + 1
+        naive = sum(t.size for t in plan.dst_tiles) * plan.itemsize
+        k = max(holders.values())
+        if plan.allgather_rewrite:
+            n_rewrite += 1
+            replicated += naive
+            cross += naive // k
+            intra += naive - naive // k
+        else:
+            other += naive
+            cross += naive
+    return {"rewrite_edges": n_rewrite, "replicated": replicated,
+            "other": other, "cross": cross, "intra": intra}
+
+
+def source_value(plan, shards):
+    """The whole value from a plan's source shards, on the CPU."""
+    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
+    full = torch.empty(plan.shape, dtype=shards[0].dtype)
+    for tile, shard in zip(plan.src_tiles, shards):
+        full[cmr._index(tile.slices)] = shard.detach().cpu()
+    return full
+
+
+def blockmax(x):
+    """Per element of ``x``, the largest magnitude of its 256-element
+    block of the flattened value (the codecs' scaling block)."""
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import BLOCK
+    flat = x.reshape(-1).float().abs()
+    n = flat.numel()
+    pad = torch.zeros(-(-n // BLOCK) * BLOCK)
+    pad[:n] = flat
+    return pad.view(-1, BLOCK).amax(1).repeat_interleave(BLOCK)[:n].view(
+        x.shape)
+
+
+def codec_checked(mode, worst):
+    """A ``QuantizedTransfer.__call__`` that also appends, per call, the
+    largest error of a destination element over ``ERROR_BOUND[mode]`` x
+    its block's largest magnitude in the lossless value (<= 1 within the
+    codec's bound) to ``worst``."""
+    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import ERROR_BOUND
+
+    def make(orig):
+        def call(self, shards):
+            out, moved = orig(self, shards)
+            full = source_value(self.plan, shards)
+            bmax = blockmax(full)
+            ratio = 0.0
+            for tile, o in zip(self.dst_tiles, out):
+                idx = cmr._index(tile.slices)
+                err = (o.detach().cpu().float() - full[idx].float()).abs()
+                ratio = max(ratio, float((err / (ERROR_BOUND[mode] *
+                                                 bmax[idx]).clamp_min(
+                                                     1e-38)).max()))
+            worst.append(ratio)
+            return out, moved
+        return call
+    return make
+
+
+def narrow_run(method, cfg, batch, steps=2):
+    """``method``'s SGD steps on the narrow model from the seed state:
+    the losses, the parameters as CPU tensors and the executable."""
+    state = sgd_state(cfg)
+    step = make_train_step(method)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    ex = step.get_last_executable()
+    params = gathered_params(state)
+    del state, step
+    return losses, params, ex
+
+
+def reshard_variants_check(cfg, batch, base_losses, base_params):
+    """Phase 16a's first pipeshard (two stages of four virtual devices, the
+    ILP in each) under each cross-mesh execution the knobs select, against
+    the default run (``base_*``): the planned tiled and broadcast modes and
+    each forced collective strategy bit for bit in losses and parameters;
+    the int8 and fp8 activation codecs with every quantized edge within
+    ``ERROR_BOUND`` of its block's largest magnitude, no weight edge
+    quantized, and their wire bytes against the lossless bytes."""
+    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import (
+        ERROR_BOUND, QuantizedTransfer)
+
+    def method():
+        return two_level_fidelity_methods(["cuda:0"])[0][1]
+
+    variants = [("planned tiled", dict(resharding_execution="planned")),
+                ("planned broadcast", dict(resharding_execution="planned",
+                                           resharding_mode="broadcast"))]
+    variants += [(f"strategy {s}", dict(reshard_strategy=s))
+                 for s in cmr.RESHARD_STRATEGIES[1:]]
+    card = card_line()
+    for label, values in variants:
+        with knobs(**values):
+            losses, params, ex = narrow_run(method(), cfg, batch)
+        rs = reshard_line(f"two-level fidelity {label}", ex)
+        same = [k for k in base_params
+                if not torch.equal(params[k], base_params[k])]
+        print(f"two-level fidelity {label} [{card}]: losses {losses} vs "
+              f"direct_p2p {base_losses}; parameters differing from "
+              f"direct_p2p's: {len(same)} of {len(base_params)}")
+        check(losses == base_losses and not same,
+              f"{label}: not bit-identical to direct_p2p ({same[:3]})")
+        if "broadcast" in label or "tiled" in label:
+            check(rs["cross_mesh_bytes"] > 0,
+                  f"{label}: no cross-mesh bytes reported")
+        del ex
+        gc.collect()
+    for mode in ("int8", "fp8"):
+        worst = []
+        with knobs(reshard_quantize=mode), wrapped(
+                QuantizedTransfer, "__call__", codec_checked(mode, worst)):
+            losses, params, ex = narrow_run(method(), cfg, batch)
+        edges = [i for i in ex.instructions
+                 if i.opcode.name == "RESHARD" and
+                 isinstance(i.resharding[0], QuantizedTransfer)]
+        weights = [i.var_key for i in edges if i.var_key[1] < 0]
+        wire = sum(i.resharding[0].wire_nbytes for i in edges)
+        lossless = sum(i.resharding[0].nbytes for i in edges)
+        rs = reshard_line(f"two-level fidelity codec {mode}", ex)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, base_losses))
+        print(f"two-level fidelity codec {mode} [{card}]: {len(edges)} "
+              f"activation edges quantized per step ({len(weights)} weight "
+              f"edges), wire {wire} bytes vs lossless {lossless} bytes "
+              f"({lossless / max(wire, 1):.3f}x fewer); per edge "
+              f"{sorted({(i.resharding[0].wire_nbytes, i.resharding[0].nbytes) for i in edges})}; "
+              f"worst element error over ERROR_BOUND['{mode}'] "
+              f"({ERROR_BOUND[mode]:.4g}) x its block's largest magnitude "
+              f"{max(worst, default=0.0):.6f} over {len(worst)} transfers "
+              f"(tol 1 + 2^-14: the fp32 roundings of the encode's "
+              f"division and the decode's product add up to 2 x 254 x "
+              f"2^-24 of the bound); losses "
+              f"{losses} vs lossless {base_losses} "
+              f"({loss_rel:.3e} relative)")
+        check(edges and not weights, f"codec {mode}: {len(edges)} edges, "
+              f"weight edges {weights}")
+        check(worst and max(worst) <= 1.0 + 2.0 ** -14,
+              f"codec {mode}: an activation "
+              f"edge misses ERROR_BOUND by {max(worst, default=0.0)}")
+        check(all(np.isfinite(losses)), f"codec {mode}: losses {losses}")
+        del ex
+        gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_grad_codec():
+    """Phase 16c, the gradient codec, on phase 14's narrow fp32 GPT (4
+    layers at hidden 256) over the card named 4 times:
+    ``Zero2Parallel(num_micro_batches=2)`` with ``grad_quantize="int8"``
+    against the same step unquantized, Adam's first moment after one step
+    within ``grad_error_bound("int8")`` of each tensor's largest (each
+    microbatch's gradient through the codec, error feedback within the
+    step; the two microbatches equal), at least one tensor quantized, the
+    loss equal; then the ILP's
+    plan of the same step (``ShardParallel`` on the 4 virtual devices with
+    a memory budget of 0.66 of the state, as JAX's test of the flips),
+    and the tensors it routes through the quantized reduce-scatter."""
+    from alpa_tpu_torch.device_mesh import PhysicalDeviceMesh
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import (
+        STATS, grad_error_bound)
+    from alpa_tpu_torch.shard_parallel import AutoShardingOption
+    from alpa_tpu_torch.shard_parallel.solver import (plan_auto_sharding,
+                                                      quantized_choices)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash"),
+        num_layers=4, hidden_size=256, num_heads=4, seq_len=256,
+        vocab_size=1024)
+    # one sequence 8 times: the two microbatches equal (each device's rows
+    # split between them), so the mean's blocks bound each microbatch's and
+    # the quantized mean misses by at most half the codec's bound of the
+    # mean's largest (error feedback carries the rest)
+    batch = {k: torch.as_tensor(x[:1], device="cuda").repeat(8, 1)
+             for k, x in lm_batch(cfg, 8).items()}
+    devices = ["cuda:0"] * 4
+
+    def run():
+        state = train_state(cfg)
+        step = make_train_step(alpa_tpu_torch.Zero2Parallel(
+            devices=devices, num_micro_batches=2))
+        state, loss = step(state, batch)
+        mu = gathered_mu(state)
+        del state, step
+        return float(loss), mu
+
+    base_loss, base_mu = run()
+    with knobs(grad_quantize="int8"):
+        loss, mu = run()
+    bound = grad_error_bound("int8")
+    rel = max_rel_diff(mu, base_mu)
+    changed = [k for k in mu if not torch.equal(mu[k], base_mu[k])]
+    worst = max(rel, key=rel.get)
+    card = card_line()
+    print(f"gradient codec [{card}]: Zero2Parallel, 2 microbatches on 4 "
+          f"virtual devices, fp32 GPT ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}), grad_quantize='int8': {len(changed)} of "
+          f"{len(mu)} first-moment tensors quantized (gradients of at least "
+          f"{global_config.grad_quantize_min_bytes} bytes); max |diff| / "
+          f"max |mu| per tensor {rel[worst]:.3e} at {worst} (tol "
+          f"grad_error_bound('int8') {bound:.4e}); loss {loss} vs "
+          f"unquantized {base_loss}")
+    check(changed, "gradient codec: no gradient was quantized")
+    check(rel[worst] <= bound, f"gradient codec: first moment {worst} "
+          f"differs by {rel[worst]}, over {bound}")
+    check(loss == base_loss, f"gradient codec: loss {loss} vs {base_loss}")
+    fun, avals, paths, bidx = planned_step(cfg, 8, "cuda")
+    state_bytes = sum(int(np.prod(a[0])) * 4 for a, p in zip(avals, paths)
+                      if p.startswith("[0]") and a[0])
+    option = AutoShardingOption(memory_budget_per_device=int(
+        state_bytes * 0.66))
+    before = STATS["grad_tensors_int8"]
+    with knobs(grad_quantize="int8", grad_quantize_min_bytes=1024):
+        _, _, (graph, choice), shape = plan_auto_sharding(
+            fun, avals, paths, bidx, PhysicalDeviceMesh(devices), option)
+    flipped = [(paths[i], name) for i, name, _ in quantized_choices(graph,
+                                                                   choice)]
+    print(f"gradient codec ILP [{card}]: ShardParallel plan on (4 virtual "
+          f"devices) logical mesh {shape}, memory budget 0.66 of the state, "
+          f"grad_quantize='int8' (min 1024 bytes): {len(flipped)} tensors "
+          f"routed through the quantized reduce-scatter "
+          f"({STATS['grad_tensors_int8'] - before} counted), the first "
+          f"8: {flipped[:8]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_two_level_tiled(cfg, batch, ref, phase16):
+    """Phase 16b: phase 16's step (GPT-1.3B, two stages of two virtual
+    devices) with the cross-mesh RESHARDs run as their plans are
+    (``resharding_execution="planned"``, ``ReshardingTask``'s "tiled"
+    mode: each destination replica fetches a disjoint half across meshes
+    and the destination mesh all-gathers the halves): the first two
+    losses and Adam's first moment after one step bit for bit phase 16's
+    (on one card every leg is a copy); the cross-mesh bytes of a step's
+    ``ExecutionReport``s equal to the tile plans' (the rewrite halves each
+    edge to a destination replicated over its mesh's two devices and
+    leaves an edge to a sharded destination whole), and cross-mesh plus
+    intra-mesh bytes equal to the naive plans' (each replica's other half
+    comes over the all-gather); the step time and the peak.  Returns the
+    flash launches of the run."""
+    with knobs(resharding_execution="planned"):
+        counts, m = two_level_run("two-level tiled", cfg, two_level_method(
+            ["cuda:0"] * 4), batch, ref, ["cuda:0"] * 4, timed_steps=1,
+            keep=True)
+    rs, split = m["resharding"], m["split"]
+    diff = [k for k in m["mu"] if not torch.equal(m["mu"][k],
+                                                  phase16["mu"][k])]
+    naive = rs["naive_cross_mesh_bytes"]
+    ratio = rs["cross_mesh_bytes"] / max(naive, 1)
+    print(f"two-level tiled vs phase 16 [{card_line()}]: losses "
+          f"{m['losses'][:2]} vs {phase16['losses'][:2]}; first-moment "
+          f"tensors differing {len(diff)} of {len(m['mu'])}; bytes per step: "
+          f"planned {rs['planned_bytes']:.0f}, naive {rs['naive_bytes']:.0f} "
+          f"(cross-mesh edges {rs['naive_cross_mesh_bytes']:.0f}), executed "
+          f"cross-mesh {rs['cross_mesh_bytes']:.0f} ({ratio:.4f} of the "
+          f"naive) and intra-mesh {rs['intra_mesh_bytes']:.0f}; from the "
+          f"destination tiles: {split['rewrite_edges']} edges to replicated "
+          f"blocks (naive {split['replicated']}), the others naive "
+          f"{split['other']}, so cross-mesh {split['cross']} and intra-mesh "
+          f"{split['intra']} expected "
+          f"(phase 16, direct: cross-mesh "
+          f"{phase16['resharding']['cross_mesh_bytes']:.0f}); step "
+          f"{m['latency']:.5f} s (phase 16: {phase16['latency']:.5f} s), peak "
+          f"{m['peak'] / 2**30:.3f} GiB (phase 16: "
+          f"{phase16['peak'] / 2**30:.3f} GiB)")
+    check(m["losses"][:2] == phase16["losses"][:2] and not diff,
+          f"two-level tiled: not bit-identical to phase 16 ({diff[:3]})")
+    # the rewrite applied (an all-gather inside each destination mesh
+    # moved what no longer crosses), as the destination tiles say it must
+    check(split["rewrite_edges"] > 0 and split["intra"] > 0 and
+          split["replicated"] + split["other"] == naive and
+          rs["cross_mesh_bytes"] == split["cross"] == rs["planned_bytes"] and
+          rs["intra_mesh_bytes"] == split["intra"],
+          f"two-level tiled: cross-mesh {rs['cross_mesh_bytes']} and "
+          f"intra-mesh {rs['intra_mesh_bytes']} bytes vs {split} from the "
+          f"destination tiles, planned {rs['planned_bytes']}, naive {naive}")
+    return counts
+
+
+def checked_collectives(violations):
+    """``collectives.run_collective`` also run on CPU copies of its
+    operands with the plain tensor ops: a gather or all-to-all must equal
+    it bit for bit, a reduction to 1e-5 of the largest magnitude; each
+    miss appended to ``violations``."""
+    from alpa_tpu_torch.shard_parallel import collectives
+
+    class OnHost:
+        def __init__(self, mesh):
+            self.mesh = mesh
+
+        def flat_devices(self):
+            return [torch.device("cpu")] * len(self.mesh.flat_devices())
+
+        def axis_groups(self, axis):
+            return self.mesh.axis_groups(axis)
+
+    def make(orig):
+        def run(record, values, logical_mesh):
+            host = [v.detach().cpu() for v in values]
+            out = orig(record, values, logical_mesh)
+            want = orig(record, host, OnHost(logical_mesh))
+            for p, (o, w) in enumerate(zip(out, want)):
+                o = o.detach().cpu()
+                scale = float(w.abs().max()) if w.numel() else 0.0
+                err = float((o.double() - w.double()).abs().max()) \
+                    if w.numel() else 0.0
+                exact = record.kind in ("all_gather", "all_to_all")
+                if (o.shape != w.shape or (err > 0 if exact else
+                                           err > 1e-5 * scale)):
+                    violations.append(f"{record.kind} axis {record.axis} "
+                                      f"position {p}: {err:.3e} of "
+                                      f"{scale:.3e}")
+            return out
+        return run
+    return make
+
+
+def checked_tiles(violations):
+    """``ReshardingTask.__call__`` that also holds every destination shard
+    to the source value sliced by its block, bit for bit."""
+    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
+
+    def make(orig):
+        def call(self, shards, mode=None):
+            out, moved = orig(self, shards, mode)
+            full = source_value(self.plan, shards)
+            for p, (tile, o) in enumerate(zip(self.plan.dst_tiles, out)):
+                if not torch.equal(o.detach().cpu(),
+                                   full[cmr._index(tile.slices)]):
+                    violations.append(f"tile {tile.slices} to position {p} "
+                                      f"of {self.dst_devices}")
+            return out, moved
+        return call
+    return make
+
+
+def host_rss_gib() -> float:
+    """The process's peak resident host memory so far."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def c4_layouts(cards):
+    """C.4's bisection layouts, the four-card one (the fault's) first:
+    ``[c0, c1, c2, c3]``, ``[c0, c1, c0, c1]`` (NCCL inside each stage,
+    both stages on one pair of cards) and ``[c0, c0, c1, c1]`` (each stage
+    on one card named twice: plain collectives, tiles between cards)."""
+    layouts = [list(cards[:4])] if len(cards) >= 4 else []
+    return layouts + [[cards[0], cards[1], cards[0], cards[1]],
+                      [cards[0], cards[0], cards[1], cards[1]]]
+
+
+def c4_bisection(layouts):
+    """ROADMAP C.4's bisection: phase 16a's pipeshard (fp32, 4 layers at
+    hidden 256, two stages of two ILP-planned devices) over each of
+    ``layouts`` (``c4_layouts``) in every dispatch mode ("threaded" last),
+    against the same plan on ``cuda:0`` named as often: unchecked first
+    (the fault as it shows), then with every collective held to the plain
+    one on the host and every tile to its source
+    (``checked_collectives``, ``checked_tiles``).  Losses within 1e-5
+    relative, parameters within 1e-5 of each tensor's largest.  Returns
+    the failures."""
+    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
+    from alpa_tpu_torch.shard_parallel import collectives
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash"),
+        num_layers=4, hidden_size=256, num_heads=4, seq_len=256,
+        vocab_size=1024, pipeline_boundary_every=2)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in lm_batch(base, 8).items()}
+    modes = [m for m in DISPATCH_MODES if m != "threaded"] + ["threaded"]
+    failures = []
+
+    def method(devices):
+        return PipeshardParallel(devices=devices, num_micro_batches=2,
+                                 layer_option=ManualLayerOption(),
+                                 stage_option=UniformStageOption(2))
+
+    ref_losses, ref_params, _ = narrow_run(method(["cuda:0"] * 4), base,
+                                           batch)
+    card = card_line()
+    with wide_stages_over_cards():
+        for devices in layouts:
+            for mode in modes:
+                for checking in (False, True):
+                    violations = []
+                    with knobs(_pipeline_dispatch_mode=mode), \
+                            contextlib.ExitStack() as stack:
+                        if checking:
+                            stack.enter_context(wrapped(
+                                collectives, "run_collective",
+                                checked_collectives(violations)))
+                            stack.enter_context(wrapped(
+                                cmr.ReshardingTask, "__call__",
+                                checked_tiles(violations)))
+                        try:
+                            losses, params, ex = narrow_run(
+                                method(devices), base, batch)
+                        except Exception as e:  # reported, not swallowed
+                            failures.append(f"{devices} {mode}: {e!r}")
+                            print(f"C.4 bisection {devices} {mode}: raised "
+                                  f"{e!r}")
+                            continue
+                    rel = max_rel_diff(params, ref_params)
+                    worst = max(rel, key=rel.get)
+                    loss_rel = max(abs(a - b) / abs(b)
+                                   for a, b in zip(losses, ref_losses))
+                    bad = loss_rel > 1e-5 or rel[worst] > 1e-5 or violations
+                    print(f"C.4 bisection [{card} x{len(set(devices))}] "
+                          f"devices {devices} mode {mode} "
+                          f"{'checked' if checking else 'unchecked'}: losses "
+                          f"{loss_rel:.3e} relative (tol 1e-5), parameters "
+                          f"{rel[worst]:.3e} at {worst} (tol 1e-5), collective "
+                          f"and tile misses {len(violations)} "
+                          f"{violations[:4]}; executed between cards "
+                          f"{ex.executed_resharding_bytes} bytes, "
+                          f"collectives {sorted((k, r['backend']) for k, r in ex.get_collective_counts().items())}; "
+                          f"host peak RSS {host_rss_gib():.1f} GiB")
+                    if bad:
+                        failures.append(f"{devices} {mode} "
+                                        f"{'checked' if checking else ''}: "
+                                        f"loss {loss_rel:.3e}, {worst} "
+                                        f"{rel[worst]:.3e}, {violations[:2]}")
+                    del ex
+                    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
 
 
 def four_cards():
@@ -2971,6 +3503,8 @@ def four_cards():
     n = torch.cuda.device_count()
     check(n >= 4, f"--four-cards needs four cards, found {n}")
     cards = [f"cuda:{i}" for i in range(4)]
+    failures = [f"C.4 bisection {f}" for f in c4_bisection(
+        c4_layouts(cards))]
     cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
                            attention_impl="flash", remat_blocks=True)
     batch = {k: torch.as_tensor(v, device="cuda")
@@ -2990,7 +3524,6 @@ def four_cards():
     card = card_line()
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
-    failures = []
     for label, method in (
             ("four cards DataParallel",
              alpa_tpu_torch.DataParallel(devices=cards)),
@@ -3026,9 +3559,42 @@ def four_cards():
     del ref_params, ref_grads, ref_mu
     gc.collect()
     torch.cuda.empty_cache()
-    # phase 16 over the four cards (two stages of two cards each) is
-    # refused by the port until ROADMAP C.4 is repaired
+    if not failures:
+        # the bisection found no fault: phase 16 over the four cards (two
+        # stages of two cards each), direct and tiled, with the refusal
+        # of ROADMAP C.4 lifted
+        failures += four_card_two_level(cards)
     check(not failures, "; ".join(failures))
+
+
+def four_card_two_level(cards):
+    """Phase 16 over four cards, the cross-mesh RESHARDs direct and then
+    planned ("tiled"), each held to phase 8's step on one card by phase
+    16's bounds; the bytes moved between cards per step of each.  Returns
+    the failures."""
+    cfg = pipeshard_config(pipeline_boundary_every=12)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 8).items()}
+    ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
+    failures = []
+    for label, execution in (("four cards two-level", "device_put"),
+                             ("four cards two-level tiled", "planned")):
+        try:
+            with wide_stages_over_cards(), \
+                    knobs(resharding_execution=execution):
+                _, m = two_level_run(label, cfg, two_level_method(cards),
+                                     batch, ref, cards, timed_steps=2)
+        except SmokeFailure as e:
+            failures.append(str(e))
+            continue
+        rs = m["resharding"]
+        print(f"{label} [{card_line()} x4]: bytes moved between cards per "
+              f"step {rs['executed_bytes']}, cross-mesh "
+              f"{rs['cross_mesh_bytes']:.0f}, intra-mesh "
+              f"{rs['intra_mesh_bytes']:.0f}, naive "
+              f"{rs['naive_cross_mesh_bytes']:.0f}; step "
+              f"{m['latency']:.5f} s")
+    return failures
 
 
 def kernel_name(mangled: str) -> str:
@@ -3087,10 +3653,32 @@ def timed(name, fn, *args):
     return out
 
 
+def c4_only():
+    """``--c4-bisection``: ROADMAP C.4's bisection alone, on the cards
+    there are (two or more): on four cards the four-card layout first
+    and, where it finds nothing, phase 16 over the four cards
+    (``four_card_two_level``), then the two-card layouts."""
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--c4-bisection needs two cards, found {n}")
+    cards = [f"cuda:{i}" for i in range(n)]
+    layouts = c4_layouts(cards)
+    failures = []
+    if n >= 4:
+        failures = c4_bisection(layouts[:1])
+        if not failures:
+            failures = four_card_two_level(cards[:4])
+        layouts = layouts[1:]
+    failures += c4_bisection(layouts)
+    check(not failures, "; ".join(failures))
+
+
 def main(args) -> int:
-    if args not in ([], ["--two-cards"], ["--four-cards"]):
-        print("usage: chip_smoke.py [--two-cards | --four-cards]",
-              file=sys.stderr)
+    modes = {"--two-cards": lambda: two_cards(),
+             "--four-cards": lambda: four_cards(),
+             "--c4-bisection": lambda: c4_only()}
+    if args and (len(args) != 1 or args[0] not in modes):
+        print("usage: chip_smoke.py [--two-cards | --four-cards | "
+              "--c4-bisection]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -3100,7 +3688,7 @@ def main(args) -> int:
     build_kernels()
     if args:
         try:
-            two_cards() if args == ["--two-cards"] else four_cards()
+            modes[args[0]]()
         except SmokeFailure as e:
             print(f"FAIL: {e}", file=sys.stderr)
             return 1
@@ -3134,13 +3722,14 @@ def main(args) -> int:
         timed("spmd fidelity", phase_spmd_fidelity)
         spmd = timed("spmd", phase_spmd, shard_profile)
         timed("two-level fidelity", phase_pipeshard_spmd_fidelity)
-        two_level = timed("two-level", phase_pipeshard_spmd, phase8)
+        two_level, tiled = timed("two-level", phase_pipeshard_spmd, phase8)
+        timed("gradient codec", phase_grad_codec)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
                              + remat[0] + auto[0] + infer + acc[0] + spmd[0]
-                             + two_level[0])
+                             + two_level[0] + tiled[0])
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
                                      "training": train_fwd,
@@ -3150,13 +3739,15 @@ def main(args) -> int:
                                      "pipeshard_infer": infer,
                                      "shard_grad_acc": acc[0],
                                      "shard_spmd": spmd[0],
-                                     "pipeshard_spmd": two_level[0]}
+                                     "pipeshard_spmd": two_level[0],
+                                     "pipeshard_spmd_tiled": tiled[0]}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
-    for entry, e, n, p, r, a, g, m, t in zip(
+    for entry, e, n, p, r, a, g, m, t, b in zip(
             bwd_entries, engine[1:], (train_dq, train_dkv), pipe[1:],
-            remat[1:], auto[1:], acc[1:], spmd[1:], two_level[1:]):
-        entry["launches"] = e + n + p + r + a + g + m + t
+            remat[1:], auto[1:], acc[1:], spmd[1:], two_level[1:],
+            tiled[1:]):
+        entry["launches"] = e + n + p + r + a + g + m + t + b
         entry["launches_by_path"] = {"serving_engine": e,
                                      "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
@@ -3164,7 +3755,8 @@ def main(args) -> int:
                                      "pipeshard_infer": 0,
                                      "shard_grad_acc": g,
                                      "shard_spmd": m,
-                                     "pipeshard_spmd": t}
+                                     "pipeshard_spmd": t,
+                                     "pipeshard_spmd_tiled": b}
     print(card_line())
     print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {
