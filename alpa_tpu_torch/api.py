@@ -33,6 +33,8 @@ of JAX's "Array has been deleted".
 """
 import functools
 import itertools
+import logging
+import logging
 import time
 import weakref
 from typing import Callable, Optional, Sequence, Union
@@ -68,6 +70,9 @@ def shutdown():
 
 _ARRAYS = (torch.Tensor, DistributedArray, np.ndarray, float, int, complex,
            bool)
+
+
+logger = logging.getLogger(__name__)
 
 
 def _is_static_arg(arg) -> bool:
@@ -303,7 +308,40 @@ class ParallelizedFunc:
             donated_invars=donated_invars)
         # the seconds of auto donation's run on fake tensors
         executable.donation_seconds = donation_seconds
+        self._save_parallel_plan(executable, avals, in_paths, batch_invars,
+                                 donated_invars)
         return executable, flat_fun, donated_invars
+
+    def _save_parallel_plan(self, executable, avals, in_paths, batch_invars,
+                            donated_invars):
+        """Keep the compile's replayable ``ParallelPlan`` in the compile
+        cache (namespace ``parallel_plan``; ``alpa_tpu/api.py:232``), for
+        ``plan_to_method``.  Archival only: a failure never breaks the
+        compile."""
+        from alpa_tpu_torch.compile_cache import (cache_enabled,
+                                                  get_compile_cache)
+        if not cache_enabled():
+            return
+        try:
+            from alpa_tpu_torch.parallel_plan import executable_to_plan
+            plan = executable_to_plan(
+                executable, num_micro_batches=getattr(
+                    self.method, "num_micro_batches", None))
+            cache = get_compile_cache()
+            method_desc = "{}({})".format(
+                type(self.method).__name__,
+                ",".join(f"{k}={v!r}" for k, v in
+                         sorted(vars(self.method).items())))
+            key = cache.make_key("parallel_plan", [
+                "parallelize", getattr(self.fun, "__module__", "?"),
+                getattr(self.fun, "__qualname__", repr(self.fun)),
+                repr([(tuple(shape), str(dtype)) for shape, dtype in avals]),
+                repr(tuple(in_paths)), repr(tuple(batch_invars)),
+                repr(tuple(donated_invars)), method_desc])
+            cache.put("parallel_plan", key, plan)
+            executable.parallel_plan = plan
+        except Exception:  # pylint: disable=broad-except
+            logger.debug("parallel_plan save failed", exc_info=True)
 
     def get_executable(self, *args):
         (executable, _, _), flat_args, _ = self._get(args)

@@ -25,7 +25,7 @@ JAX's ``jax.Array`` holds them as its ``addressable_shards``).  Multi-host
 clusters are not ported.
 """
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,21 +50,33 @@ class LogicalDeviceMesh:
     both in abstract units (JAX's defaults: alpha 1 on every axis, beta
     0.1 on axis 0 and 0.01 on the others).  A tie term per collective kind
     keeps the JAX model's all-gather > all-reduce > reduce-scatter >
-    all-to-all order.  The measured calibration of the JAX package
-    (``CalibratedCostModel``) is not ported (ROADMAP A.6)."""
+    all-to-all order.  With a ``calibration`` that has collective fits
+    (``mesh_profiling.CalibratedCostModel``) every cost is in seconds:
+    its (alpha, beta) per kind, beta scaled on a slower axis by the
+    abstract betas' ratio, no tie term; a kind it did not measure takes
+    the most expensive measured fit."""
 
     _TIES = {"all_gather": 0.1, "all_reduce": 0.01, "reduce_scatter": 0.001,
              "all_to_all": 0.001}
 
     def __init__(self, physical_mesh, id_mesh,
                  mesh_alpha: Optional[Sequence[float]] = None,
-                 mesh_beta: Optional[Sequence[float]] = None):
+                 mesh_beta: Optional[Sequence[float]] = None,
+                 calibration: Optional[Any] = None):
         self.physical_mesh = physical_mesh
         self.id_mesh = np.asarray(id_mesh)
         ndim = self.id_mesh.ndim
         self.mesh_alpha = tuple(mesh_alpha) if mesh_alpha else (1.0,) * ndim
         self.mesh_beta = tuple(mesh_beta) if mesh_beta else tuple(
             [0.1] + [0.01] * (ndim - 1))[:ndim]
+        self.calibration = calibration
+
+    @property
+    def calibrated(self) -> bool:
+        """Whether collective costs come back in seconds (a calibration
+        with collective fits; a dot-only one does not count)."""
+        return (self.calibration is not None and
+                bool(self.calibration.collective_ab))
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -75,6 +87,13 @@ class LogicalDeviceMesh:
         return int(self.id_mesh.size)
 
     def _ab(self, kind: str, mesh_dim: int):
+        if self.calibrated:
+            ab = self.calibration.alpha_beta(kind)
+            if ab is None:
+                ab = max(self.calibration.collective_ab.values(),
+                         key=lambda p: p[1])
+            ratio = self.mesh_beta[mesh_dim] / min(self.mesh_beta)
+            return ab[0], ab[1] * ratio, 0.0
         return (self.mesh_alpha[mesh_dim], self.mesh_beta[mesh_dim],
                 self._TIES[kind])
 
@@ -207,7 +226,22 @@ def _logical_mesh(mesh, mesh_shape, mesh_alpha, mesh_beta,
     id_mesh = np.arange(mesh.num_devices).reshape(mesh_shape)
     if mesh_beta is None:
         mesh_beta = host_crossing_beta(mesh_shape)
-    return LogicalDeviceMesh(mesh, id_mesh, mesh_alpha, mesh_beta)
+    return LogicalDeviceMesh(mesh, id_mesh, mesh_alpha, mesh_beta,
+                             calibration=_calibration_for(mesh))
+
+
+def _calibration_for(mesh) -> Optional[Any]:
+    """The process-wide calibration (``mesh_profiling.
+    get_global_calibration``) where it was measured over the backend of
+    ``mesh``'s collectives (or names none), else None: a table of copies
+    on one card never prices NCCL between cards, nor the reverse."""
+    from alpa_tpu_torch.mesh_profiling import get_global_calibration
+    from alpa_tpu_torch.shard_parallel.collectives import backend_of
+    cal = get_global_calibration()
+    if cal is None or cal.backend is None:
+        return cal
+    return cal if cal.backend == backend_of(list(mesh.devices.flat)) \
+        else None
 
 
 class PhysicalDeviceMesh:

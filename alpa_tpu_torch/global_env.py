@@ -44,6 +44,30 @@ environment variables and defaults:
   model the strategy cost reads.  JAX also idles for it to emulate a
   link; the port runs on real links and only prices with it.
 
+Measurement (the telemetry layer, ``telemetry/``):
+
+* ``collect_trace``: the dispatch records one span per replayed op even
+  with tracing off (``get_perf_report`` and
+  ``dump_stage_execution_trace`` read them).
+* ``telemetry_enabled`` (``ALPA_TPU_TRACE``), ``telemetry_trace_dir`` and
+  ``telemetry_max_events``: span tracing, where traces are dropped, the
+  cap on buffered events.
+* ``flight_recorder`` (on), ``flight_recorder_capacity`` (4096) and
+  ``flight_dump_dir``: the ring of the last replayed ops, dumped when a
+  step raises.
+* ``device_peak_tflops``: the peak MFU is taken against; 0 reads
+  ``telemetry.perf.GPU_SPECS`` for the detected card.
+* ``compile_cache_dir``, ``compile_cache_enabled`` and
+  ``compile_cache_memory_entries``: the compile cache's disk tier (unset:
+  memory only), its switch and its in-memory capacity.
+* ``profiling_database_filename`` (``ALPA_TPU_PROF_DATABASE``): a
+  ``mesh_profiling.ProfilingResultDatabase`` whose fit prices logical
+  meshes of its backend in seconds.
+* ``replan_mode`` ("off", "suggest", "auto"), ``calibration_min_samples``
+  (3) and ``calibration_dir``: profile-guided replanning and the
+  calibration store's disk tier.  Under "auto" ``consider_replan`` raises:
+  the port's strategy chooser does not read the store yet (ROADMAP A.6).
+
 The dispatch mode is the JAX driver's "auto" choice: overlap where it is
 eligible, else register-file replay.  ``_pipeline_dispatch_mode`` is a
 private switch for the tests and ``chip_smoke.py``, which force each of
@@ -104,6 +128,34 @@ class GlobalConfig:
             "ALPA_TPU_GRAD_QUANTIZE_MIN_BYTES", "65536"))
         self.grad_error_feedback = os.environ.get(
             "ALPA_TPU_GRAD_ERROR_FEEDBACK", "on") != "off"
+        # the profiling database the cost model is calibrated from
+        self.profiling_database_filename = os.environ.get(
+            "ALPA_TPU_PROF_DATABASE", None)
+        # measurement
+        self.collect_trace = _env_bool("ALPA_TPU_COLLECT_TRACE", False)
+        self.telemetry_enabled = _env_bool("ALPA_TPU_TRACE", False)
+        self.telemetry_trace_dir = os.environ.get("ALPA_TPU_TRACE_DIR",
+                                                  None)
+        self.telemetry_max_events = int(os.environ.get(
+            "ALPA_TPU_TRACE_MAX_EVENTS", "200000"))
+        self.flight_recorder = _env_bool("ALPA_TPU_FLIGHT", True)
+        self.flight_recorder_capacity = int(os.environ.get(
+            "ALPA_TPU_FLIGHT_CAPACITY", "4096"))
+        self.flight_dump_dir = os.environ.get("ALPA_TPU_FLIGHT_DIR", None)
+        self.device_peak_tflops = float(os.environ.get(
+            "ALPA_TPU_DEVICE_PEAK_TFLOPS", "0"))
+        # compile cache
+        self.compile_cache_dir = os.environ.get("ALPA_TPU_CACHE_DIR", None)
+        self.compile_cache_enabled = _env_bool("ALPA_TPU_COMPILE_CACHE",
+                                               True)
+        self.compile_cache_memory_entries = int(os.environ.get(
+            "ALPA_TPU_COMPILE_CACHE_MEM_ENTRIES", "128"))
+        # profile-guided replanning
+        self.replan_mode = os.environ.get("ALPA_TPU_REPLAN_MODE", "off")
+        self.calibration_min_samples = int(os.environ.get(
+            "ALPA_TPU_CALIBRATION_MIN_SAMPLES", "3"))
+        self.calibration_dir = os.environ.get("ALPA_TPU_CALIBRATION_DIR",
+                                              None)
 
 
 global_config = GlobalConfig()

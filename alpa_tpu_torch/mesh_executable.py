@@ -20,9 +20,12 @@ device, each state output comes back as a ``DistributedArray`` under its
 input's Spec, and the other outputs (the loss) come back replicated,
 from the mesh's first device.  ``get_collective_counts()`` gives each
 collective kind's count and bytes per step, the counterpart of
-``count_communication_primitives`` over the HLO text.
+``count_communication_primitives`` over the HLO text.  Each launch's
+host time is observed in ``alpa_mesh_dispatch_seconds``.
 """
+import functools
 import itertools
+import time
 
 import numpy as np
 import torch
@@ -31,8 +34,26 @@ from alpa_tpu_torch.device_mesh import DistributedArray, PhysicalDeviceMesh
 from alpa_tpu_torch.shard_parallel.grad_acc import (compress_spmd,
                                                     new_grad_codec,
                                                     quantized_accumulators)
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
 
 _exec_uuids = itertools.count(1)
+
+# the host time of one launch of a single-mesh executable
+_DISPATCH_SECONDS = _tmetrics.get_registry().histogram(
+    "alpa_mesh_dispatch_seconds",
+    "launch_on_driver enqueue latency per mesh executable call")
+
+
+def _timed_launch(launch):
+    """``launch_on_driver`` observed in ``alpa_mesh_dispatch_seconds``."""
+    @functools.wraps(launch)
+    def timed(self, *flat_args):
+        t0 = time.perf_counter()
+        try:
+            return launch(self, *flat_args)
+        finally:
+            _DISPATCH_SECONDS.observe(time.perf_counter() - t0)
+    return timed
 
 
 class MeshExecutable:
@@ -211,6 +232,7 @@ class NormalMeshExecutable(MeshExecutable, _SpmdExecution):
         if program is not None:
             self._setup_spmd(program, avals, donated_invars, out_specs)
 
+    @_timed_launch
     def launch_on_driver(self, *flat_args):
         """Run on flat args; returns the flat outputs.  On a CUDA device it
         also records the allocator's peak over the launch."""
@@ -330,6 +352,7 @@ class GradAccMeshExecutable(MeshExecutable, _SpmdExecution):
         return [_to_tensor(x, dtype, self.device)
                 for x, dtype in zip(flat_args, self.dtypes)]
 
+    @_timed_launch
     def launch_on_driver(self, *flat_args):
         """Run the step on flat args; returns the flat outputs."""
         if self.spmd is not None:

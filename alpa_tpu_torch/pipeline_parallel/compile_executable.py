@@ -178,7 +178,7 @@ def compile_pipeshard_executable(fun: Callable,
         stage_dp_info = cluster_layers_and_slice_mesh(
             num_layers, virtual_mesh, stage_option, layer_comps=fwd_comps,
             num_micro_batches=num_micro_batches, schedule=pipeline_schedule,
-            auto_sharding_option=as_option)
+            auto_sharding_option=as_option, root=gm)
     num_stages = len(fwd_stage_layer_ids)
     fwd_stages = [merge_computations([fwd_comps[i] for i in ids],
                                      f"stage_{s}_fwd")
@@ -270,7 +270,7 @@ def _compile_inference(gm: fx.GraphModule, virtual_mesh, avals,
         stage_dp_info = cluster_layers_and_slice_mesh(
             len(computations), virtual_mesh, stage_option,
             layer_comps=computations, num_micro_batches=num_micro_batches,
-            objective="inference", auto_sharding_option=as_option)
+            objective="inference", auto_sharding_option=as_option, root=gm)
     fwd_stages = [merge_computations([computations[i] for i in ids],
                                      f"stage_{s}_fwd")
                   for s, ids in enumerate(fwd_stage_layer_ids)]

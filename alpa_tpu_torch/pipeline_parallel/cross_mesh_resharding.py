@@ -29,9 +29,10 @@ only into a card; the intra-mesh legs run ``shard_parallel.collectives``
 A value on a mesh of one device is a plain tensor (its plan one piece,
 the whole tensor); on a wider mesh it is a ``DistributedArray``.
 
-Waiting for other modules: the compile cache and calibration store
-behind ``resolve_strategy`` and its metrics families (ROADMAP A.6), and
-``run_multiprocess`` (A.1).
+``resolve_strategy`` replays each edge's decision from the compile cache
+(namespace ``reshard_strategy``); the planner's counters are the
+``alpa_resharding_*`` families and ``alpa_reshard_strategy_total``.
+Waiting for another module: ``run_multiprocess`` (A.1).
 """
 import dataclasses
 import hashlib
@@ -42,6 +43,8 @@ import numpy as np
 import torch
 
 from alpa_tpu_torch.device_mesh import DistributedArray
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
+from alpa_tpu_torch.telemetry import trace as _ttrace
 from alpa_tpu_torch.shard_parallel.sharding_spec import Spec, local_slices
 
 Slice = Tuple[int, int]
@@ -324,32 +327,55 @@ def plan_send_order(spec: ReshardingTaskSpec) -> Tuple[Tuple[int, int], ...]:
     return tuple(order)
 
 
-_PLANNER_STATS = {"plans": 0, "total_bytes": 0.0, "broadcast_bytes": 0.0,
-                  "max_link_bytes": 0.0, "max_link_bytes_naive": 0.0}
+# the planner's counters, as the JAX module keeps them in the registry
+_PLANNER_REG = _tmetrics.get_registry()
+_PLANS = _PLANNER_REG.counter(
+    "alpa_resharding_plans_total", "Resharding plans computed")
+_PLAN_BYTES = _PLANNER_REG.counter(
+    "alpa_resharding_planned_bytes_total",
+    "Planned cross-mesh payload bytes (send_recv accounting)")
+_PLAN_BCAST_BYTES = _PLANNER_REG.counter(
+    "alpa_resharding_planned_broadcast_bytes_total",
+    "Planned cross-mesh payload bytes under broadcast routing")
+_PLAN_MAX_LINK = _PLANNER_REG.gauge(
+    "alpa_resharding_max_link_bytes",
+    "Max per-device link bytes over all plans, balanced routing")
+_PLAN_MAX_LINK_NAIVE = _PLANNER_REG.gauge(
+    "alpa_resharding_max_link_bytes_naive",
+    "Max per-device link bytes over all plans, naive routing")
+_STRATEGY_COUNT = _PLANNER_REG.counter(
+    "alpa_reshard_strategy_total",
+    "Cross-mesh resharding edges planned, per chosen strategy",
+    labelnames=("kind",))
 
 
 def _record_plan(spec: ReshardingTaskSpec):
-    _PLANNER_STATS["plans"] += 1
-    _PLANNER_STATS["total_bytes"] += spec.transfer_bytes
-    _PLANNER_STATS["broadcast_bytes"] += spec.broadcast_bytes
-    _PLANNER_STATS["max_link_bytes"] = max(
-        _PLANNER_STATS["max_link_bytes"], spec.max_link_bytes,
-        spec.max_link_bytes_broadcast)
-    _PLANNER_STATS["max_link_bytes_naive"] = max(
-        _PLANNER_STATS["max_link_bytes_naive"], spec.max_link_bytes_naive,
-        spec.max_link_bytes_broadcast_naive)
+    _PLANS.inc()
+    _PLAN_BYTES.inc(spec.transfer_bytes)
+    _PLAN_BCAST_BYTES.inc(spec.broadcast_bytes)
+    _PLAN_MAX_LINK.set_max(max(spec.max_link_bytes,
+                               spec.max_link_bytes_broadcast))
+    _PLAN_MAX_LINK_NAIVE.set_max(max(spec.max_link_bytes_naive,
+                                     spec.max_link_bytes_broadcast_naive))
 
 
 def get_planner_stats() -> Dict[str, float]:
     """The planner's counters since the last reset: plans made, planned
     and broadcast bytes, the largest max-link objective balanced and
-    naive (plain counters; the metrics families wait for ROADMAP A.6)."""
-    return dict(_PLANNER_STATS)
+    naive (a view over the registry's ``alpa_resharding_*``)."""
+    return {
+        "plans": int(_PLANS.value),
+        "total_bytes": _PLAN_BYTES.value,
+        "broadcast_bytes": _PLAN_BCAST_BYTES.value,
+        "max_link_bytes": _PLAN_MAX_LINK.value,
+        "max_link_bytes_naive": _PLAN_MAX_LINK_NAIVE.value,
+    }
 
 
 def reset_planner_stats():
-    _PLANNER_STATS.update(plans=0, total_bytes=0.0, broadcast_bytes=0.0,
-                          max_link_bytes=0.0, max_link_bytes_naive=0.0)
+    for fam in (_PLANS, _PLAN_BYTES, _PLAN_BCAST_BYTES, _PLAN_MAX_LINK,
+                _PLAN_MAX_LINK_NAIVE):
+        fam.reset()
 
 
 def _plan(shape, itemsize, src_sharding: MeshSharding,
@@ -420,8 +446,7 @@ def plan_resharding(shape: Sequence[int], itemsize: int,
     spec.wire_messages = int(st["max_link_messages"])
     spec.wire_bytes = float(st["total_bytes"])
     spec.strategy_cached = bool(cached)
-    _STRATEGY_COUNT[spec.strategy] = _STRATEGY_COUNT.get(spec.strategy,
-                                                         0) + 1
+    _STRATEGY_COUNT.labels(spec.strategy).inc()
     _RECENT_PLANS.append({
         "shape": tuple(shape), "itemsize": int(itemsize),
         "src": _sharding_key(src_sharding),
@@ -640,8 +665,8 @@ def choose_strategy(shape, itemsize, src_sharding: MeshSharding,
     one ``global_config.reshard_strategy`` forces where it is eligible
     (else ``direct_p2p``).  The intra-mesh leg is priced by the
     destination's ``logical_mesh`` (``LogicalDeviceMesh``'s alpha-beta
-    costs), at 0 without one.  JAX's calibration-store prices wait for
-    ROADMAP A.6.  Returns (strategy, cost per candidate, candidates)."""
+    costs), at 0 without one.  Returns (strategy, cost per candidate,
+    candidates)."""
     from alpa_tpu_torch.global_env import global_config
     opts = collective_options(shape, itemsize, src_sharding, dst_sharding)
     lat = global_config.resharding_transfer_latency_s
@@ -672,19 +697,40 @@ def choose_strategy(shape, itemsize, src_sharding: MeshSharding,
 def resolve_strategy(shape, itemsize, src_sharding: MeshSharding,
                      dst_sharding: MeshSharding, logical_mesh=None
                      ) -> Tuple[str, Dict[str, float], bool]:
-    """``choose_strategy``'s decision as ``(strategy, costs, cached)``.
-    JAX's replays the decision from its compile cache; the port has no
-    compile cache yet (ROADMAP A.6), so every edge is costed and
-    ``cached`` is always False."""
+    """``choose_strategy``'s decision as ``(strategy, costs, cached)``,
+    replayed from the compile cache (namespace ``reshard_strategy``) where
+    it holds it.  The key covers the edge (shape, itemsize, both
+    shardings), the destination's logical mesh shape and every knob the
+    cost model reads, and the calibration token when replanning is on."""
+    from alpa_tpu_torch.compile_cache import cache_enabled, get_compile_cache
+    from alpa_tpu_torch.global_env import global_config
+    from alpa_tpu_torch.telemetry.calibration import calibration_cache_token
+    tok = calibration_cache_token()
+    parts = (tuple(shape), int(itemsize),
+             _sharding_key(src_sharding), _sharding_key(dst_sharding),
+             tuple(logical_mesh.shape) if logical_mesh is not None else None,
+             global_config.reshard_strategy,
+             global_config.resharding_wire_model,
+             global_config.resharding_transfer_latency_s,
+             global_config.resharding_wire_bandwidth) + \
+        ((tok,) if tok else ())
+    cache = get_compile_cache() if cache_enabled() else None
+    key = cache.make_key("reshard_strategy", parts) if cache else None
+    if cache is not None:
+        hit = cache.get("reshard_strategy", key)
+        if isinstance(hit, dict) and hit.get("strategy") in \
+                RESHARD_STRATEGIES:
+            return hit["strategy"], dict(hit.get("costs", {})), True
     chosen, costs, _ = choose_strategy(shape, itemsize, src_sharding,
                                        dst_sharding, logical_mesh)
+    if cache is not None:
+        cache.put("reshard_strategy", key,
+                  {"strategy": chosen, "costs": costs})
     return chosen, costs, False
 
 
 #: the most recent per-edge strategy decisions (``format_resharding_plan``)
 _RECENT_PLANS: deque = deque(maxlen=128)
-#: edges planned per chosen strategy since the process started
-_STRATEGY_COUNT: Dict[str, int] = {}
 
 
 def strategy_plan_fingerprint() -> str:
@@ -966,6 +1012,12 @@ class DirectTransfer:
         return self.task.last_report
 
     def __call__(self, src_shards):
+        if _ttrace.enabled():
+            # the edge's bytes and host time, on the calling thread's track
+            with _ttrace.get_recorder().span(
+                    "reshard.edge", "resharding",
+                    {"bytes": self.nbytes, "strategy": self.strategy}):
+                return self.task(src_shards)
         return self.task(src_shards)
 
 
@@ -1001,6 +1053,14 @@ class CollectiveTransfer:
         self.last_report: Optional[ExecutionReport] = None
 
     def __call__(self, src_shards):
+        if _ttrace.enabled():
+            with _ttrace.get_recorder().span(
+                    "reshard.edge", "resharding",
+                    {"bytes": self.nbytes, "strategy": self.strategy}):
+                return self._transfer(src_shards)
+        return self._transfer(src_shards)
+
+    def _transfer(self, src_shards):
         from alpa_tpu_torch.shard_parallel import collectives
         shards, _ = self.task(src_shards)
         report = dataclasses.replace(self.task.last_report,

@@ -52,8 +52,24 @@ RESHARD a copy on a side stream that waits for its source's event.  The
 flash kernels' launch counters advance by each graph's captured launches
 at every replay.  ``_capture = False`` (a private switch for the tests and
 ``chip_smoke.py``) runs the stage graphs uncaptured, all on the current
-stream.  The fault, flight-recorder and trace hooks of the JAX driver are
-not ported (ROADMAP A.6).
+stream.
+
+Measurement, as the JAX driver's (``telemetry/``): each launch is a
+``pipeshard.step`` span, observed in ``alpa_pipeshard_dispatch_seconds``,
+and a raising launch dumps the flight recorder (``flight.auto_dump``).
+The register-file replay runs its per-op hooks (flight events on the host
+clock, on by default; trace spans while tracing or ``collect_trace`` is
+on; the slot hazard checker), as do the "sequential" and "threaded"
+loops per instruction (tracks ``"mesh N"``).  On CUDA a traced step times
+each op by a CUDA event pair on the op's stream (``_DeviceClock``; in a
+captured step recorded after the op's cross-stream waits), syncs the
+cards after the step and records the spans on the device clock, anchored
+to the host clock at the step's start, with the host's dispatch time as
+an argument: a replayed CUDA graph returns in microseconds, so a host
+span would time its launch.  None of the hooks is captured into a graph.
+``get_perf_report`` joins the last step's spans against the program's
+dataflow graph (``telemetry.perf.StepPerfReport``) and feeds the
+calibration store; the fault hook comes with ``fault.py``.
 """
 import functools
 import logging
@@ -84,12 +100,22 @@ from alpa_tpu_torch.pipeline_parallel.runtime_emitter import (
     emit_free_instructions, lower_to_register_file, partition_streams)
 from alpa_tpu_torch.pipeline_parallel.schedules import \
     create_pipeline_schedule
+from alpa_tpu_torch.telemetry import flight as _flight
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
+from alpa_tpu_torch.telemetry import trace as _ttrace
+from alpa_tpu_torch.util import node_flops
 
 logger = logging.getLogger(__name__)
 aten = torch.ops.aten
 
 # "auto" and the JAX package's other modes, a private switch
 DISPATCH_MODES = ("auto", "registers", "overlap", "sequential", "threaded")
+
+# the driver's host time of one pipeshard step (the whole launch, not the
+# device's)
+_DISPATCH_SECONDS = _tmetrics.get_registry().histogram(
+    "alpa_pipeshard_dispatch_seconds",
+    "launch_on_driver dispatch latency per pipeshard step")
 
 
 def _aliases_its_input(node: fx.Node) -> bool:
@@ -179,9 +205,12 @@ class StageExecutable:
                  donate: Sequence[int] = (), device_id: int = 0):
         self.name = comp.name
         self.mesh_id = mesh_id
+        self.num_devices = 1
         self.invars = list(comp.invars)
         self.outvars = list(comp.outvars)
         self.num_nodes = len(comp.nodes)
+        # one run's analytic flops (``telemetry.perf.stage_flops``)
+        self.flops = float(sum(node_flops(n) for n in comp.nodes))
         self.module = comp.get_runnable(root, device)
         self.aliased = alias_donated_inputs(
             self.module, donate, [v.meta.get("val") for v in self.invars])
@@ -288,6 +317,7 @@ class SpmdStageExecutable:
         self.invars = list(comp.invars)
         self.outvars = list(comp.outvars)
         self.num_nodes = len(comp.nodes)
+        self.flops = float(sum(node_flops(n) for n in comp.nodes))
         self.physical_mesh = physical_mesh
         self.num_devices = physical_mesh.num_devices
         self.device_ids = tuple(int(i) for i in np.asarray(device_ids).flat)
@@ -570,9 +600,21 @@ def _signature(x: torch.Tensor):
     return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
 
 
-def _on_stream(op, stream, waits, records):
+def _on_stream(op, stream, waits, records, timing=None):
     """``op`` enqueued on ``stream`` after the events ``waits``, recording
-    the events ``records`` after it."""
+    the events ``records`` after it; ``timing``, a pair of timing events
+    recorded around the op after the waits."""
+    if timing is not None:
+        def run(regs, _op=op, _s=stream, _w=waits, _r=records, _t=timing):
+            with torch.cuda.stream(_s):
+                for e in _w:
+                    _s.wait_event(e)
+                _t[0].record(_s)
+                _op(regs)
+                _t[1].record(_s)
+                for e in _r:
+                    e.record(_s)
+        return run
     if not waits and not records:
         def run(regs, _op=op, _s=stream):
             with torch.cuda.stream(_s):
@@ -587,6 +629,70 @@ def _on_stream(op, stream, waits, records):
             for e in _r:
                 e.record(_s)
     return run
+
+
+class _DeviceClock:
+    """The ops of a traced step timed on the device: a CUDA event pair per
+    op ``k``, recorded on the op's stream -- by ``_on_stream`` itself
+    after the op's waits where ``baked``, else on the current stream of
+    the op's device around the call.  ``spans`` reads them after the
+    step's final sync, anchored to the host clock at the step's start
+    (``anchor``, taken after a sync)."""
+
+    def __init__(self, op_devices, baked: bool = False):
+        self.op_devices = [torch.device("cuda", torch.device(d).index or 0)
+                           for d in op_devices]
+        self.pairs = [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+                      for _ in self.op_devices]
+        self.baked = baked
+        self.pending: List[Tuple[int, str, str, str, float]] = []
+
+    def wrap(self, op, k, name, cat, track):
+        start, end = self.pairs[k]
+        dev = self.op_devices[k]
+        pend, now = self.pending, _ttrace.now_us
+        if self.baked:
+            def timed(regs, _op=op):
+                t0 = now()
+                _op(regs)
+                pend.append((k, name, cat, track, now() - t0))
+        else:
+            def timed(regs, _op=op):
+                s = torch.cuda.current_stream(dev)
+                start.record(s)
+                t0 = now()
+                _op(regs)
+                end.record(s)
+                pend.append((k, name, cat, track, now() - t0))
+        return timed
+
+    @staticmethod
+    def anchor(devices) -> Dict[torch.device, Tuple[Any, float]]:
+        """Per device an event recorded on its idle current stream and the
+        host time beside it."""
+        out = {}
+        for d in devices:
+            torch.cuda.synchronize(d)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(d))
+            out[d] = (ev, _ttrace.now_us())
+        return out
+
+    def spans(self, anchors) -> List[Tuple[int, str, str, str, float, float,
+                                           float]]:
+        """``(k, name, category, track, ts_us, dur_us, host_us)`` of the
+        ops run since the last call, in op order, on the device clock."""
+        out = []
+        for k, name, cat, track, host_us in sorted(self.pending,
+                                                   key=lambda r: r[0]):
+            start, end = self.pairs[k]
+            ev, host0 = anchors[self.op_devices[k]]
+            ts = host0 + ev.elapsed_time(start) * 1e3
+            out.append((k, name, cat, track, ts,
+                        max(0.0, start.elapsed_time(end) * 1e3), host_us))
+        self.pending.clear()
+        return out
 
 
 class _CapturedStep:
@@ -625,6 +731,9 @@ class _CapturedStep:
         self.handed: Dict[int, Any] = {}
         self.transfers: Dict[int, Callable] = {}
         self.programs: Dict[str, Any] = {}
+        # mode -> (the program's ops on their streams with timing events,
+        # their ``_DeviceClock``), built when a step is first traced
+        self.timed: Dict[str, Any] = {}
         self.pool_bytes: Optional[int] = None
 
     def mismatches(self, inputs) -> Tuple[set, set]:
@@ -649,10 +758,12 @@ class _CapturedStep:
 
 def _refuse_wide_stages_over_cards(mesh_device_lists):
     """Stage meshes of several devices run over one card (named as often as
-    the mesh has devices) and the host.  Over distinct cards the two-level
-    step's gradient of the tied embedding misses the one-device step's by
-    4.6e-02 of its largest entry on four H100s, untraced (ROADMAP C.4), so
-    such a pipeline is refused until that is repaired."""
+    the mesh has devices) and the host.  Over distinct cards (two H100s or
+    four) the two-level step's first moment of the first stage's weights
+    misses the one-device step's (9.2e-01 of its largest entry at the tied
+    embedding), deterministically, with every collective and tile right
+    and with every card synchronised around them (ROADMAP C.4), so such a
+    pipeline is refused until that is repaired."""
     if max(len(devs) for devs in mesh_device_lists) == 1:
         return
     cards = sorted({d.index or 0 for devs in mesh_device_lists
@@ -690,6 +801,11 @@ class PipeshardDriverExecutable:
                                 for m in meshes]
         self.mesh_devices = [devs[0] for devs in self.mesh_device_lists]
         self.mesh_sizes = [len(devs) for devs in self.mesh_device_lists]
+        # (hosts, devices per host) of each stage mesh, and the schedule's
+        # name (``parallel_plan.executable_to_plan``)
+        self.mesh_shapes = [tuple(int(x) for x in m.devices.shape)
+                            for m in meshes]
+        self.schedule_name = schedule_name
         _refuse_wide_stages_over_cards(self.mesh_device_lists)
         self.num_meshes = len(fwd_stages)
         self.num_micro_batches = num_micro_batches
@@ -794,6 +910,19 @@ class PipeshardDriverExecutable:
         self._eager = None
         self._warned_fallback = False
         self._race_checker = None
+        # telemetry: per-instruction span names, the device clocks of the
+        # uncaptured programs, the last step's device-clock ops (None when
+        # it was not traced), the step count and the last step ingested
+        # into the calibration store
+        self._inst_name_table = None
+        self._clocks: Dict[str, _DeviceClock] = {}
+        self._clock = None
+        self._anchors = {}
+        self._device_ops = None
+        self._steps = 0
+        self._ingested_step = 0
+        self._last_program = None
+        self._step_t0_us = self._step_t1_us = 0.0
         self._acct_lock = threading.Lock()
         self._moved = 0
         self.executed_cross_mesh_bytes = 0.0
@@ -1097,6 +1226,28 @@ class PipeshardDriverExecutable:
 
     # ---- execution ----
     def launch_on_driver(self, *flat_args):
+        t0 = time.perf_counter()
+        step_span = _ttrace.begin("pipeshard.step", "runtime")
+        self._step_t0_us = _ttrace.now_us()
+        self._clock = None
+        self._device_ops = None
+        self._steps += 1
+        try:
+            outs = self._launch(*flat_args)
+            if self._clock is not None:
+                self._flush_device_spans()
+            return outs
+        except BaseException:
+            # the ops that led up to the failure (nothing when the ring
+            # is empty or already dumped)
+            _flight.auto_dump("pipeshard step raised")
+            raise
+        finally:
+            self._step_t1_us = _ttrace.now_us()
+            _ttrace.end(step_span)
+            _DISPATCH_SECONDS.observe(time.perf_counter() - t0)
+
+    def _launch(self, *flat_args):
         mode = self._dispatch_mode()
         inputs = self._unshare_written_inputs(flat_args)
         self._moved = 0
@@ -1237,18 +1388,34 @@ class PipeshardDriverExecutable:
                                  "captures": self.capture_count,
                                  "recaptures": self.recapture_count,
                                  "meshes": self._mesh_modes(graphs)}
+        traced = _ttrace.enabled() or global_config.collect_trace
+        on_cuda = self._device_timed()
         if mode in ("registers", "overlap"):
             prog = self._program(mode, runs, transfers, step)
             regs: List[Any] = [None] * prog.num_slots
             slot_of = prog.slot_of
             for key, x in env.items():
                 regs[slot_of[key]] = x
-            prog.execute(regs, step.programs[mode][1]
-                         if step is not None else None)
+            ops = step.programs[mode][1] if step is not None else None
+            timer = None
+            if traced and on_cuda:
+                if step is not None:
+                    if mode not in step.timed:
+                        step.timed[mode] = self._timed_stream_ops(
+                            prog, step, transfers)
+                    ops, timer = step.timed[mode]
+                else:
+                    timer = self._eager_clock(mode, prog)
+                self._start_clock(timer)
+            prog.execute(regs, ops, timer)
+            self._last_program = prog
             if step is None:
                 self._register_program = prog
             stats["n_ops"] = len(prog.ops)
             if mode == "overlap":
+                from alpa_tpu_torch.pipeline_parallel.runtime_emitter \
+                    import record_overlap_step
+                record_overlap_step(prog)
                 busy = prog.run_stats["transfer_busy_s"]
                 blocked = prog.run_stats["wait_blocked_s"]
                 stats.update(
@@ -1259,12 +1426,18 @@ class PipeshardDriverExecutable:
                     overlap_fraction=(max(0.0, min(1.0, 1 - blocked / busy))
                                       if busy > 0 else 1.0))
             get = lambda key: regs[slot_of[key]]  # noqa: E731
-        elif mode == "threaded":
-            self._run_streams_threaded(env, runs, transfers, step)
-            get = env.__getitem__
         else:
-            for i, inst in enumerate(self.instructions):
-                self._exec_inst(i, inst, env, runs, transfers)
+            self._last_program = None
+            clock = None
+            if traced and on_cuda:
+                clock = self._eager_clock("instructions", None)
+                self._start_clock(clock)
+            run = self._inst_runner(env, runs, transfers, clock)
+            if mode == "threaded":
+                self._run_streams_threaded(run, step)
+            else:
+                for i in range(len(self.instructions)):
+                    run(i)
             get = env.__getitem__
         stats["loop_s"] = loop = time.perf_counter() - loop_tic
         stats["per_inst_us"] = loop / max(1, len(self.instructions)) * 1e6
@@ -1295,7 +1468,67 @@ class PipeshardDriverExecutable:
             for key in inst.free_keys:
                 env.pop(tuple(key), None)
 
-    def _run_streams_threaded(self, env, runs, transfers, step):
+    def _inst_names(self) -> List[Tuple[str, int]]:
+        """``(span name, mesh)`` of each instruction, as the register-file
+        lowering names its ops."""
+        if self._inst_name_table is None:
+            from alpa_tpu_torch.pipeline_parallel.runtime_emitter import \
+                _strategy_of
+            table = []
+            for inst in self.instructions:
+                if inst.opcode == PipelineInstType.RUN:
+                    table.append((f"RUN {inst.info}", inst.dst_mesh))
+                elif inst.opcode == PipelineInstType.RESHARD:
+                    strategy = _strategy_of(inst)
+                    tag = "" if strategy == "direct_p2p" else \
+                        f" [{strategy}]"
+                    table.append((f"RESHARD {inst.src_mesh}->"
+                                  f"{inst.dst_mesh}{tag}", inst.dst_mesh))
+                else:
+                    table.append(("FREE", inst.free_keys[0][2]
+                                  if inst.free_keys else 0))
+            self._inst_name_table = table
+        return self._inst_name_table
+
+    def _inst_runner(self, env, runs, transfers, clock):
+        """``run(idx)``: instruction ``idx`` of the "sequential" and
+        "threaded" loops, inside a flight event and a span (the device
+        clock's on CUDA) where those are on."""
+        insts = self.instructions
+
+        def plain(idx):
+            self._exec_inst(idx, insts[idx], env, runs, transfers)
+        trace_on = _ttrace.enabled() or global_config.collect_trace
+        flight_on = _flight.enabled()
+        if not (trace_on or flight_on):
+            return plain
+        names = self._inst_names()
+        rec = _flight.get_recorder() if flight_on else None
+        trec = _ttrace.get_recorder()
+
+        def hooked(idx):
+            name, mesh = names[idx]
+            op = lambda regs: plain(idx)  # noqa: E731
+            if clock is not None:
+                op = clock.wrap(op, idx, name, "instruction", f"mesh {mesh}")
+            t0 = _flight.now_us()
+            try:
+                if trace_on and clock is None:
+                    with trec.span(name, "instruction", None, f"mesh {mesh}"):
+                        op(None)
+                else:
+                    op(None)
+            except BaseException as e:  # noqa: B036 -- recorded, re-raised
+                if rec is not None:
+                    rec.record("exec", name, mesh, idx, (), t0,
+                               _flight.now_us(), f"error:{type(e).__name__}")
+                raise
+            if rec is not None:
+                rec.record("exec", name, mesh, idx, (), t0, _flight.now_us(),
+                           "ok")
+        return hooked
+
+    def _run_streams_threaded(self, run, step):
         """Per-mesh worker threads over ``partition_streams``' streams, each
         instruction after its cross-stream dependencies (per-instruction
         events; on CUDA also a CUDA event on the mesh's stream).  Every edge
@@ -1340,8 +1573,7 @@ class PipeshardDriverExecutable:
                                 cuda_stream.wait_event(step.events[dep])
                         accs = checker.begin(idx) if checker else None
                         try:
-                            self._exec_inst(idx, self.instructions[idx], env,
-                                            runs, transfers)
+                            run(idx)
                         finally:
                             if checker:
                                 checker.end(idx, accs)
@@ -1396,12 +1628,80 @@ class PipeshardDriverExecutable:
             self._eager = (runs, transfers)
         return self._eager
 
-    def _stream_ops(self, prog, step, transfers):
+    def _eager_clock(self, key, prog) -> "_DeviceClock":
+        """The device clock of the uncaptured ops of ``key`` (a dispatch
+        mode's program, or "instructions" for the interpreter loops), each
+        timed on its mesh's device."""
+        clock = self._clocks.get(key)
+        if clock is None:
+            meshes = ([h.mesh for h in prog.hooks] if prog is not None else
+                      [m for _, m in self._inst_names()])
+            clock = self._clocks[key] = _DeviceClock(
+                [self.mesh_devices[m] for m in meshes])
+        return clock
+
+    def _start_clock(self, clock: "_DeviceClock"):
+        """Sync the cards and take the host/device anchors of a traced
+        step; its spans are recorded after the step."""
+        clock.pending.clear()
+        self._clock = clock
+        self._anchors = _DeviceClock.anchor(self._cuda_devices())
+
+    def _device_timed(self) -> bool:
+        """Whether the step's ops are timed on the device clock (CUDA): a
+        replayed graph returns to the host in microseconds, so only a
+        traced step times them.  On the CPU the host clock is the
+        device's."""
+        return self.mesh_devices[0].type == "cuda"
+
+    def _cuda_devices(self) -> List[torch.device]:
+        return list(dict.fromkeys(
+            torch.device("cuda", d.index or 0) for devs in
+            self.mesh_device_lists for d in devs if d.type == "cuda"))
+
+    def _flush_device_spans(self):
+        """After a traced step on CUDA: sync the cards, record each op's
+        device-clock span (``complete``; the host's dispatch time as the
+        ``host_dispatch_us`` argument) and keep them for
+        ``get_perf_report``."""
+        from alpa_tpu_torch.analysis.critical_path import TimedOp
+        for d in self._cuda_devices():
+            torch.cuda.synchronize(d)
+        clock, self._clock = self._clock, None
+        rec = _ttrace.get_recorder()
+        prog = self._last_program
+        kinds = ([h.kind for h in prog.hooks] if prog is not None and
+                 prog.hooks is not None else None)
+        ops = []
+        for k, name, cat, track, ts, dur, host_us in clock.spans(
+                self._anchors):
+            rec.complete(name, cat, ts, dur, {"host_dispatch_us": host_us,
+                                              "clock": "device"}, track)
+            kind = kinds[k] if kinds is not None else "exec"
+            ops.append(TimedOp(idx=len(ops), name=name, kind=kind,
+                               track=track, t0_us=ts, t1_us=ts + dur))
+        self._device_ops = (ops, prog)
+
+    def _timed_stream_ops(self, prog, step, transfers):
+        """The program's stream ops with a timing event pair baked into
+        each (``_on_stream``), and their clock."""
+        stream_of = self._instruction_streams.stream_of
+        devices = []
+        for kind, members, _, _ in prog.op_info:
+            # the device of the stream ``_stream_ops`` puts the op on
+            m = (self.instructions[members[0]].dst_mesh if kind == "launch"
+                 else stream_of[members[0]])
+            devices.append(self.mesh_devices[m])
+        clock = _DeviceClock(devices, baked=True)
+        return self._stream_ops(prog, step, transfers, clock.pairs), clock
+
+    def _stream_ops(self, prog, step, transfers, timing=None):
         """The program's ops on CUDA streams: each instruction's op on its
         mesh's stream after the events of its cross-stream dependencies; a
         launched transfer on its device's side stream after the events of
         all its predecessors in the dataflow graph; a wait makes the
-        destination's stream wait for the transfer's event."""
+        destination's stream wait for the transfer's event.  ``timing``:
+        a pair of timing events per op, recorded around it."""
         deps = self._instruction_streams.deps
         stream_of = self._instruction_streams.stream_of
         preds = prog.graph.preds
@@ -1417,13 +1717,14 @@ class PipeshardDriverExecutable:
                 waits_of.append(set(members[:1]))
         needed = set().union(*waits_of) if waits_of else set()
         ops = []
-        for op, (kind, members, srcs, dsts), waits in zip(
-                prog.ops, prog.op_info, waits_of):
+        for k, (op, (kind, members, srcs, dsts), waits) in enumerate(zip(
+                prog.ops, prog.op_info, waits_of)):
             wait_evs = [step.events[d] for d in sorted(waits)]
+            tm = timing[k] if timing is not None else None
             if kind == "exec":
                 stream = step.mesh_streams[stream_of[members[0]]]
                 records = [step.events[i] for i in members if i in needed]
-                ops.append(_on_stream(op, stream, wait_evs, records))
+                ops.append(_on_stream(op, stream, wait_evs, records, tm))
             elif kind == "launch":
                 inst = self.instructions[members[0]]
                 stream = step.side_streams[self.mesh_devices[inst.dst_mesh]]
@@ -1433,11 +1734,11 @@ class PipeshardDriverExecutable:
                     for t, s, d in zip(_t, _s, _d):
                         regs[d] = t(regs[s])
                 ops.append(_on_stream(launch, stream, wait_evs,
-                                      [step.events[i] for i in members]))
+                                      [step.events[i] for i in members], tm))
             else:
                 stream = step.mesh_streams[stream_of[members[0]]]
                 ops.append(_on_stream(lambda regs: None, stream, wait_evs,
-                                      []))
+                                      [], tm))
         return ops
 
     # ---- CUDA graphs ----
@@ -1850,6 +2151,189 @@ class PipeshardDriverExecutable:
         """Bytes the CUDA graphs' memory pools reserve (their intermediates
         and outputs, measured after the capture); None before a capture."""
         return None if self._captured is None else self._captured.pool_bytes
+
+    # ---- measurement ----
+    def _last_joined(self):
+        """The last step's ops as a ``telemetry.perf.JoinedStep``: on CUDA
+        the device-clock ops ``_flush_device_spans`` kept (in op order,
+        joined to the program's hooks), None when the last step was not
+        traced; on the CPU the recorder's host spans (JAX's join), else
+        the flight ring."""
+        from alpa_tpu_torch.telemetry import perf as _perf
+        prog = self._last_program
+        if self._device_timed():
+            if self._device_ops is None:
+                return None, prog
+            ops, dprog = self._device_ops
+            rec = _ttrace.get_recorder()
+            t0, t1 = self._step_t0_us, self._step_t1_us
+            pool = [s for s in rec.spans()
+                    if (s.get("track") or "").startswith("alpa-overlap")
+                    and t0 - 1.0 <= s["ts_us"] <= t1 + 1.0]
+            aligned = (dprog is not None and dprog.hooks is not None and
+                       len(ops) == len(dprog.hooks))
+            if ops:
+                t0 = min(t0, min(o.t0_us for o in ops))
+                t1 = max(t1, max(o.t1_us for o in ops))
+            return _perf.JoinedStep(ops=ops, t0_us=t0, envelope_us=t1 - t0,
+                                    pool_spans=pool, source="trace",
+                                    aligned=aligned), dprog
+        joined = _perf.joined_from_recorder(_ttrace.get_recorder(), prog)
+        if joined is None and _flight.enabled():
+            joined = _perf.joined_from_flight(
+                _flight.get_recorder().snapshot(), prog)
+        return joined, prog
+
+    def get_perf_report(self):
+        """The last step's ``telemetry.perf.StepPerfReport`` (``alpa_tpu/
+        pipeline_parallel/pipeshard_executable.py:1555``): critical path,
+        per-mesh bubbles, transfer overlap, stage MFU, joined against the
+        lowered program's dataflow graph.  On CUDA it reads the device
+        clock, so the last step must have been traced (``telemetry.trace.
+        set_enabled(True)`` or ``collect_trace``): else None, never the
+        flight ring's host times, which order the ops only.  Publishes
+        ``alpa_stage_mfu``, ``alpa_step_bubble_fraction`` and
+        ``alpa_critical_path_us``, and feeds the calibration store once
+        per step.  None when no step was recorded."""
+        from alpa_tpu_torch.telemetry import calibration as _calibration
+        from alpa_tpu_torch.telemetry import perf as _perf
+        joined, prog = self._last_joined()
+        if joined is None:
+            return None
+        stats = self.last_dispatch_stats or {}
+        peak = None
+        if self.mesh_devices[0].type != "cuda":
+            # no card: MFU against the knob, else nothing meaningful
+            peak = global_config.device_peak_tflops or float("inf")
+        report = _perf.build_step_report(
+            joined, program=prog, schedule=self.schedule,
+            stage_execs=self.stage_execs + [e for e in self.apply_execs
+                                            if e is not None],
+            mode=stats.get("mode"), run_stats=stats, peak_tflops=peak)
+        _perf.publish_report(report)
+        if self._ingested_step != self._steps:
+            self._ingested_step = self._steps
+            try:
+                _calibration.ingest_joined(joined)
+            except Exception:  # pylint: disable=broad-except
+                logger.exception("calibration ingest failed")
+        self._last_joined_step = joined
+        return report
+
+    def get_perf_report_text(self) -> str:
+        """The report as text, or why there is none."""
+        report = None
+        try:
+            report = self.get_perf_report()
+        except Exception:  # pylint: disable=broad-except
+            logger.exception("get_perf_report_text failed")
+        if report is None:
+            if self._device_timed():
+                return ("perf report: (not available -- the last step was "
+                        "not traced; enable tracing via ALPA_TPU_TRACE=1 "
+                        "or collect_trace and run a step)")
+            return ("perf report: (not available -- no step recorded; "
+                    "enable tracing via ALPA_TPU_TRACE=1 or the flight "
+                    "ring via ALPA_TPU_FLIGHT=1 and run a step)")
+        return report.format_text()
+
+    def get_calibration_text(self) -> str:
+        """The calibration store's entries ranked by drift from the
+        analytic model."""
+        from alpa_tpu_torch.telemetry.calibration import \
+            format_calibration_report
+        return format_calibration_report()
+
+    def consider_replan(self, report=None):
+        """Profile-guided replanning (``alpa_tpu/pipeline_parallel/
+        pipeshard_executable.py:1610``) per ``global_config.replan_mode``:
+        "off" returns None; "suggest" predicts the step's critical path
+        from the calibration store's measured stage and wire medians
+        (``simulate_dag`` over the report's dependency DAG) and returns the
+        verdict.  "auto" raises: it would re-choose the resharding
+        strategies from the store, and the port's strategy chooser prices
+        edges by the wire model, not by the store (ROADMAP A.6).  None
+        when off or when no step was measured."""
+        from alpa_tpu_torch.analysis.critical_path import simulate_dag
+        from alpa_tpu_torch.telemetry import calibration as _calibration
+        mode = global_config.replan_mode
+        if mode == "off":
+            return None
+        if mode == "auto":
+            raise NotImplementedError(
+                "replan_mode='auto' re-chooses resharding strategies from "
+                "the calibration store, which the port's strategy chooser "
+                "does not read yet (ROADMAP A.6); use 'suggest'")
+        if report is None:
+            report = self.get_perf_report()
+        if report is None or not report.sim_durs_us:
+            return None
+        store = _calibration.get_calibration_store()
+        baseline_us, _ = simulate_dag(report.sim_durs_us, report.sim_preds)
+        durs = list(report.sim_durs_us)
+        for op in report.sim_ops:
+            stage = _calibration._stage_from_name(op.name)  # pylint: disable=protected-access
+            m = None
+            if stage is not None:
+                m = store.measured_us("stage_run",
+                                      _calibration.stage_signature(stage))
+            elif op.kind == "wait":
+                edge = _calibration._edge_from_name(op.name)  # pylint: disable=protected-access
+                if edge is not None:
+                    m = store.measured_us("reshard_wire",
+                                          _calibration.edge_signature(*edge))
+            if m is not None and 0 <= op.idx < len(durs):
+                durs[op.idx] = m
+        predicted_us, _ = simulate_dag(durs, report.sim_preds)
+        verdict = {
+            "mode": mode,
+            "baseline_critical_path_us": baseline_us,
+            "predicted_critical_path_us": predicted_us,
+            "predicted_ratio": (predicted_us / baseline_us
+                                if baseline_us > 0 else 1.0),
+            "strategy_flips": [],
+            "applied": False,
+            "calibration_fingerprint": store.fingerprint(),
+        }
+        logger.info("replan(%s): predicted critical path %.1f us vs "
+                    "measured %.1f us", mode, predicted_us, baseline_us)
+        return verdict
+
+    def get_plan_fingerprint(self) -> str:
+        """A content hash of the compiled plan: the instruction stream and
+        every stage's input and output shardings (``alpa_tpu/
+        pipeline_parallel/pipeshard_executable.py:1738``).  Two
+        executables with equal fingerprints replay alike."""
+        import hashlib
+        import re
+        parts = [self.get_instruction_text()]
+        for ex in self.stage_execs + [e for e in self.apply_execs
+                                      if e is not None]:
+            parts.append(ex.name)
+            parts.append(repr([str(sh) for sh in ex.in_shardings]))
+            parts.append(repr([str(sh) for sh in ex.out_shardings]))
+        text = re.sub(r"0x[0-9a-fA-F]+", "0x0", "\n".join(parts))
+        return hashlib.sha256(text.encode()).hexdigest()
+
+    def dump_stage_execution_trace(self, filename: str):
+        """Write the recorder's events (and the deprecated
+        ``timer.tracer``'s) as a Chrome trace JSON file.  Needs
+        ``collect_trace`` or tracing on while the steps ran; warns when
+        there is nothing."""
+        import json
+        from alpa_tpu_torch.timer import tracer
+        events = _ttrace.get_recorder().to_chrome_trace().get(
+            "traceEvents", [])
+        timed = [e for e in events if e.get("ph") != "M"]
+        legacy = tracer.to_chrome_trace()
+        if not timed and not legacy:
+            logger.warning(
+                "dump_stage_execution_trace: no events collected (last "
+                "dispatch mode: %s) -- set global_config.collect_trace = "
+                "True before running",
+                (self.last_dispatch_stats or {}).get("mode"))
+        with open(filename, "w", encoding="utf-8") as f:
+            json.dump({"traceEvents": events + legacy}, f)
 
 
 def _pool_bytes(pools) -> Optional[int]:

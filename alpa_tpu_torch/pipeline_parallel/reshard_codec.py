@@ -27,14 +27,17 @@ one-shot bound).  ``grad_reduce_scatter`` composes quantize,
 partial-reduce and requantize for ZeRO's reduce-scatter (two hops,
 ``ERROR_BOUND["grad_*_rs"]``).  Random draws come from an explicit
 ``torch.Generator``.  The numerics certifier that composes these bounds
-over a plan waits for ROADMAP A.7; the metrics families for A.6 (the
-counters here are plain).
+over a plan waits for ROADMAP A.7.  ``STATS`` keeps plain counters; the
+registry's ``alpa_reshard_quantized_*``, ``alpa_grad_quantized_*`` and
+``alpa_grad_error_feedback_norm`` families count the same events.
 """
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
 
 #: elements per scaling block; one fp32 scale crosses per block
 BLOCK = 256
@@ -56,9 +59,33 @@ _ELIGIBLE_DTYPES = (torch.float32, torch.bfloat16)
 
 #: plain counters: quantized edges per codec and wire bytes they saved;
 #: gradient tensors the plans routed through the codec, the bytes saved
+#: (also the registry's ``alpa_reshard_quantized_*`` and
+#: ``alpa_grad_quantized_*`` families)
 STATS: Dict[str, float] = {"edges_int8": 0, "edges_fp8": 0,
                            "bytes_saved": 0, "grad_tensors_int8": 0,
                            "grad_tensors_fp8": 0, "grad_bytes_saved": 0}
+
+_REG = _tmetrics.get_registry()
+_Q_EDGES = _REG.counter(
+    "alpa_reshard_quantized_edges_total",
+    "Cross-mesh transfers executed through the quantized codec",
+    labelnames=("codec",))
+_Q_BYTES_SAVED = _REG.counter(
+    "alpa_reshard_quantized_bytes_saved_total",
+    "Wire bytes saved by the quantized codec vs the lossless payload")
+_GQ_TENSORS = _REG.counter(
+    "alpa_grad_quantized_tensors_total",
+    "Gradient tensors the plan routed through the quantized "
+    "gradient-collective codec",
+    labelnames=("codec",))
+_GQ_BYTES_SAVED = _REG.counter(
+    "alpa_grad_quantized_bytes_saved_total",
+    "Gradient-sync wire bytes saved by the quantized codec vs "
+    "full-precision collectives")
+_GQ_EF_NORM = _REG.gauge(
+    "alpa_grad_error_feedback_norm",
+    "L2 norm of the most recent per-replica error-feedback residual "
+    "carried into the next step's gradient quantization")
 
 
 def have_fp8() -> bool:
@@ -207,6 +234,8 @@ class QuantizedTransfer:
                        move(block, device, "intra_mesh_bytes"))
         STATS[f"edges_{self.mode}"] += 1
         STATS["bytes_saved"] += max(0, self.nbytes - self.wire_nbytes)
+        _Q_EDGES.labels(self.mode).inc()
+        _Q_BYTES_SAVED.inc(max(0, self.nbytes - self.wire_nbytes))
         self.last_report = report
         return out, report.moved
 
@@ -240,6 +269,14 @@ def note_grad_quantized(codec: str, full_bytes: int,
     """Count one gradient tensor a plan routed through the codec."""
     STATS[f"grad_tensors_{codec}"] += 1
     STATS["grad_bytes_saved"] += max(0, int(full_bytes) - int(wire_nbytes))
+    _GQ_TENSORS.labels(codec).inc()
+    _GQ_BYTES_SAVED.inc(max(0, int(full_bytes) - int(wire_nbytes)))
+
+
+def note_error_feedback_norm(value: float) -> None:
+    """Export the residual buffer's L2 norm (read on the host by the
+    caller) as ``alpa_grad_error_feedback_norm``."""
+    _GQ_EF_NORM.set(float(value))
 
 
 def encode_stochastic(x: torch.Tensor, mode: str,

@@ -16,10 +16,19 @@ The lowering is device-agnostic: a RUN op calls the callable the driver
 gives for its instruction (a ``GraphModule`` call, or the replay of its
 CUDA graph), a RESHARD op the driver's transfer callable.  Each op records
 what it replays (``RegisterFileProgram.op_info``), so the driver can put
-it on a CUDA stream with its cross-stream waits.  The per-op hooks (fault,
-flight recorder, trace spans, the slot hazard checker), the plan verifier
-and the superoptimizer of the JAX module are not ported (ROADMAP A.6,
-A.7).
+it on a CUDA stream with its cross-stream waits.
+
+Each op also carries an ``OpHook`` (its kind, span name, mesh, dataflow
+node and slot footprint) and ``op_meta`` (span name, category, track
+``"mesh N"``), built at lowering.  ``RegisterFileProgram.execute`` checks
+once per step whether any instrumentation is on (``collect_trace`` or
+tracing, the flight recorder, ``debug_dispatch_races``) and then replays
+a wrapped op list compiled for that combination and cached by it: trace
+span > flight event > ``SlotHazardChecker``, as the JAX module nests them.
+With all of it off the raw closures run.  A driver may hand ``execute`` a
+``timer`` that times ops on the device instead of the host (the CUDA
+event pairs of ``pipeshard_executable``).  The fault hook comes with
+``fault.py``; the plan verifier and the superoptimizer are ROADMAP A.7.
 """
 import dataclasses
 import enum
@@ -27,6 +36,11 @@ import heapq
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from alpa_tpu_torch.global_env import global_config
+from alpa_tpu_torch.telemetry import flight as _flight
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
+from alpa_tpu_torch.telemetry import trace as _ttrace
 
 
 class PipelineInstType(enum.IntEnum):
@@ -424,6 +438,127 @@ def schedule_overlap(graph: InstructionDataflowGraph, window: int
 
 
 @dataclasses.dataclass
+class OpHook:
+    """One op's hook point, built at lowering (``alpa_tpu/
+    pipeline_parallel/runtime_emitter.py:591``): which dataflow node the
+    op replays, its slot footprint, its span name and mesh.  A batched
+    group op carries the union footprint and all its members."""
+    kind: str                             # "exec" | "launch" | "wait"
+    name: str                             # span / flight event label
+    node: int                             # dataflow node (group: first)
+    mesh: int
+    reads: Tuple[int, ...] = ()
+    writes: Tuple[int, ...] = ()
+    kills: Tuple[int, ...] = ()
+    slots: Tuple[int, ...] = ()           # union footprint (flight events)
+    members: Tuple[int, ...] = ()         # instruction indices replayed
+
+
+class SlotHazardChecker:
+    """The register and overlap replay's slot accesses held against the
+    transfers in flight (``alpa_tpu/pipeline_parallel/
+    runtime_emitter.py:630``): between a transfer's launch and its wait
+    nothing may read its destination slot, write either endpoint, or free
+    or donate them.  Armed by ``global_config.debug_dispatch_races``; a
+    violation raises at the step's end.  Driver thread only."""
+
+    def __init__(self):
+        self._inflight_src: Dict[int, int] = {}   # slot -> launch node
+        self._inflight_dst: Dict[int, int] = {}
+        self.violations: List[str] = []
+
+    def begin_step(self):
+        self._inflight_src.clear()
+        self._inflight_dst.clear()
+        self.violations = []
+
+    def on_launch(self, hook: OpHook):
+        for s in hook.reads:
+            self._inflight_src[s] = hook.node
+        for s in hook.writes:
+            self._inflight_dst[s] = hook.node
+
+    def on_wait(self, hook: OpHook):
+        for s in hook.reads:
+            self._inflight_src.pop(s, None)
+        for s in hook.writes:
+            self._inflight_dst.pop(s, None)
+
+    def on_exec(self, hook: OpHook):
+        for s in hook.reads:
+            n = self._inflight_dst.get(s)
+            if n is not None:
+                self.violations.append(
+                    f"{hook.name} (node {hook.node}) reads slot {s} "
+                    f"still owned by in-flight transfer node {n}")
+        for s in hook.writes:
+            for owners, role in ((self._inflight_src, "source"),
+                                 (self._inflight_dst, "destination")):
+                n = owners.get(s)
+                if n is not None:
+                    self.violations.append(
+                        f"{hook.name} (node {hook.node}) writes slot "
+                        f"{s}, the {role} of in-flight transfer node "
+                        f"{n}")
+        for s in hook.kills:
+            for owners, role in ((self._inflight_src, "source"),
+                                 (self._inflight_dst, "destination")):
+                n = owners.get(s)
+                if n is not None:
+                    self.violations.append(
+                        f"{hook.name} (node {hook.node}) frees/donates "
+                        f"slot {s}, the {role} of in-flight transfer "
+                        f"node {n}")
+
+    def check(self):
+        if self.violations:
+            raise RuntimeError(
+                "register/overlap replay raced an in-flight transfer "
+                "(graph schedule failed to serialize slot accesses):"
+                "\n  " + "\n  ".join(self.violations[:10]))
+
+
+def _wrap_hazard(op, hook: OpHook, checker: SlotHazardChecker):
+    if hook.kind == "launch":
+        def wrapped(regs, _op=op, _h=hook, _c=checker):
+            _c.on_launch(_h)
+            _op(regs)
+    elif hook.kind == "wait":
+        def wrapped(regs, _op=op, _h=hook, _c=checker):
+            _op(regs)
+            _c.on_wait(_h)
+    else:
+        def wrapped(regs, _op=op, _h=hook, _c=checker):
+            _c.on_exec(_h)
+            _op(regs)
+    return wrapped
+
+
+def _wrap_flight(op, hook: OpHook, rec):
+    """One ring event per op on the host clock, outcome included; the
+    op's exception is re-raised after it is recorded.  Never syncs."""
+    def wrapped(regs, _op=op, _rec=rec.record, _now=_flight.now_us,
+                _k=hook.kind, _n=hook.name, _m=hook.mesh,
+                _nd=hook.node, _s=hook.slots):
+        t0 = _now()
+        try:
+            _op(regs)
+        except BaseException as e:  # noqa: B036 -- record, then re-raise
+            _rec(_k, _n, _m, _nd, _s, t0, _now(),
+                 f"error:{type(e).__name__}")
+            raise
+        _rec(_k, _n, _m, _nd, _s, t0, _now(), "ok")
+    return wrapped
+
+
+def _wrap_trace(op, name, cat, track, rec):
+    def wrapped(regs, _op=op, _span=rec.span, _n=name, _c=cat, _t=track):
+        with _span(_n, _c, None, _t):
+            _op(regs)
+    return wrapped
+
+
+@dataclasses.dataclass
 class RegisterFileProgram:
     """The instruction list lowered to a flat register file.  Replay is
     ``for op in ops: op(regs)`` over ``regs = [None] * num_slots``: every
@@ -432,7 +567,8 @@ class RegisterFileProgram:
     mesh edge run as one group; in overlap mode cross-mesh RESHARDs are
     launch/wait pairs.  ``op_info[k]``: ``(kind, instruction indices,
     source slots, destination slots)`` of op ``k``, kind "exec", "launch"
-    or "wait"."""
+    or "wait"; ``hooks[k]`` and ``op_meta[k]`` its hook point and span
+    (name, category, track)."""
     num_slots: int
     ops: List[Callable]
     n_instructions: int
@@ -451,12 +587,84 @@ class RegisterFileProgram:
     run_stats: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {"transfer_busy_s": 0.0,
                                  "wait_blocked_s": 0.0})
+    op_meta: Optional[List[Tuple[str, str, str]]] = None
+    hooks: Optional[List[OpHook]] = None
+    # which hook families ran last step
+    last_hooks: Tuple[str, ...] = ()
+    # compiled wrapped-op lists, keyed by (active-hook signature, the base
+    # op list, the timer)
+    _hooked: Dict[Any, Tuple[List[Callable], Any]] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
-    def execute(self, regs: List[Any], ops: Optional[List[Callable]] = None):
+    def execute(self, regs: List[Any], ops: Optional[List[Callable]] = None,
+                timer: Any = None):
+        """Replay ``ops`` (default: the program's own; a driver passes the
+        same ops put on CUDA streams) over ``regs``.  ``timer``: with
+        tracing on, ``timer.wrap(op, k, name, category, track)`` times op
+        ``k`` in place of a host span (the driver's device clock)."""
         self.run_stats["transfer_busy_s"] = 0.0
         self.run_stats["wait_blocked_s"] = 0.0
-        for op in ops if ops is not None else self.ops:
+        base = ops if ops is not None else self.ops
+        sig = self._active_hook_signature() if self.hooks is not None \
+            else None
+        if sig is None:
+            self.last_hooks = ()
+            for op in base:
+                op(regs)
+            return
+        key = (sig, id(base), id(timer) if sig[0] else 0)
+        entry = self._hooked.get(key)
+        if entry is None or entry[2] is not base:
+            entry = self._compile_hooks(sig, base, timer) + (base,)
+            self._hooked[key] = entry
+        wrapped, hazard, _ = entry
+        self.last_hooks = tuple(name for on, name in zip(
+            (sig[0], sig[2], sig[3]), ("trace", "race", "flight")) if on)
+        if hazard is not None:
+            hazard.begin_step()
+        for op in wrapped:
             op(regs)
+        if hazard is not None:
+            hazard.check()
+
+    @staticmethod
+    def _active_hook_signature():
+        """One check per step: None when nothing is on (the raw closures
+        run); else which families are on and the recorders' identities
+        (tests swap recorders)."""
+        trace_on = _ttrace.enabled() or global_config.collect_trace
+        race_on = global_config.debug_dispatch_races
+        flight_on = _flight.enabled()
+        if not (trace_on or race_on or flight_on):
+            return None
+        return (trace_on,
+                id(_ttrace.get_recorder()) if trace_on else 0,
+                race_on, flight_on,
+                id(_flight.get_recorder()) if flight_on else 0)
+
+    def _compile_hooks(self, sig, base, timer):
+        """The wrapped op list for the active instrumentation, nesting
+        (outermost first) trace span > flight event > hazard check."""
+        trace_on, _tid, race_on, flight_on, _fid = sig
+        hooks, meta = self.hooks, self.op_meta
+        if hooks is None or len(hooks) != len(base):
+            return list(base), None
+        trec = _ttrace.get_recorder() if trace_on else None
+        frec = _flight.get_recorder() if flight_on else None
+        hazard = SlotHazardChecker() if race_on else None
+        wrapped: List[Callable] = []
+        for k, (op, hook) in enumerate(zip(base, hooks)):
+            w = op
+            if hazard is not None:
+                w = _wrap_hazard(w, hook, hazard)
+            if flight_on:
+                w = _wrap_flight(w, hook, frec)
+            if trace_on and meta is not None:
+                name, cat, track = meta[k]
+                w = (timer.wrap(w, k, name, cat, track) if timer is not None
+                     else _wrap_trace(w, name, cat, track, trec))
+            wrapped.append(w)
+        return wrapped, hazard
 
 
 def reshard_group_extent(recs: Sequence[Dict[str, Any]], i: int
@@ -545,15 +753,50 @@ class _PendingTransfer:
         self.future = future
 
 
-def _make_launch_op(transfers, src_slots, dst_slots):
-    def op(regs, _t=transfers, _s=src_slots, _d=dst_slots):
-        vals = [regs[s] for s in _s]
+# launched but unretired transfers, the "transfers_in_flight" counter
+# track (touched only while tracing)
+_INFLIGHT_LOCK = threading.Lock()
+_INFLIGHT = 0
 
-        def work():
+
+def _inflight_delta(d: int):
+    global _INFLIGHT
+    with _INFLIGHT_LOCK:
+        _INFLIGHT += d
+        v = _INFLIGHT
+    _ttrace.counter("transfers_in_flight", v)
+
+
+def _record_pool_spans(label, t_sub_us, t_run_us, t_end_us):
+    """One transfer's pool-side spans (host clock): the labelled parent
+    from submit to retire, with ``reshard.wait`` (queued between the
+    driver's submit and a worker taking it) and ``reshard.wire`` (the
+    transfer running) children."""
+    rec = _ttrace.get_recorder()
+    rec.complete(label, "transfer", t_sub_us, t_end_us - t_sub_us)
+    rec.complete("reshard.wait", "transfer", t_sub_us,
+                 max(0.0, t_run_us - t_sub_us))
+    rec.complete("reshard.wire", "transfer", t_run_us,
+                 max(0.0, t_end_us - t_run_us))
+
+
+def _make_launch_op(transfers, src_slots, dst_slots, label="transfer"):
+    def op(regs, _t=transfers, _s=src_slots, _d=dst_slots, _l=label):
+        vals = [regs[s] for s in _s]
+        traced = _ttrace.enabled()
+        t_sub = _ttrace.now_us() if traced else 0.0
+
+        def work(_traced=traced, _sub=t_sub):
+            t_run = _ttrace.now_us() if _traced else 0.0
             tic = time.perf_counter()
             outs = [t(v) for t, v in zip(_t, vals)]
-            return outs, time.perf_counter() - tic
+            busy = time.perf_counter() - tic
+            if _traced:
+                _record_pool_spans(_l, _sub, t_run, _ttrace.now_us())
+            return outs, busy
 
+        if traced:
+            _inflight_delta(1)
         regs[_d[0]] = _PendingTransfer(_transfer_pool().submit(work))
     return op
 
@@ -568,7 +811,32 @@ def _make_wait_op(dst_slots, stats):
             _st["transfer_busy_s"] += busy
             for d, o in zip(_d, outs):
                 regs[d] = o
+            if _ttrace.enabled():
+                _inflight_delta(-1)
     return op
+
+
+# the overlap runtime's counters, as the JAX module keeps them
+_OVERLAP_REG = _tmetrics.get_registry()
+_OVERLAP_STEPS = _OVERLAP_REG.counter(
+    "alpa_overlap_steps_total", "Overlap-mode pipeshard steps executed")
+_OVERLAP_BUSY = _OVERLAP_REG.counter(
+    "alpa_overlap_transfer_busy_seconds_total",
+    "Accumulated pool-side transfer execution time")
+_OVERLAP_BLOCKED = _OVERLAP_REG.counter(
+    "alpa_overlap_wait_blocked_seconds_total",
+    "Accumulated driver time blocked in transfer waits")
+_OVERLAP_HOISTED = _OVERLAP_REG.counter(
+    "alpa_overlap_hoisted_total",
+    "Cross-mesh transfers launched ahead of flat instruction order")
+
+
+def record_overlap_step(prog: "RegisterFileProgram") -> None:
+    """Fold one overlap-mode step into the ``alpa_overlap_*`` counters."""
+    _OVERLAP_STEPS.inc()
+    _OVERLAP_BUSY.inc(prog.run_stats["transfer_busy_s"])
+    _OVERLAP_BLOCKED.inc(prog.run_stats["wait_blocked_s"])
+    _OVERLAP_HOISTED.inc(prog.n_hoisted)
 
 
 def lower_to_register_file(
@@ -617,26 +885,35 @@ def lower_to_register_file(
                 "kind": "RUN", "idx": idx,
                 "op": _make_run_op(run_fn(idx), in_slots, out_slots),
                 "reads": in_slots, "writes": out_slots,
-                "kills": tuple(sorted({in_slots[p] for p in donated}))})
+                "kills": tuple(sorted({in_slots[p] for p in donated})),
+                "name": f"RUN {inst.info}", "mesh": inst.dst_mesh})
         elif inst.opcode == PipelineInstType.RESHARD:
             by_opcode["RESHARD"] += 1
             v, instance = inst.var_key
             ss = slot((v, instance, inst.src_mesh))
             ds = slot((v, instance, inst.dst_mesh))
             t = transfer_fn(idx)
+            strategy = _strategy_of(inst)
+            tag = "" if strategy == "direct_p2p" else f" [{strategy}]"
             recs.append({
                 "kind": "RESHARD", "idx": idx,
                 "op": _make_reshard_op(t, ss, ds), "transfer": t,
                 "ss": ss, "ds": ds, "edge": (inst.src_mesh, inst.dst_mesh),
                 "cross": inst.src_mesh != inst.dst_mesh,
-                "reads": (ss,), "writes": (ds,), "kills": ()})
+                "reads": (ss,), "writes": (ds,), "kills": (),
+                "name": f"RESHARD {inst.src_mesh}->{inst.dst_mesh}{tag}",
+                "mesh": inst.dst_mesh})
         else:
             by_opcode["FREE"] += 1
             slots = tuple(slot(tuple(k)) for k in inst.free_keys)
             recs.append({
                 "kind": "FREE", "idx": idx, "op": _make_free_op(slots),
-                "slots": slots, "reads": (), "writes": (), "kills": slots})
+                "slots": slots, "reads": (), "writes": (), "kills": slots,
+                "name": "FREE",
+                "mesh": inst.free_keys[0][2] if inst.free_keys else 0})
 
+    for i, r in enumerate(recs):
+        r["pos"] = i
     graph = InstructionDataflowGraph.build([
         DataflowNode(idx=i, kind=r["kind"], reads=r["reads"],
                      writes=r["writes"], kills=r["kills"],
@@ -649,10 +926,25 @@ def lower_to_register_file(
                      Tuple[int, ...]]] = []
     n_groups = n_free_hops = n_hoisted = n_launches = 0
     run_stats = {"transfer_busy_s": 0.0, "wait_blocked_s": 0.0}
+    meta: List[Tuple[str, str, str]] = []
+    hooks: List[OpHook] = []
+
+    def hook_of(mem: List[Dict[str, Any]], kind: str, name: str):
+        reads = tuple(x for m in mem for x in m["reads"])
+        writes = tuple(x for m in mem for x in m["writes"])
+        kills = tuple(x for m in mem for x in m["kills"])
+        return OpHook(kind=kind, name=name,
+                      node=mem[0]["pos"],
+                      mesh=mem[0]["mesh"], reads=reads, writes=writes,
+                      kills=kills, slots=tuple(sorted({*reads, *writes,
+                                                       *kills})),
+                      members=tuple(m["idx"] for m in mem))
 
     def emit(r):
         ops.append(r["op"])
         info.append(("exec", (r["idx"],), r["reads"], r["writes"]))
+        meta.append((r["name"], "instruction", f"mesh {r['mesh']}"))
+        hooks.append(hook_of([r], "exec", r["name"]))
 
     window = 0
     if mode == "registers":
@@ -677,6 +969,10 @@ def lower_to_register_file(
                 info.append(("exec", tuple(members),
                              tuple(m["ss"] for m in mem),
                              tuple(m["ds"] for m in mem)))
+                name = (f"RESHARD-GROUP x{len(mem)} "
+                        f"{mem[0]['edge'][0]}->{mem[0]['edge'][1]}")
+                meta.append((name, "instruction", f"mesh {mem[0]['mesh']}"))
+                hooks.append(hook_of(mem, "exec", name))
             for q in hopped:
                 emit(recs[q])
     else:
@@ -711,14 +1007,23 @@ def lower_to_register_file(
                 continue
             srcs = tuple(recs[m]["ss"] for m in mem)
             dsts = tuple(recs[m]["ds"] for m in mem)
+            edge = f"{r['edge'][0]}->{r['edge'][1]}"
             if kind == "launch":
                 n_launches += 1
                 n_groups += len(mem) > 1
+                name = (f"LAUNCH {r['name']}" if len(mem) == 1 else
+                        f"LAUNCH-GROUP x{len(mem)} {edge}")
                 ops.append(_make_launch_op(
-                    tuple(recs[m]["transfer"] for m in mem), srcs, dsts))
+                    tuple(recs[m]["transfer"] for m in mem), srcs, dsts,
+                    label=(r["name"] if len(mem) == 1 else
+                           f"{r['name']} x{len(mem)}")))
             else:
                 waited.add(mem[0])
+                name = (f"WAIT {r['name']}" if len(mem) == 1 else
+                        f"WAIT-GROUP x{len(mem)}")
                 ops.append(_make_wait_op(dsts, run_stats))
+            meta.append((name, "transfer", f"mesh {r['mesh']}"))
+            hooks.append(hook_of([recs[m] for m in mem], kind, name))
             info.append((kind, tuple(recs[m]["idx"] for m in mem), srcs,
                          dsts))
     return RegisterFileProgram(
@@ -727,7 +1032,21 @@ def lower_to_register_file(
         op_info=info, mode=mode, graph=graph,
         n_cross_mesh=graph.n_cross_mesh, n_hoisted=n_hoisted,
         n_launches=n_launches, n_free_hops=n_free_hops,
-        overlap_window=window, run_stats=run_stats)
+        overlap_window=window, run_stats=run_stats, op_meta=meta,
+        hooks=hooks)
+
+
+def _strategy_of(inst: PipelineInstruction) -> str:
+    """The executor a RESHARD runs: its strategy ("direct_p2p", a
+    collective strategy, "quantized_int8"/"quantized_fp8"), or a planned
+    ``ReshardingTask``'s mode ("tiled", "broadcast")."""
+    t = inst.resharding[0] if isinstance(inst.resharding, tuple) else \
+        inst.resharding
+    strategy = getattr(t, "strategy", None)
+    if strategy is None:
+        mode = getattr(t, "mode", None)
+        strategy = mode if mode and mode != "device_put" else "direct_p2p"
+    return strategy
 
 
 def emit_free_instructions(instructions: List[PipelineInstruction],

@@ -6,15 +6,21 @@ OSDI'22 stage DP of ``stage_dp.py``), submesh enumeration and mesh
 slicing.  Each stage gets a submesh of one or more devices, a logical
 shape for its intra-op plan (None: the planner searches the shapes) and
 its ``AutoShardingOption`` overrides
-(``submesh_autosharding_option_dicts``).  The compile cache of the DP's
-decisions is not ported (ROADMAP A.6).
+(``submesh_autosharding_option_dicts``).  The DP's decisions are written
+through the compile cache (namespace ``stage_dp``) and replayed from it;
+the DP runs inside a ``stage-dp`` span.
 """
 import dataclasses
+import logging
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from alpa_tpu_torch.device_mesh import VirtualPhysicalMesh
+from alpa_tpu_torch.telemetry import trace as _ttrace
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -44,11 +50,13 @@ class AutoStageOption(StageOption):
     ``stage_imbalance_tolerance`` are ported, and ``use_hlo_cost_model``
     (False: the ILP on every merged span, as on small search spaces; True:
     per-layer ILPs summed over larger ones).  ``submesh_logical_shape_space``
-    is searched by the intra-op planner, and is kept for the API.  Measured
-    profiling (``profiling_mode="measured"``, ``measured_candidates_limit``,
-    ``measured_compile_workers``), a profiling database
-    (``profiling_database_filename``) and ``cached_compute_cost`` raise when
-    set to anything but their defaults (ROADMAP A.6)."""
+    is searched by the intra-op planner, and is kept for the API.
+    ``profiling_database_filename``: a ``mesh_profiling`` database whose
+    fit prices the cost tensor in seconds; ``profiling_mode="measured"``
+    times up to ``measured_candidates_limit`` candidate stages on the
+    devices (their spans merged on ``measured_compile_workers`` threads);
+    ``cached_compute_cost``: an ``.npz`` file of the cost tensors, read
+    where its key matches and written otherwise."""
     submesh_physical_shape_space: str = "power_of_two"
     submesh_logical_shape_space: str = "single_node_model_parallel"
     stage_imbalance_tolerance: float = np.inf
@@ -149,13 +157,16 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
                                   num_micro_batches: int = 1,
                                   schedule: str = "1f1b",
                                   objective: str = "training",
-                                  auto_sharding_option=None):
+                                  auto_sharding_option=None, root=None):
     """``(forward_stage_layer_ids, submeshes, logical_shapes, as_dicts,
     stage_dp_info)``: per stage its layers, its submesh, its logical mesh
     shape (None: searched by the intra-op planner) and its
     ``AutoShardingOption`` overrides.  The info is None unless the stage DP
     ran (``AutoStageOption``, with ``objective`` "training" or "inference";
-    its communication term plans with ``auto_sharding_option``)."""
+    its communication term plans with ``auto_sharding_option``; measured
+    profiling runs the layer graphs with ``root``'s constants).  The DP's
+    decision is replayed from the compile cache where it holds one for
+    the same layer graphs, mesh, backend, options and calibration."""
     stage_option = stage_option or UniformStageOption()
     if isinstance(stage_option, ManualStageOption):
         fwd_ids = stage_option.forward_stage_layer_ids
@@ -168,13 +179,9 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
             [tuple(s) if s is not None else None for s in logical_shapes],
             [dict(d) for d in as_dicts], None)
     if isinstance(stage_option, AutoStageOption):
-        from alpa_tpu_torch.pipeline_parallel.stage_dp import auto_stage_dp
-        fwd_ids, submeshes, info = auto_stage_dp(
-            num_forward_layers, virtual_mesh, stage_option, layer_comps,
-            num_micro_batches, schedule=schedule, objective=objective,
-            auto_sharding_option=auto_sharding_option)
-        return (fwd_ids, submeshes, [None] * len(fwd_ids),
-                [{} for _ in fwd_ids], info)
+        return _auto_stages(num_forward_layers, virtual_mesh, stage_option,
+                            layer_comps, num_micro_batches, schedule,
+                            objective, auto_sharding_option, root)
     num_stages = stage_option.num_stages
     if num_stages is None:
         num_stages = (virtual_mesh.num_hosts if virtual_mesh.num_hosts > 1
@@ -195,3 +202,82 @@ def cluster_layers_and_slice_mesh(num_forward_layers: int,
         shapes = [(1, virtual_mesh.num_devices // num_stages)] * num_stages
     return (fwd_ids, get_sliced_virtual_submeshes(virtual_mesh, shapes),
             [None] * num_stages, [{} for _ in range(num_stages)], None)
+
+
+def _stage_dp_key(cache, num_forward_layers, virtual_mesh, stage_option,
+                  layer_comps, num_micro_batches, schedule, objective,
+                  auto_sharding_option) -> str:
+    """The compile-cache key of one stage-DP decision (``alpa_tpu/
+    pipeline_parallel/stage_construction.py:203``): the layer graphs by
+    content, the mesh's shape, device kind and backend, the options, and
+    the fit the DP prices with (``stage_dp.stage_calibration``: the
+    option's profiling database, else the global calibration), and the
+    calibration token where replanning is on."""
+    from alpa_tpu_torch.compile_cache import graph_fingerprint
+    from alpa_tpu_torch.mesh_profiling import device_kind
+    from alpa_tpu_torch.pipeline_parallel.stage_dp import stage_calibration
+    from alpa_tpu_torch.shard_parallel.collectives import backend_of
+    from alpa_tpu_torch.telemetry.calibration import calibration_cache_token
+    devices = list(virtual_mesh.devices.flat)
+    cal = stage_calibration(stage_option, virtual_mesh)
+    tok = calibration_cache_token()
+    return cache.make_key("stage_dp", [
+        "cluster_layers_and_slice_mesh", repr(num_forward_layers),
+        repr((virtual_mesh.num_hosts, virtual_mesh.num_devices_per_host)),
+        device_kind(devices[0]), backend_of(devices), stage_option,
+        repr(num_micro_batches),
+        auto_sharding_option if auto_sharding_option is not None
+        else "no-as-option", objective, schedule,
+        repr(None if cal is None else (sorted(cal.dot_points),
+                                       sorted(cal.collective_ab.items()))),
+    ] + [graph_fingerprint(c.to_graph()) for c in layer_comps or ()]
+        + ([tok] if tok else []))
+
+
+def _auto_stages(num_forward_layers, virtual_mesh, stage_option,
+                 layer_comps, num_micro_batches, schedule, objective,
+                 auto_sharding_option, root):
+    """The ``AutoStageOption`` branch: the stage DP, through the compile
+    cache (only the submeshes' shapes are kept; they are sliced again
+    from the live mesh on a hit)."""
+    from alpa_tpu_torch.compile_cache import cache_enabled, get_compile_cache
+    from alpa_tpu_torch.pipeline_parallel.stage_dp import auto_stage_dp
+    cache = key = None
+    if cache_enabled():
+        cache = get_compile_cache()
+        key = _stage_dp_key(cache, num_forward_layers, virtual_mesh,
+                            stage_option, layer_comps, num_micro_batches,
+                            schedule, objective, auto_sharding_option)
+        entry = cache.get("stage_dp", key)
+        if entry is not None:
+            try:
+                submeshes = get_sliced_virtual_submeshes(
+                    virtual_mesh, entry["phys_shapes"])
+                cache.record_saved_seconds("stage_dp",
+                                           entry["info"]["seconds"])
+                _ttrace.instant("stage-dp-cache-hit", "compile")
+                info = dict(entry["info"], cache_hit=True)
+                return (entry["fwd_ids"], submeshes,
+                        [None] * len(entry["fwd_ids"]),
+                        [{} for _ in entry["fwd_ids"]], info)
+            except Exception:  # pylint: disable=broad-except
+                logger.warning("cached stage-DP decision failed to replay; "
+                               "re-solving", exc_info=True)
+    tic = time.perf_counter()
+    with _ttrace.span("stage-dp", "compile",
+                      {"layers": num_forward_layers}
+                      if _ttrace.enabled() else None):
+        fwd_ids, submeshes, info = auto_stage_dp(
+            num_forward_layers, virtual_mesh, stage_option, layer_comps,
+            num_micro_batches, schedule=schedule, objective=objective,
+            auto_sharding_option=auto_sharding_option, root=root)
+    info["cache_hit"] = False
+    if cache is not None:
+        cache.record_solve_seconds("stage_dp", time.perf_counter() - tic)
+        cache.put("stage_dp", key, {
+            "fwd_ids": [list(f) for f in fwd_ids],
+            "phys_shapes": [(sub.num_hosts, sub.num_devices_per_host)
+                            for sub in submeshes],
+            "info": info})
+    return (fwd_ids, submeshes, [None] * len(fwd_ids),
+            [{} for _ in fwd_ids], info)

@@ -2,11 +2,14 @@
 
 Counterpart of ``alpa_tpu/pipeline_parallel/stage_dp.py``.  The cost
 tensor ``C[i, j, m]`` (layers i..j on submesh choice m) holds the JAX
-package's static cost model (``mesh_profiling.estimate_stage_cost``), on
-its uncalibrated path: the layers' forward flops (``node_flops``) x
-``DEFAULT_SEC_PER_FLOP`` / the submesh's devices, plus, on a submesh of
-more than one device, the intra-op ILP's objective x 1e-7 on a logical
-mesh of the submesh's shape (``(n, 1)`` within a host).  On small search
+package's static cost model (``mesh_profiling.estimate_stage_cost``): the
+layers' forward flops (``node_flops``) x seconds per flop / the submesh's
+devices, plus, on a submesh of more than one device, the intra-op ILP's
+objective on a logical mesh of the submesh's shape (``(n, 1)`` within a
+host).  With a calibration -- ``AutoStageOption.profiling_database_
+filename``'s fit, else ``mesh_profiling.get_effective_calibration`` --
+both terms are seconds; without one, ``DEFAULT_SEC_PER_FLOP`` and the
+ILP's units x 1e-7.  On small search
 spaces (``L * L * M <= 256``, or ``use_hlo_cost_model=False``) the ILP
 runs on every merged span; on larger ones once per layer, a span's cost
 the sum of its layers'.  The DP minimizing ``sum(stage costs) + (B - 1) *
@@ -15,14 +18,17 @@ max(stage cost)`` runs in the port's own native copy,
 ``_stage_dp_python`` is the same algorithm in Python, which the tests
 hold the native solver to.
 
-Measured profiling, a profiling database (the calibration) and the
-cost-tensor disk cache raise (ROADMAP A.6).  A forward-only function takes
+``profiling_mode="measured"`` replaces up to ``measured_candidates_limit``
+entries by the candidates' times on the devices
+(``mesh_profiling.refine_costs_measured``); ``cached_compute_cost`` names
+an ``.npz`` file holding the tensors under ``compute_cost_cache_key``.
+A forward-only function takes
 the inference objective (JAX's ``objective="inference"``): B -> 4096, so
 the slowest stage dominates, with one microbatch in flight per stage for
 the memory check and no optimizer state in it.
 """
 import ctypes
-import dataclasses
+import logging
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -32,6 +38,8 @@ import numpy as np
 from alpa_tpu_torch.mesh_profiling import DEFAULT_SEC_PER_FLOP
 from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.util import node_flops
+
+logger = logging.getLogger(__name__)
 
 # Must match csrc/stage_dp.cc kAbiVersion.
 _ABI_VERSION = 2
@@ -189,48 +197,104 @@ def layer_flops(layer_comps) -> List[float]:
     return [sum(node_flops(n) for n in comp.nodes) for comp in layer_comps]
 
 
-def _check_unported_fields(stage_option):
-    """Raise on an ``AutoStageOption`` field of measured profiling, of the
-    profiling database or of the cost cache set to other than its
-    default."""
-    defaults = {f.name: f.default for f in dataclasses.fields(stage_option)}
-    unported = {
-        "profiling_database_filename": "a profiling database calibrates the "
-                                       "cost model into measured seconds, "
-                                       "which needs the profiling and "
-                                       "calibration modules (ROADMAP A.6)",
-        "profiling_mode": "measured profiling compiles and times candidate "
-                          "stages, which needs the compile cache and the "
-                          "calibration (ROADMAP A.6)",
-        "measured_candidates_limit": "it bounds measured profiling, which "
-                                     "needs the compile cache and the "
-                                     "calibration (ROADMAP A.6)",
-        "measured_compile_workers": "it bounds measured profiling, which "
-                                    "needs the compile cache and the "
-                                    "calibration (ROADMAP A.6)",
-        "cached_compute_cost": "the cost-tensor disk cache belongs to the "
-                               "compile cache, not ported yet (ROADMAP A.6)",
-    }
-    for name, why in unported.items():
-        value = getattr(stage_option, name)
-        if value != defaults[name]:
-            raise NotImplementedError(
-                f"AutoStageOption({name}={value!r}): {why}")
+def compute_cost_cache_key(layer_comps, choices, profiling_mode,
+                           with_memory=False, calibration=None,
+                           db_file=None, measured_limit=None,
+                           exact_ilp=None, sharding_option=None,
+                           objective: str = "training") -> str:
+    """The content key of the cost tensors (``alpa_tpu/pipeline_parallel/
+    stage_dp.py:226``): the layers' graphs (``compile_cache.
+    graph_fingerprint``), the submesh choices, the profiling mode (and in
+    measured mode the limit), whether memory tensors were computed, the
+    database file and the calibration's fit, the span strategy, the
+    sharding option, the objective, and the calibration token under
+    ``replan_mode != "off"``."""
+    import hashlib
+    from alpa_tpu_torch.compile_cache import graph_fingerprint
+    from alpa_tpu_torch.telemetry.calibration import calibration_cache_token
+    h = hashlib.sha256()
+    for c in layer_comps:
+        h.update(graph_fingerprint(c.to_graph()).encode())
+    h.update(repr(list(choices)).encode())
+    h.update(profiling_mode.encode())
+    h.update(b"mem" if with_memory else b"nomem")
+    h.update(repr(db_file).encode())
+    if profiling_mode == "measured":
+        h.update(repr(measured_limit).encode())
+    h.update(repr(exact_ilp).encode())
+    h.update(repr(sharding_option).encode())
+    h.update(objective.encode())
+    if calibration is not None:
+        h.update(repr(sorted(calibration.dot_points)).encode())
+        h.update(repr(sorted(calibration.collective_ab.items())).encode())
+    tok = calibration_cache_token()
+    if tok:
+        h.update(tok.encode())
+    return h.hexdigest()[:16]
 
 
-def cost_logical_mesh(shape):
+def load_compute_cost_cache(path, key, shape):
+    """``(costs, mem_param, mem_act)`` from ``path`` where its key and
+    shapes match, else None."""
+    import os
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            if str(z["key"]) != key or z["costs"].shape != shape:
+                logger.info("compute-cost cache %s stale (key/shape "
+                            "mismatch); recomputing", path)
+                return None
+            return z["costs"], z["mem_param"], z["mem_act"]
+    except Exception as e:  # pylint: disable=broad-except
+        logger.warning("compute-cost cache %s unreadable: %s", path, e)
+        return None
+
+
+def save_compute_cost_cache(path, key, costs, mem_param, mem_act):
+    try:
+        np.savez(path, key=np.str_(key), costs=costs, mem_param=mem_param,
+                 mem_act=mem_act)
+    except OSError as e:
+        logger.warning("saving compute-cost cache %s failed: %s", path, e)
+
+
+def cost_logical_mesh(shape, calibration=None):
     """The cost model's logical mesh of a submesh of ``shape`` (hosts,
     devices per host), as the JAX package builds it: ``(n, 1)`` within a
-    host, beta 0.1 on an axis across hosts and 0.01 on the others."""
+    host, beta 0.1 on an axis across hosts and 0.01 on the others, with
+    the ``calibration`` given."""
     from alpa_tpu_torch.device_mesh import LogicalDeviceMesh
     h, d = shape
     logical = (h * d, 1) if h == 1 else (h, d)
     return LogicalDeviceMesh(None, np.arange(h * d).reshape(logical),
-                             mesh_beta=(0.1 if h > 1 else 0.01, 0.01))
+                             mesh_beta=(0.1 if h > 1 else 0.01, 0.01),
+                             calibration=calibration)
+
+
+def stage_calibration(stage_option, virtual_mesh):
+    """The calibration of the cost tensor: the fit of the option's
+    ``profiling_database_filename`` (its entries of the virtual mesh's
+    backend), else ``get_effective_calibration`` for that backend; None
+    leaves the model uncalibrated."""
+    from alpa_tpu_torch.mesh_profiling import (calibration_from_file,
+                                               get_effective_calibration)
+    from alpa_tpu_torch.shard_parallel.collectives import backend_of
+    devices = list(getattr(virtual_mesh, "devices", np.empty(0)).flat)
+    backend = backend_of(devices) if devices else None
+    db_file = stage_option.profiling_database_filename
+    cal = calibration_from_file(db_file, backend) if db_file else None
+    if cal is None:
+        platform = devices[0].type if devices else None
+        cal = get_effective_calibration(platform, backend)
+        if cal is not None and cal.backend not in (None, backend):
+            cal = None
+    return cal
 
 
 def stage_cost_tensor(layer_comps, choices, stage_option, as_option,
-                      info: Optional[dict] = None) -> np.ndarray:
+                      info: Optional[dict] = None,
+                      calibration=None) -> np.ndarray:
     """``C[i, j, m]``: layers i..j on submesh ``choices[m]``
     (``estimate_stage_cost``, exactly per merged span on small search
     spaces or with ``use_hlo_cost_model=False``, else as per-layer prefix
@@ -240,7 +304,7 @@ def stage_cost_tensor(layer_comps, choices, stage_option, as_option,
     exact = (not stage_option.use_hlo_cost_model) or L * L * M <= 256
     costs = np.full((L, L, M), np.inf)
     for m, shape in enumerate(choices):
-        logical = cost_logical_mesh(shape)
+        logical = cost_logical_mesh(shape, calibration)
         if exact:
             for i in range(L):
                 for j in range(i, L):
@@ -259,21 +323,25 @@ def stage_cost_tensor(layer_comps, choices, stage_option, as_option,
 
 def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
                   num_micro_batches, schedule: str = "1f1b",
-                  objective: str = "training", auto_sharding_option=None):
+                  objective: str = "training", auto_sharding_option=None,
+                  root=None):
     """Fill the cost tensor and run the DP: the auto branch of
     ``cluster_layers_and_slice_mesh``.  Returns ``(forward stage layer
     ids, submeshes, info)``; ``info`` has the partition, the submesh
     choices, the per-layer flops, the cost tensor, the ILP solves behind
-    it and their seconds, the solver and its seconds.
-    ``objective="inference"`` solves with B = 4096 and the "inference"
-    inflight mode (JAX's ``inference_dp`` objective)."""
+    it and their seconds, whether a calibration priced it, the entries
+    measured,
+    whether the tensors came from ``cached_compute_cost``, the solver and
+    its seconds.  ``objective="inference"`` solves with B = 4096 and the
+    "inference" inflight mode (JAX's ``inference_dp`` objective).
+    ``root``: the traced module the layer graphs read their constants
+    from, which measured profiling runs them with."""
     from alpa_tpu_torch.pipeline_parallel.stage_construction import (
         get_sliced_virtual_submeshes, get_submesh_choices)
     from alpa_tpu_torch.mesh_profiling import estimate_stage_memory_split
     from alpa_tpu_torch.shard_parallel.auto_sharding import \
         AutoShardingOption
 
-    _check_unported_fields(stage_option)
     tic = time.perf_counter()
     choices = get_submesh_choices(virtual_mesh.num_hosts,
                                   virtual_mesh.num_devices_per_host,
@@ -282,19 +350,51 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
     L, M = num_layers, len(choices)
     flops = layer_flops(layer_comps)
     mem_budget = float(stage_option.memory_budget_per_device or 0.0)
+    as_option = auto_sharding_option or AutoShardingOption()
     cost_info = {"ilp_solves": 0, "ilp_seconds": 0.0}
-    costs = stage_cost_tensor(layer_comps, choices, stage_option,
-                              auto_sharding_option or AutoShardingOption(),
-                              cost_info)
-    mem_param = np.zeros((L, L, M))
-    mem_act = np.zeros((L, L, M))
-    if mem_budget > 0:
-        for m, n_dev in enumerate(sizes):
-            for i in range(L):
-                for j in range(i, L):
-                    mem_param[i, j, m], mem_act[i, j, m] = \
-                        estimate_stage_memory_split(layer_comps[i:j + 1],
-                                                    n_dev, objective)
+    cal = stage_calibration(stage_option, virtual_mesh)
+    mode = stage_option.profiling_mode
+    if mode not in ("cost_model", "measured"):
+        raise ValueError(f"profiling_mode must be 'cost_model' or "
+                         f"'measured', got {mode!r}")
+    exact = (not stage_option.use_hlo_cost_model) or L * L * M <= 256
+    cache_file = stage_option.cached_compute_cost
+    cache_key = loaded = None
+    if cache_file:
+        cache_key = compute_cost_cache_key(
+            layer_comps, choices, mode, with_memory=mem_budget > 0,
+            calibration=cal, db_file=stage_option.profiling_database_filename,
+            measured_limit=stage_option.measured_candidates_limit,
+            exact_ilp=exact, sharding_option=as_option, objective=objective)
+        loaded = load_compute_cost_cache(cache_file, cache_key, (L, L, M))
+    refined = 0
+    if loaded is not None:
+        costs, mem_param, mem_act = loaded
+    else:
+        costs = stage_cost_tensor(layer_comps, choices, stage_option,
+                                  as_option, cost_info, cal)
+        mem_param = np.zeros((L, L, M))
+        mem_act = np.zeros((L, L, M))
+        if mem_budget > 0:
+            for m, n_dev in enumerate(sizes):
+                for i in range(L):
+                    for j in range(i, L):
+                        mem_param[i, j, m], mem_act[i, j, m] = \
+                            estimate_stage_memory_split(
+                                layer_comps[i:j + 1], n_dev, objective)
+        if mode == "measured":
+            from alpa_tpu_torch.mesh_profiling import refine_costs_measured
+            if root is None:
+                raise ValueError("profiling_mode='measured' runs the "
+                                 "candidate stages: pass the traced root")
+            refined = refine_costs_measured(
+                costs, layer_comps, sizes, as_option, root,
+                list(virtual_mesh.devices.flat),
+                limit=stage_option.measured_candidates_limit,
+                compile_workers=stage_option.measured_compile_workers)
+        if cache_file:
+            save_compute_cost_cache(cache_file, cache_key, costs, mem_param,
+                                    mem_act)
 
     # cap the DP's stage costs at tolerance x the best one-stage cost
     tol = float(stage_option.stage_imbalance_tolerance)
@@ -326,6 +426,8 @@ def auto_stage_dp(num_layers, virtual_mesh, stage_option, layer_comps,
             "choices": choices, "layer_flops": flops, "costs": costs,
             "objective": objective, "ilp_solves": cost_info["ilp_solves"],
             "ilp_seconds": cost_info["ilp_seconds"],
+            "calibrated": cal is not None, "measured": refined,
+            "cost_cache_hit": loaded is not None,
             "solver": "native stage_dp.cc", "solve_seconds": solve_seconds,
             "seconds": time.perf_counter() - tic}
     return fwd_ids, submeshes, info

@@ -9,6 +9,9 @@ first streamed request, which serves every streamed request.
 Endpoints:
   GET  /models       -> {"models": [...]}
   GET  /health       -> {"status": "ok" | "shedding"} (503 when shedding)
+  GET  /healthz      -> the health report with ``last_flight_dump``, the
+        path of the flight recorder's last post-mortem (null for none)
+  GET  /metrics      -> the process registry's Prometheus text
   POST /completions  -> {"model", "prompt_ids", "max_new_tokens"?,
         "temperature"?, "top_k"?, "do_sample"?, "eos_token_id"?,
         "queue"?, "stream"?}
@@ -16,8 +19,10 @@ Endpoints:
         events, one ``data: {"token": t}`` per token, then
         ``data: {"done": true}`` (or ``data: {"error": ...}``).
 
-Not ported yet: metrics, trace spans, fault sites, the batcher's degraded
-FIFO fallback, disaggregation, hot swap and the router.
+The batcher and the controller keep JAX's ``alpa_serving_*`` families and
+``serve.request`` / ``batcher.generate`` spans.  Not ported yet: fault
+sites, the batcher's degraded FIFO fallback, disaggregation, hot swap and
+the router.
 """
 import dataclasses
 import json
@@ -35,8 +40,25 @@ from alpa_tpu_torch.serve.generation import (GenerationConfig, Generator,
                                              get_model)
 from alpa_tpu_torch.serve.kv_cache import KVBlockPool
 from alpa_tpu_torch.serve.scheduler import FIFOQueue
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
+from alpa_tpu_torch.telemetry import trace as _ttrace
 
 logger = logging.getLogger(__name__)
+
+_REG = _tmetrics.get_registry()
+_QUEUE_DEPTH = _REG.gauge(
+    "alpa_serving_queue_depth", "Requests waiting in the batcher queue")
+_BATCH_SIZE = _REG.histogram(
+    "alpa_serving_batch_size", "Prompts per batched generate call",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+_BATCHES = _REG.counter(
+    "alpa_serving_batches_total", "Batched generate calls executed")
+_REQUESTS = _REG.counter(
+    "alpa_serving_requests_total", "Completion requests by outcome",
+    labelnames=("outcome",))
+_REQ_LATENCY = _REG.histogram(
+    "alpa_serving_request_seconds",
+    "End-to-end /completions latency (batched path)")
 
 
 class ServiceDegradedError(RuntimeError):
@@ -139,6 +161,7 @@ class RequestBatcher:
             time.sleep(self.max_wait_s)
             with self._cv:
                 batch = self._take_batch()
+                _QUEUE_DEPTH.set(len(self._queue))
             if batch:
                 self._run_batch(batch)
 
@@ -149,9 +172,16 @@ class RequestBatcher:
                 batch[0]["cfg"],
                 max_new_tokens=max(it["cfg"].max_new_tokens
                                    for it in batch))
-            outs = self.generator.generate(prompts, run_cfg,
-                                           prefix=self.prefix)
+            _BATCH_SIZE.observe(len(prompts))
+            with _ttrace.span("batcher.generate", "serving",
+                              {"prompts": len(prompts),
+                               "max_new_tokens": run_cfg.max_new_tokens}
+                              if _ttrace.enabled() else None,
+                              "serve-batcher"):
+                outs = self.generator.generate(prompts, run_cfg,
+                                               prefix=self.prefix)
             self.batches_run += 1
+            _BATCHES.inc()
             i = 0
             for it in batch:
                 rows = []
@@ -357,10 +387,26 @@ class Controller:
         return replica, prompt_ids, cfg, queue
 
     def completions(self, request: Dict[str, Any]) -> Dict[str, Any]:
-        replica, prompt_ids, cfg, queue = self._parse_request(request)
-        if prompt_ids.ndim == 1:
-            prompt_ids = prompt_ids[None]
-        outs = replica.batcher.submit(list(prompt_ids), cfg, queue=queue)
+        tic = time.monotonic()
+        try:
+            with _ttrace.span("serve.request", "serving",
+                              {"model": str(request.get("model"))}
+                              if _ttrace.enabled() else None,
+                              "serve-driver"):
+                replica, prompt_ids, cfg, queue = \
+                    self._parse_request(request)
+                if prompt_ids.ndim == 1:
+                    prompt_ids = prompt_ids[None]
+                outs = replica.batcher.submit(list(prompt_ids), cfg,
+                                              queue=queue)
+        except ServiceDegradedError:
+            _REQUESTS.labels("shed").inc()
+            raise
+        except Exception:
+            _REQUESTS.labels("error").inc()
+            raise
+        _REQUESTS.labels("ok").inc()
+        _REQ_LATENCY.observe(time.monotonic() - tic)
         return {"output_ids": [o.tolist() for o in outs]}
 
     def completions_stream(self, request: Dict[str, Any]):
@@ -398,11 +444,38 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _send_text(self, code: int, text: str):
+        body = text.encode()
+        self.send_response(code)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _metrics(self):
+        """The whole process registry as Prometheus text; the serving and
+        KV families register when their modules load, which the
+        controller's imports guarantee."""
+        self._send_text(200, _tmetrics.get_registry().to_prometheus_text())
+
+    def _healthz(self):
+        """The health report with ``last_flight_dump``: where the flight
+        recorder's last post-mortem landed (null when none was written)."""
+        from alpa_tpu_torch.telemetry import flight as _flight
+        report = self.controller.health_report()
+        report["last_flight_dump"] = _flight.last_dump_path()
+        self._send(503 if report["status"] == "shedding" else 200, report)
+
     def do_GET(self):
         if self.path == "/health":
             report = self.controller.health_report()
             self._send(503 if report["status"] == "shedding" else 200,
                        report)
+        elif self.path == "/healthz":
+            self._healthz()
+        elif self.path == "/metrics":
+            self._metrics()
         elif self.path == "/models":
             self._send(200, {"models": self.controller.list_models()})
         else:

@@ -22,7 +22,9 @@ place.  Sampling, the one device-to-host read of the sampled tokens per
 tick and the row bookkeeping stay outside the graph, as does the pool's
 ``write_tokens`` (one stacked ``index_put_`` after the replay: the block
 tables change on the host every tick).  On the CPU the tick runs
-uncaptured.
+uncaptured.  The counters are JAX's ``alpa_serving_*`` families as well
+as attributes; each tick runs in an ``engine.decode-tick`` span while
+tracing is on.
 """
 import dataclasses
 import logging
@@ -37,12 +39,29 @@ import torch
 from alpa_tpu_torch.platform import to_device
 from alpa_tpu_torch.serve.generation import (GenerationConfig, Generator,
                                              _sample_logits)
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
+from alpa_tpu_torch.telemetry import trace as _ttrace
 from alpa_tpu_torch.serve.kv_cache import (KVPoolExhaustedError,
                                            stacked_kv_caches)
 from alpa_tpu_torch.serve.packed import PackedPrefill
 from alpa_tpu_torch.serve.scheduler import FIFOQueue
 
 logger = logging.getLogger(__name__)
+
+_REG = _tmetrics.get_registry()
+_ADMISSIONS = _REG.counter(
+    "alpa_serving_admissions_total", "Requests admitted to a KV-cache row")
+_DECODE_STEPS = _REG.counter(
+    "alpa_serving_decode_steps_total", "Engine decode ticks executed")
+_TOKENS = _REG.counter(
+    "alpa_serving_tokens_total", "Tokens generated across all requests")
+_STEP_FAILURES = _REG.counter(
+    "alpa_serving_step_failures_total", "Engine decode ticks that raised")
+_ACTIVE_ROWS = _REG.gauge(
+    "alpa_serving_active_rows", "KV-cache rows currently decoding")
+_TTFT = _REG.histogram(
+    "alpa_serving_ttft_seconds",
+    "Time from submit to first generated token")
 
 _STREAM_END = object()
 
@@ -346,6 +365,7 @@ class ContinuousBatchingEngine:
                 self._rows[r] = item
                 self._active[r] = True
                 self.admissions += 1
+                _ADMISSIONS.inc()
             self.packed_admissions += 1
         except Exception as e:  # pylint: disable=broad-except
             logger.exception("packed admission failed")
@@ -437,6 +457,7 @@ class ContinuousBatchingEngine:
         self._rows[r] = item
         self._active[r] = True
         self.admissions += 1
+        _ADMISSIONS.inc()
 
     def _release_table(self, r: int, item: Optional[dict]):
         """Return row ``r``'s blocks.  A cleanly finished request first
@@ -489,10 +510,18 @@ class ContinuousBatchingEngine:
             if not self._active.any():
                 continue
             try:
-                self._step()
+                if _ttrace.enabled():
+                    with _ttrace.get_recorder().span(
+                            "engine.decode-tick", "serving",
+                            {"active": int(self._active.sum())},
+                            "serve-engine"):
+                        self._step()
+                else:
+                    self._step()
             except Exception as e:  # pylint: disable=broad-except
                 logger.exception("engine step failed")
                 self.step_failures += 1
+                _STEP_FAILURES.inc()
                 with self._cv:
                     self._fail_live_rows(e)
 
@@ -567,6 +596,7 @@ class ContinuousBatchingEngine:
             ready.record()
         self._tick()
         self.decode_steps += 1
+        _DECODE_STEPS.inc()
         if ready is not None:
             ready.synchronize()
         nxt = self._tok_host.numpy().copy()
@@ -583,6 +613,9 @@ class ContinuousBatchingEngine:
                 cfg = item["cfg"]
                 t = int(nxt[r])
                 item["tokens"].append(t)
+                _TOKENS.inc()
+                if len(item["tokens"]) == 1 and "t_submit" in item:
+                    _TTFT.observe(time.monotonic() - item["t_submit"])
                 if item.get("on_token") is not None:
                     try:
                         item["on_token"](t)
@@ -598,3 +631,4 @@ class ContinuousBatchingEngine:
                     self._rows[r] = None
             # refill freed rows before the next tick
             self._admit_locked()
+            _ACTIVE_ROWS.set(int(self._active.sum()))

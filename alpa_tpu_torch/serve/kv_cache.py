@@ -36,8 +36,23 @@ import torch
 
 from alpa_tpu_torch.global_env import global_config
 from alpa_tpu_torch.platform import get_device, to_device
+from alpa_tpu_torch.telemetry import metrics as _tmetrics
 
 logger = logging.getLogger(__name__)
+
+_REG = _tmetrics.get_registry()
+_BLOCKS_IN_USE = _REG.gauge(
+    "alpa_kv_blocks_in_use",
+    "KV pool blocks held by live sequences or the prefix index")
+_PREFIX_HITS = _REG.counter(
+    "alpa_kv_prefix_hits_total",
+    "Admissions that reused at least one cached prefix block")
+_BYTES_SAVED = _REG.counter(
+    "alpa_kv_bytes_saved_total",
+    "KV bytes served from the prefix index instead of recomputed")
+_EVICTIONS = _REG.counter(
+    "alpa_kv_evictions_total",
+    "Prefix-index blocks evicted under pool pressure")
 
 _ROOT = b"alpa-kv-root"
 
@@ -208,6 +223,7 @@ class KVBlockPool:
             raise AssertionError(f"block {block} refcount underflow")
         if self._rc[block] == 0:
             self._free.append(block)
+            _BLOCKS_IN_USE.set(self.num_blocks - len(self._free))
 
     def _evict_one(self) -> bool:
         """Drop the least recently used evictable index entry (leaf, not
@@ -228,6 +244,7 @@ class KVBlockPool:
                     del self._children[e.parent]
             self._decref(e.block)
             self.evictions += 1
+            _EVICTIONS.inc()
             return True
         return False
 
@@ -238,6 +255,7 @@ class KVBlockPool:
         got = [self._free.pop() for _ in range(n)]
         for b in got:
             self._rc[b] = 1
+        _BLOCKS_IN_USE.set(self.num_blocks - len(self._free))
         return got
 
     # ---- prefix index -----------------------------------------------
@@ -315,6 +333,8 @@ class KVBlockPool:
             if matched:
                 self.prefix_hits += 1
                 self.bytes_saved += len(matched) * self.block_bytes
+                _PREFIX_HITS.inc()
+                _BYTES_SAVED.inc(len(matched) * self.block_bytes)
             return seq
 
     def release(self, seq: PagedSequence, tokens=None,

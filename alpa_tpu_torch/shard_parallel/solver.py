@@ -31,9 +31,14 @@ decode; ``_note_grad_quantized_choices`` counts the flipped tensors
 (``reshard_codec.STATS``) and ``quantized_choices`` lists them.  At
 "off" no twin exists and the plans are unchanged.
 
-Left out, as their modules are not ported: the compile cache and the
-calibration and ``grad_quantize`` tokens of its key (ROADMAP A.6) and
-the trace spans (A.6).
+``plan_auto_sharding`` writes its winning (shape, choice) through the
+compile cache (namespace ``ilp``), keyed by the traced graph's content
+(``compile_cache.graph_fingerprint``), the avals, paths and batch
+arguments, the mesh's shape, device kind and backend, the option, and the
+calibration and ``grad_quantize`` tokens where those are on; a hit
+rebuilds the strategy graph of the cached shape and replays the choice,
+so the plan is the one solved.  The search runs in ``ilp-solve`` and
+``ilp-solve-shape`` spans, a hit in ``ilp-cache-replay``.
 """
 import logging
 import time
@@ -53,6 +58,7 @@ from alpa_tpu_torch.shard_parallel.ilp import (InfeasibleMemoryBudget,
 from alpa_tpu_torch.shard_parallel.sharding_spec import (Aval, make_spec,
                                                          replicated_spec)
 from alpa_tpu_torch.shard_parallel.strategy import build_strategy_graph
+from alpa_tpu_torch.telemetry import trace as _ttrace
 
 logger = logging.getLogger(__name__)
 
@@ -115,11 +121,37 @@ def plan_auto_sharding(fun: Callable, in_avals: Sequence[Any],
     ``return_graph``, ``(graph, choice)`` once more, as JAX's fifth item.
     ``graph.search`` lists, per shape searched, its size, the seconds of
     its build and solve, the solver and the objective."""
+    from alpa_tpu_torch.compile_cache import cache_enabled, get_compile_cache
     avals = [Aval(tuple(shape), dtype) for shape, dtype in in_avals]
     device = physical_mesh.devices.flat[0]
     if traced is None:
         traced = trace_flat(fun, in_avals, device)
+    cache = key = None
+    if not return_graph and cache_enabled():
+        cache = get_compile_cache()
+        key = _ilp_cache_key(cache, traced, avals, in_paths, batch_flat_idx,
+                             physical_mesh, option)
+        entry = cache.get("ilp", key)
+        if entry is not None:
+            with _ttrace.span("ilp-cache-replay", "compile",
+                              {"cache": "hit"} if _ttrace.enabled()
+                              else None):
+                replayed = _replay_cached_solution(
+                    traced, avals, in_paths, batch_flat_idx, physical_mesh,
+                    option, entry)
+            if replayed is not None:
+                cache.record_saved_seconds("ilp", entry["solve_seconds"])
+                shape, logical_mesh, graph, choice = replayed
+                _note_grad_quantized_choices(graph, choice)
+                return _assemble_plan(avals, in_paths, batch_flat_idx,
+                                      option, shape, logical_mesh, graph,
+                                      choice, return_graph)
+    solve_span = _ttrace.begin(
+        "ilp-solve", "compile",
+        {"cache": "miss" if cache is not None else "off"}
+        if _ttrace.enabled() else None)
     best, infeasible, search = None, None, []
+    search_tic = time.perf_counter()
     for shape in candidate_mesh_shapes(physical_mesh.num_devices, option,
                                        physical_mesh.num_hosts == 1):
         logical_mesh = physical_mesh.get_logical_mesh(shape)
@@ -134,9 +166,12 @@ def plan_auto_sharding(fun: Callable, in_avals: Sequence[Any],
                "build_seconds": build_s}
         search.append(row)
         try:
-            choice = solve_strategy_graph(
-                graph, option.solver_timeout,
-                option.memory_budget_per_device, info)
+            with _ttrace.span("ilp-solve-shape", "compile",
+                              {"shape": str(shape)} if _ttrace.enabled()
+                              else None):
+                choice = solve_strategy_graph(
+                    graph, option.solver_timeout,
+                    option.memory_budget_per_device, info)
         except InfeasibleMemoryBudget as e:
             # another shape may still fit the budget
             row["infeasible"] = str(e)
@@ -149,13 +184,80 @@ def plan_auto_sharding(fun: Callable, in_avals: Sequence[Any],
                      graph.stats())
         if best is None or cost < best[0]:
             best = (cost, shape, logical_mesh, graph, choice)
+    _ttrace.end(solve_span)
     if best is None:
         raise infeasible
-    _, shape, logical_mesh, graph, choice = best
+    cost, shape, logical_mesh, graph, choice = best
     graph.search = search
+    if cache is not None:
+        solve_seconds = time.perf_counter() - search_tic
+        cache.record_solve_seconds("ilp", solve_seconds)
+        cache.put("ilp", key, {"shape": tuple(shape),
+                               "choice": [int(c) for c in choice],
+                               "cost": float(cost),
+                               "solve_seconds": solve_seconds,
+                               "search": search})
     _note_grad_quantized_choices(graph, choice)
     return _assemble_plan(avals, in_paths, batch_flat_idx, option, shape,
                           logical_mesh, graph, choice, return_graph)
+
+
+def _grad_quantize_cache_token() -> Optional[str]:
+    """The ``grad_quantize`` knobs as a key part; None at "off", so the
+    default keys carry none."""
+    from alpa_tpu_torch.global_env import global_config
+    if global_config.grad_quantize == "off":
+        return None
+    return "gq:{}:{}:{}".format(global_config.grad_quantize,
+                                global_config.grad_quantize_min_bytes,
+                                int(global_config.grad_error_feedback))
+
+
+def _ilp_cache_key(cache, traced, avals, in_paths, batch_flat_idx,
+                   physical_mesh, option) -> str:
+    from alpa_tpu_torch.compile_cache import graph_fingerprint
+    from alpa_tpu_torch.mesh_profiling import device_kind
+    from alpa_tpu_torch.shard_parallel.collectives import backend_of
+    from alpa_tpu_torch.telemetry.calibration import calibration_cache_token
+    devices = list(physical_mesh.devices.flat)
+    cal = physical_mesh.get_logical_mesh().calibration
+    toks = [t for t in (calibration_cache_token(),
+                        _grad_quantize_cache_token()) if t]
+    return cache.make_key("ilp", [
+        "plan_auto_sharding", graph_fingerprint(traced),
+        repr([(tuple(a.shape), str(a.dtype)) for a in avals]),
+        repr(tuple(in_paths)), repr(tuple(batch_flat_idx)),
+        repr((physical_mesh.num_hosts, physical_mesh.num_devices)),
+        device_kind(devices[0]), backend_of(devices), option,
+        repr(None if cal is None else (sorted(cal.dot_points),
+                                       sorted(cal.collective_ab.items()))),
+    ] + toks)
+
+
+def _replay_cached_solution(traced, avals, in_paths, batch_flat_idx,
+                            physical_mesh, option, entry):
+    """``(shape, logical_mesh, graph, choice)`` rebuilt from a cached
+    solution, or None where it no longer fits the strategy graph."""
+    try:
+        shape = tuple(entry["shape"])
+        choice = list(entry["choice"])
+        if shape not in candidate_mesh_shapes(physical_mesh.num_devices,
+                                              option,
+                                              physical_mesh.num_hosts == 1):
+            return None
+        logical_mesh = physical_mesh.get_logical_mesh(shape)
+        graph = build_strategy_graph(traced.graph, avals, logical_mesh,
+                                     batch_flat_idx, option, in_paths)
+        if len(choice) != len(graph.nodes) or not all(
+                0 <= c < len(n.strategies)
+                for n, c in zip(graph.nodes, choice)):
+            return None
+    except Exception:  # pylint: disable=broad-except
+        logger.warning("cached ILP solution failed to replay; re-solving",
+                       exc_info=True)
+        return None
+    graph.search = [dict(r, cached=True) for r in entry["search"]]
+    return shape, logical_mesh, graph, choice
 
 
 def quantized_choices(graph, choice) -> List[Tuple[int, str, str]]:

@@ -177,6 +177,27 @@ Phases, each reported on its own line:
    solve seconds, collectives and RESHARDs per step (planned, naive and
    executed bytes), the dispatch per mesh, step time and peak memory.
 
+17. telemetry and calibration (on one card, after phase 8 for (a)-(b),
+   inside phase 4b for (e)): (a) phase 8's captured step from the seed
+   state, 2 + 10 steps with the flight recorder off and again on:
+   losses and parameters bit-identical, the median step with it on at
+   most ``FLIGHT_COST_TOL`` x the median without; (b) one traced step:
+   a device-clock span (CUDA events) for every RUN and RESHARD, the step
+   bit-identical to an untraced one, the critical path within the step's
+   wall time, every stage's MFU in (0, 1], the stages' RUN time within
+   wall x meshes; the ``StepPerfReport`` printed and the Chrome trace
+   saved; (c) ``profile_one_mesh`` on the card named twice (backend
+   "plain") over collectives of 2^10 to 2^28 bytes, (b)'s step ingested
+   into a ``CalibrationStore`` under a temporary directory, and
+   ``AutoStageOption(profiling_mode="measured")`` on GPT at hidden 2048
+   and 4 layers: the partition, each stage's analytic and measured
+   seconds beside its RUN time, ``alpa_cost_model_drift_ratio``; (d)
+   phase 13's planner (12 layers) on the card named twice, cold, warm in
+   the process and warm in a subprocess over a disk cache: identical
+   plans, the hits, the solve seconds; (e) after phase 4b's requests,
+   ``GET /metrics``: the ``alpa_serving_*`` and ``alpa_kv_*`` families,
+   the requests served and the TTFT histogram's count.
+
 ``--four-cards`` (a machine with four cards): GPT-1.3B at batch 32 (8 per
 card) under ``DataParallel``, ``Zero2Parallel`` and the ILP's
 ``ShardParallel`` over the four cards (collectives over NCCL), held by
@@ -188,6 +209,10 @@ over 4 x 989 TFLOP/s, collective bytes and NCCL device time per step, the
 plan's ILP objective beside the measured step, peak memory per card.
 Phase 16 over the four cards is not run: the port refuses stage meshes of
 several devices over distinct cards until ROADMAP C.4 is repaired.
+``--c4-bisection`` runs phase 16 on ``[c0, c1, c0, c1]`` as it is and
+with every card synchronised around each collective and tile copy
+(``c4_ordering``); ``--c4-bisection --checked`` its first step with
+every collective and tile held to the host (``c4_checked``).
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
@@ -204,6 +229,7 @@ import sys
 import threading
 import time
 import urllib.request
+from typing import Dict
 
 import numpy as np
 import torch
@@ -785,6 +811,7 @@ def phase_engine():
     server = run_controller(port=0)
     name = "opt-1.3b-engine"
     try:
+        metrics_before = get_metrics(server.port)
         server.controller.register_model(name, gen, prefix_ids=system)
         tic = time.perf_counter()
         engine = server.controller._models[name][0].engine
@@ -874,6 +901,9 @@ def phase_engine():
               f"at (position, logit gap) {ties} (tolerance {NEAR_TIE})")
         check(all(gap <= NEAR_TIE for _, gap in ties), f"{label}: streamed "
               f"and non-streamed answers part beyond a near-tie: {ties}")
+        timed("telemetry serving metrics", serving_metrics_check,
+              server.port, metrics_before, len(prompts), 1 + len(prompts),
+              8 + ENGINE_NEW_TOKENS * len(prompts))
         write_ms = pool.write_seconds / max(1, pool.write_calls) * 1e3
         blocks_in_use = stats["blocks_in_use"]
         bytes_saved = stats["bytes_saved"]
@@ -1768,7 +1798,393 @@ def phase_dispatch(cfg, batch, run, label="pipeshard dispatch"):
     check(ex.capture_count == 1 and ex.recapture_count == 0,
           f"the dispatch phase captured phase 8's step again "
           f"({ex.capture_count} captures)")
+    run["state"] = state
     del seed, ref
+
+
+#: the flight recorder's cost bound: the median over ABBA blocks of the
+#: steps with it on over the steps with it off
+FLIGHT_COST_TOL = 1.02
+#: blocks of four steps (off, on, on, off) timed for that bound
+FLIGHT_BLOCKS = 8
+#: steps from one state, with it off and then on, that must agree bit for bit
+FLIGHT_SAME_STEPS = 3
+
+
+def phase_telemetry_pipeshard(cfg, batch, run):
+    """Phase 17 (a)-(b) on phase 8's executable (``run``: what
+    ``timed_pipeshard`` kept, the state put back by ``phase_dispatch``).
+    Returns the flash launches of its steps, the report and its joined
+    step."""
+    import os
+    import tempfile
+    from alpa_tpu_torch.telemetry import trace as ttrace
+    step, state, ex = run["step"], run.pop("state"), run["ex"]
+    cards = sorted(set(str(d) for d in ex.mesh_devices))
+    batch = {k: torch.as_tensor(v, device=cards[0]) for k, v in batch.items()}
+    model = GPTModel(cfg, device=cards[0], param_dtype=torch.float32)
+    init_random_(model, SEED)
+    seed = {k: p.detach() for k, p in model.named_parameters()}
+    del model
+    card = card_line()
+    reset_launch_counts()
+    runs = {}
+    saved = global_config.flight_recorder
+    ratios, times = [], {False: [], True: []}
+    try:
+        # bit-identity: the same steps from the same state, off then on
+        for label, on in (("off", False), ("on", True)):
+            global_config.flight_recorder = on
+            state = reset_state_(state, seed)
+            losses = []
+            for _ in range(FLIGHT_SAME_STEPS):
+                state, loss = step(state, batch)
+                losses.append(float(loss))
+            runs[label] = (losses, {k: p.clone()
+                                    for k, p in state.params.items()})
+        # the cost: off and on alternate in ABBA blocks over one state, so
+        # drift and warm-up fall on both alike; each block's ratio pairs
+        # its two steps on with its two steps off
+        for _ in range(FLIGHT_BLOCKS):
+            block = {False: 0.0, True: 0.0}
+            for on in (False, True, True, False):
+                global_config.flight_recorder = on
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                state, loss = step(state, batch)
+                float(loss)
+                dt = time.perf_counter() - tic
+                times[on].append(dt)
+                block[on] += dt
+            ratios.append(block[True] / block[False])
+    finally:
+        global_config.flight_recorder = saved
+    (off_l, off_p), (on_l, on_p) = runs["off"], runs["on"]
+    same = off_l == on_l and all(torch.equal(p, on_p[k])
+                                 for k, p in off_p.items())
+    del runs, off_p, on_p
+    ratio = float(np.median(ratios))
+    q1, q3 = (float(q) for q in np.percentile(ratios, [25, 75]))
+    print(f"telemetry flight recorder [{card}]: phase 8's step (CUDA graphs, "
+          f"dispatch {ex.last_dispatch_stats['mode']}), {FLIGHT_BLOCKS} "
+          f"off-on-on-off blocks: median step {np.median(times[False]):.5f} "
+          f"s off, {np.median(times[True]):.5f} s on; block ratio on/off "
+          f"median {ratio:.4f} (quartiles {q1:.4f}-{q3:.4f}, range "
+          f"{min(ratios):.4f}-{max(ratios):.4f}; bound {FLIGHT_COST_TOL}); "
+          f"losses and parameters of {FLIGHT_SAME_STEPS} steps bit-identical:"
+          f" {same}; {len(ex._last_program.ops)} ops a step")
+    check(same, "telemetry: the flight recorder changed the step")
+    check(ratio <= FLIGHT_COST_TOL, f"telemetry: flight recorder block "
+          f"ratio median {ratio} over {FLIGHT_COST_TOL}")
+
+    # (b) one traced step against the same step untraced
+    state = reset_state_(state, seed)
+    state, loss = step(state, batch)
+    ref_loss = float(loss)
+    ref_params = {k: p.clone() for k, p in state.params.items()}
+    state = reset_state_(state, seed)
+    rec = ttrace.get_recorder()
+    rec.clear()
+    ttrace.set_enabled(True)
+    try:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        state, loss = step(state, batch)
+        loss = float(loss)
+        wall_us = (time.perf_counter() - tic) * 1e6
+    finally:
+        ttrace.set_enabled(False)
+    same = loss == ref_loss and all(torch.equal(p, ref_params[k])
+                                    for k, p in state.params.items())
+    del ref_params
+    report = ex.get_perf_report()
+    joined = ex._last_joined_step
+    ops, prog = ex._device_ops
+    counts = {"RUN": 0, "RESHARD": 0}
+    for op, hook in zip(ops, prog.hooks):
+        if op.name.startswith("RUN"):
+            counts["RUN"] += len(hook.members)
+        elif hook.kind == "launch" or op.name.startswith("RESHARD"):
+            counts["RESHARD"] += len(hook.members)
+    want = {k: ex.get_instruction_counts()[k] for k in counts}
+    run_us = sum(o.dur_us for o in ops if o.name.startswith("RUN"))
+    mfus = {k: st.mfu for k, st in report.stages.items()}
+    # the knob's directory, else a temporary file
+    path = os.path.join(global_config.telemetry_trace_dir or
+                        tempfile.mkdtemp(prefix="alpa_port_trace_"),
+                        "phase17_step.json")
+    ex.dump_stage_execution_trace(path)
+    print(f"telemetry traced step [{card}]: {len(ops)} ops, each a "
+          f"device-clock span ({len(prog.hooks)} hooks), covering "
+          f"{counts} of the step's {want} instructions; wall {wall_us:.1f} "
+          f"us, critical path {report.critical_path.total_us:.1f} us, "
+          f"envelope {report.envelope_us:.1f} us, RUN time {run_us:.1f} us "
+          f"over {ex.num_meshes} meshes; stage MFU " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(mfus.items())) +
+          f" (of {SPEC['peak_bf16_tflops']} TFLOP/s bf16; the flash op "
+          f"counts its layout flops only, as the JAX package's "
+          f"jaxpr_eqn_flops); bit-identical to the untraced step: {same}; "
+          f"Chrome trace {path}")
+    print(report.format_text())
+    check(len(ops) == len(prog.hooks) and counts == want,
+          f"telemetry: device spans cover {counts} of {want}")
+    check(same, "telemetry: the traced step differs from the untraced one")
+    check(report.critical_path.total_us <= wall_us,
+          f"telemetry: critical path {report.critical_path.total_us} us "
+          f"over the wall {wall_us} us")
+    check(mfus and all(0 < v <= 1 for v in mfus.values()),
+          f"telemetry: stage MFU {mfus}")
+    check(run_us <= wall_us * ex.num_meshes,
+          f"telemetry: RUN time {run_us} us over {ex.num_meshes} x wall "
+          f"{wall_us} us")
+    check(ex.capture_count == 1 and ex.recapture_count == 0,
+          f"telemetry: the hooks made the step captured again "
+          f"({ex.capture_count} captures, {ex.recapture_count} recaptures)")
+    run["state"] = state
+    del seed
+    return launch_counts(), report, joined
+
+
+def metric_samples(text: str, name: str) -> Dict[str, float]:
+    """``{label set: value}`` of the samples named ``name`` in Prometheus
+    text (the label set as written, "" for none)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        m = re.match(rf"^{re.escape(name)}(\{{[^}}]*\}})?\s+(\S+)$", line)
+        if m:
+            out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def get_metrics(port) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        return resp.read().decode()
+
+
+SERVING_FAMILIES = (
+    "alpa_serving_queue_depth", "alpa_serving_batch_size",
+    "alpa_serving_batches_total", "alpa_serving_requests_total",
+    "alpa_serving_request_seconds", "alpa_serving_admissions_total",
+    "alpa_serving_decode_steps_total", "alpa_serving_tokens_total",
+    "alpa_serving_step_failures_total", "alpa_serving_active_rows",
+    "alpa_serving_ttft_seconds", "alpa_kv_blocks_in_use",
+    "alpa_kv_prefix_hits_total", "alpa_kv_bytes_saved_total",
+    "alpa_kv_evictions_total")
+
+
+def serving_metrics_check(port, before: str, requests: int, streams: int,
+                          tokens: int):
+    """Phase 17 (e): ``GET /metrics`` after phase 4b's requests: every
+    serving and KV family present, the batched requests served
+    (``alpa_serving_requests_total{outcome="ok"}``), the streams' first
+    tokens (the TTFT histogram's count) and tokens, each as counted since
+    ``before`` (the text read before the phase)."""
+    text = get_metrics(port)
+    missing = [f for f in SERVING_FAMILIES
+               if f"# TYPE {f} " not in text]
+
+    def delta(name, labels=""):
+        return (metric_samples(text, name).get(labels, 0.0) -
+                metric_samples(before, name).get(labels, 0.0))
+    ok = delta("alpa_serving_requests_total", '{outcome="ok"}')
+    ttft = delta("alpa_serving_ttft_seconds_count")
+    toks = delta("alpa_serving_tokens_total")
+    print(f"serving metrics [{card_line()}]: GET /metrics {len(text)} bytes, "
+          f"{text.count('# TYPE ')} families; serving and KV families "
+          f"missing {missing}; requests served {ok:.0f} (sent {requests}), "
+          f"TTFT count {ttft:.0f} (streams {streams}), tokens {toks:.0f} "
+          f"(streamed {tokens}); blocks in use "
+          f"{metric_samples(text, 'alpa_kv_blocks_in_use')}, prefix hits "
+          f"{metric_samples(text, 'alpa_kv_prefix_hits_total')}")
+    check(not missing, f"serving metrics: families missing {missing}")
+    check(ok == requests, f"serving metrics: {ok} requests counted, "
+          f"{requests} served")
+    check(ttft == streams, f"serving metrics: TTFT count {ttft}, "
+          f"{streams} streams")
+    check(toks >= tokens, f"serving metrics: {toks} tokens counted, "
+          f"{tokens} streamed")
+
+
+def phase_calibration(joined):
+    """Phase 17 (c): the collectives of the card named twice profiled
+    (backend "plain"), (b)'s step ingested into a ``CalibrationStore``
+    under a temporary directory, and the stage DP's measured profiling on
+    GPT at hidden 2048, 4 layers: its partition, each forward stage's
+    analytic seconds, its measured profile and its RUN time in a traced
+    step, and the drift gauge."""
+    import tempfile
+    from alpa_tpu_torch.mesh_profiling import (
+        COLLECTIVE_KINDS, ProfilingResultDatabase, calibration_from_file,
+        estimate_stage_cost, mesh_signature, profile_one_mesh)
+    from alpa_tpu_torch.pipeline_parallel.stage_dp import cost_logical_mesh
+    from alpa_tpu_torch.shard_parallel.auto_sharding import \
+        AutoShardingOption
+    from alpa_tpu_torch.telemetry import calibration as tcal
+    from alpa_tpu_torch.telemetry import metrics as tmetrics
+    from alpa_tpu_torch.telemetry import trace as ttrace
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="alpa_port_calibration_")
+    devices = ["cuda:0", "cuda:0"]
+    tic = time.perf_counter()
+    res = profile_one_mesh(devices, sizes=tuple(1 << k
+                                                for k in range(10, 29, 2)))
+    prof_s = time.perf_counter() - tic
+    sig = mesh_signature(devices)
+    db = ProfilingResultDatabase()
+    db.update_one_mesh(sig, res)
+    db_file = f"{tmp}/prof_db.json"
+    db.save(db_file)
+    cal = calibration_from_file(db_file)
+    print(f"calibration profile [{card}]: {sig} in {prof_s:.2f} s (backend "
+          f"{cal.backend}: the card named twice, copies, not NCCL); "
+          + "; ".join(f"{k} alpha {cal.collective_ab[k][0]:.3e} s beta "
+                      f"{cal.collective_ab[k][1]:.3e} s/B" for k in
+                      COLLECTIVE_KINDS) + "; matmul s/flop " + ", ".join(
+              f"{f:.3g} flops {t:.3e}" for f, t in cal.dot_points))
+    check(cal.backend == "plain" and len(cal.collective_ab) == 4,
+          f"calibration: fit {cal}")
+    store = tcal.CalibrationStore(f"{tmp}/store")
+    got = tcal.ingest_joined(joined, store=store)
+    print(f"calibration store [{card}]: phase 17b's step ingested "
+          f"{sum(got.values())} samples into {len(store)} entries under "
+          f"{store.store_dir}")
+    check(len(store) > 0, "calibration: nothing ingested")
+
+    # the stage DP's measured profiling
+    tcal.reset_calibration_store(tcal.CalibrationStore(f"{tmp}/live"))
+    cfg = dataclasses.replace(pipeshard_config(), num_layers=4,
+                              pipeline_boundary_every=0)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 8).items()}
+    method = PipeshardParallel(
+        devices=devices, num_micro_batches=4,
+        layer_option=AutoLayerOption(layer_num=4),
+        stage_option=AutoStageOption(profiling_mode="measured",
+                                     measured_candidates_limit=8,
+                                     profiling_database_filename=db_file),
+        pipeline_schedule="1f1b")
+    state = train_state(cfg)
+    step = make_train_step(method)
+    tic = time.perf_counter()
+    state, loss = step(state, batch)
+    first_s = time.perf_counter() - tic
+    ex = step.get_last_executable()
+    info = ex.stage_dp_info
+    for _ in range(2):
+        state, loss = step(state, batch)
+    ttrace.set_enabled(True)
+    try:
+        state, loss = step(state, batch)
+        float(loss)
+    finally:
+        ttrace.set_enabled(False)
+    report = ex.get_perf_report()
+    lines = []
+    for s_idx, (a, b, shape) in enumerate(info["partition"]):
+        name = f"stage_{s_idx}_fwd"
+        logical = cost_logical_mesh(shape, calibration_from_file(
+            db_file, "plain"))
+        analytic = estimate_stage_cost(ex.fwd_layer_comps[a:b], logical,
+                                       AutoShardingOption())
+        profiled = float(info["costs"][a, b - 1,
+                                       info["choices"].index(shape)])
+        st = report.stages.get(name)
+        ran = st.run_time_us / st.n_runs * 1e-6 if st else float("nan")
+        tcal.get_calibration_store().set_modeled(
+            "stage_run", tcal.stage_signature(name), analytic * 1e6)
+        lines.append(f"{name} layers {a}-{b - 1} on {shape}: analytic "
+                     f"{analytic:.6f} s, the DP's entry {profiled:.6f} s, RUN "
+                     f"{ran:.6f} s per microbatch")
+    text = tmetrics.get_registry().to_prometheus_text()
+    drift = metric_samples(text, "alpa_cost_model_drift_ratio")
+    print(f"calibration measured stage DP [{card}]: GPT hidden "
+          f"{cfg.hidden_size}, {cfg.num_layers} layers, 4 microbatches on "
+          f"{devices}: partition {info['partition']}, {info['measured']} "
+          f"entries measured, calibrated {info['calibrated']}, first call "
+          f"{first_s:.2f} s; " + "; ".join(lines) +
+          f"; alpa_cost_model_drift_ratio {drift}")
+    check(info["measured"] > 0, "calibration: no candidate measured")
+    check(all(np.isfinite(float(x)) for x in drift.values()) and drift,
+          f"calibration: drift {drift}")
+    tcal.reset_calibration_store()
+    del state, step, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compile_cache_plan(cache_dir=None):
+    """Phase 13's planner (GPT-1.3B at 12 layers, batch 8) on the card
+    named twice, through the compile cache: ``(plan, seconds, stats)``,
+    the plan as its shape, specs and strategy vector."""
+    from alpa_tpu_torch.compile_cache import (CompileCache,
+                                              get_compile_cache,
+                                              reset_compile_cache)
+    from alpa_tpu_torch.device_mesh import PhysicalDeviceMesh
+    from alpa_tpu_torch.shard_parallel import AutoShardingOption
+    from alpa_tpu_torch.shard_parallel.solver import (plan_auto_sharding,
+                                                      trace_flat)
+    if cache_dir is not None:
+        reset_compile_cache(CompileCache(cache_dir=cache_dir))
+    cfg = dataclasses.replace(config_from_spec(
+        "1.3B", dtype=torch.bfloat16, attention_impl="flash"), num_layers=12)
+    fun, avals, paths, bidx = planned_step(cfg, 8, "cuda")
+    traced = trace_flat(fun, avals, torch.device("cuda"))
+    tic = time.perf_counter()
+    _, specs, (graph, choice), shape = plan_auto_sharding(
+        fun, avals, paths, bidx, PhysicalDeviceMesh(["cuda:0"] * 2),
+        AutoShardingOption(), traced=traced)
+    seconds = time.perf_counter() - tic
+    plan = {"shape": list(shape), "specs": repr(specs),
+            "choice": [int(c) for c in choice]}
+    return plan, seconds, get_compile_cache().stats()["namespaces"]["ilp"]
+
+
+def compile_cache_child():
+    """The subprocess of phase 17 (d): the plan over the disk cache named
+    by ``ALPA_TPU_CACHE_DIR``, as one JSON line."""
+    plan, seconds, stats = compile_cache_plan()
+    print(json.dumps({"plan": plan, "seconds": seconds, "stats": stats}))
+
+
+def phase_compile_cache():
+    """Phase 17 (d): the planner cold, warm in this process and warm in a
+    subprocess reading the disk cache; the plans must be identical and
+    the warm runs hit."""
+    import os
+    import tempfile
+    from alpa_tpu_torch.compile_cache import reset_compile_cache
+    tmp = tempfile.mkdtemp(prefix="alpa_port_cache_")
+    try:
+        cold, cold_s, cold_st = compile_cache_plan(tmp)
+        warm, warm_s, warm_st = compile_cache_plan()
+    finally:
+        reset_compile_cache(None)
+    env = dict(os.environ, ALPA_TPU_CACHE_DIR=tmp)
+    tic = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as s; "
+         "s.compile_cache_child()"], cwd=os.path.dirname(
+             os.path.abspath(__file__)), env=env, capture_output=True,
+        text=True, timeout=600)
+    child_s = time.perf_counter() - tic
+    check(out.returncode == 0, f"compile cache subprocess failed: "
+          f"{out.stderr[-2000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"compile cache [{card_line()}]: GPT-1.3B planner (12 layers) on "
+          f"the card named twice, shape {cold['shape']}: cold "
+          f"{cold_s:.3f} s ({cold_st}), warm in process {warm_s:.3f} s "
+          f"({warm_st}), warm in a subprocess over {tmp} "
+          f"{child['seconds']:.3f} s ({child['stats']}; the process "
+          f"{child_s:.2f} s); plans identical: in process "
+          f"{warm == cold}, subprocess {child['plan'] == cold}")
+    check(warm == cold and child["plan"] == cold,
+          "compile cache: a warm plan differs from the cold one")
+    check(cold_st["misses"] == 1 and warm_st["hits"] == 1 and
+          child["stats"]["disk_hits"] == 1,
+          f"compile cache: hits {cold_st}, {warm_st}, {child['stats']}")
 
 
 def phase_pipeshard(shard_profile):
@@ -1784,7 +2200,11 @@ def phase_pipeshard(shard_profile):
     run = timed_pipeshard("pipeshard", cfg, pipeshard_method(4), batch,
                           ref_loss, 1e-2, shard_profile, keep=True)
     phase_dispatch(cfg, batch, run)
-    del run["step"], run["ex"]
+    traced, report, joined = timed("telemetry pipeshard",
+                                   phase_telemetry_pipeshard, cfg, batch,
+                                   run)
+    run["traced_counts"], run["joined"] = traced, joined
+    del run["step"], run["ex"], run["state"], report
     torch.cuda.empty_cache()
     peaks = apply_grad_peaks(cfg, batch)
     (off, off_held, losses, _), (on, on_held, _, on_reserved) = (
@@ -3653,36 +4073,136 @@ def timed(name, fn, *args):
     return out
 
 
+@contextlib.contextmanager
+def synchronised_cross_card(devices):
+    """Every card of ``devices`` synchronised before and after each
+    collective (``collectives.all_reduce``, ``all_gather``,
+    ``reduce_scatter``, ``broadcast``) and each tile copy between devices
+    (``ReshardingTask._to``), in this process only: an ordering fault
+    between streams cannot show under it."""
+    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
+    from alpa_tpu_torch.shard_parallel import collectives
+
+    def synced(orig):
+        def call(*args, **kwargs):
+            sync_cards(devices)
+            out = orig(*args, **kwargs)
+            sync_cards(devices)
+            return out
+        return call
+    with contextlib.ExitStack() as stack:
+        for name in ("all_reduce", "all_gather", "reduce_scatter",
+                     "broadcast"):
+            stack.enter_context(wrapped(collectives, name, synced))
+        stack.enter_context(wrapped(cmr.ReshardingTask, "_to",
+                                    lambda orig: staticmethod(synced(orig))))
+        yield
+
+
+def c4_ordering(cards):
+    """ROADMAP C.4's next step: phase 16 (GPT-1.3B, bf16, 4 microbatches)
+    with its two stages on ``[c0, c1, c0, c1]`` (NCCL inside each stage),
+    held to phase 8's step on one card by phase 16's bounds, once as it
+    runs and once with every card synchronised around each collective and
+    each tile copy (``synchronised_cross_card``).  The synchronised run
+    within the bounds and the plain one not: an ordering fault.  Returns
+    ``{"plain": failure or None, "synchronised": ...}``."""
+    devices = [cards[0], cards[1], cards[0], cards[1]]
+    cfg = pipeshard_config(pipeline_boundary_every=12)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 8).items()}
+    ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
+    result = {}
+    for label in ("plain", "synchronised"):
+        with wide_stages_over_cards(), contextlib.ExitStack() as stack:
+            if label == "synchronised":
+                stack.enter_context(synchronised_cross_card(cards[:2]))
+            try:
+                two_level_run(f"C.4 two-level {devices} {label}", cfg,
+                              two_level_method(devices), batch, ref, devices,
+                              timed_steps=1)
+                result[label] = None
+            except SmokeFailure as e:
+                result[label] = str(e)
+        print(f"C.4 ordering [{card_line()} x2] {label}: "
+              f"{result[label] or 'within the bounds'}")
+    return result
+
+
+def c4_checked(cards):
+    """ROADMAP C.4, the step after ``c4_ordering``: phase 16's first step
+    with its stages on ``[c0, c1, c0, c1]``, every collective held to the
+    plain one on the host and every tile to its source
+    (``checked_collectives``, ``checked_tiles``), and Adam's first moment
+    against phase 8's step per tensor, the five worst printed.  Returns
+    ``(collective and tile misses, worst first-moment reading)``."""
+    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
+    from alpa_tpu_torch.shard_parallel import collectives
+    devices = [cards[0], cards[1], cards[0], cards[1]]
+    cfg = pipeshard_config(pipeline_boundary_every=12)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 8).items()}
+    ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
+    violations = []
+    with wide_stages_over_cards(), \
+            wrapped(collectives, "run_collective",
+                    checked_collectives(violations)), \
+            wrapped(cmr.ReshardingTask, "__call__",
+                    checked_tiles(violations)):
+        state = train_state(cfg)
+        step = make_train_step(two_level_method(devices))
+        state, loss = step(state, batch)
+        rel = max_rel_diff(gathered_mu(state), ref["mu"])
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"C.4 checked [{card_line()} x2] devices {devices}: first loss "
+          f"{float(loss):.6f} vs {ref['loss']:.6f}; collective and tile "
+          f"misses {len(violations)} {violations[:6]}; first moment worst "
+          f"tensors " + ", ".join(f"{k} {v:.3e}" for k, v in worst) +
+          f"; host peak RSS {host_rss_gib():.1f} GiB")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return violations, worst[0]
+
+
 def c4_only():
-    """``--c4-bisection``: ROADMAP C.4's bisection alone, on the cards
-    there are (two or more): on four cards the four-card layout first
-    and, where it finds nothing, phase 16 over the four cards
-    (``four_card_two_level``), then the two-card layouts."""
+    """``--c4-bisection``: ROADMAP C.4's ordering step alone, on the cards
+    there are (two or more): ``c4_ordering``.  It passes where the plain
+    run holds its bounds; it fails naming an ordering fault where only
+    the synchronised one does, and with both readings where neither does
+    (the narrow layouts of ``c4_bisection`` run under ``--four-cards``)."""
     n = torch.cuda.device_count()
     check(n >= 2, f"--c4-bisection needs two cards, found {n}")
     cards = [f"cuda:{i}" for i in range(n)]
-    layouts = c4_layouts(cards)
-    failures = []
-    if n >= 4:
-        failures = c4_bisection(layouts[:1])
-        if not failures:
-            failures = four_card_two_level(cards[:4])
-        layouts = layouts[1:]
-    failures += c4_bisection(layouts)
-    check(not failures, "; ".join(failures))
+    if "--checked" in sys.argv:
+        violations, worst = c4_checked(cards)
+        check(not violations and worst[1] <= TWO_LEVEL_GRAD_TOL,
+              f"C.4 checked: {len(violations)} misses, first moment "
+              f"{worst[0]} {worst[1]:.3e}")
+        return
+    ordering = c4_ordering(cards)
+    if ordering["synchronised"] is None:
+        check(ordering["plain"] is None,
+              f"C.4 is an ordering fault: {ordering['plain']}")
+    check(ordering["plain"] is None,
+          f"C.4 is not an ordering fault: plain: {ordering['plain']}; "
+          f"synchronised: {ordering['synchronised']}")
 
 
 def main(args) -> int:
     modes = {"--two-cards": lambda: two_cards(),
              "--four-cards": lambda: four_cards(),
              "--c4-bisection": lambda: c4_only()}
+    if args[1:] == ["--checked"] and args[0] == "--c4-bisection":
+        args = args[:1]
     if args and (len(args) != 1 or args[0] not in modes):
         print("usage: chip_smoke.py [--two-cards | --four-cards | "
-              "--c4-bisection]", file=sys.stderr)
+              "--c4-bisection [--checked]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     print(f"setup: {card_line()}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     build_kernels()
@@ -3724,12 +4244,15 @@ def main(args) -> int:
         timed("two-level fidelity", phase_pipeshard_spmd_fidelity)
         two_level, tiled = timed("two-level", phase_pipeshard_spmd, phase8)
         timed("gradient codec", phase_grad_codec)
+        timed("telemetry calibration", phase_calibration, phase8["joined"])
+        timed("telemetry compile cache", phase_compile_cache)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    traced = phase8["traced_counts"]
     fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
                              + remat[0] + auto[0] + infer + acc[0] + spmd[0]
-                             + two_level[0] + tiled[0])
+                             + two_level[0] + tiled[0] + traced[0])
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
                                      "training": train_fwd,
@@ -3740,14 +4263,15 @@ def main(args) -> int:
                                      "shard_grad_acc": acc[0],
                                      "shard_spmd": spmd[0],
                                      "pipeshard_spmd": two_level[0],
-                                     "pipeshard_spmd_tiled": tiled[0]}
+                                     "pipeshard_spmd_tiled": tiled[0],
+                                     "pipeshard_traced": traced[0]}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
-    for entry, e, n, p, r, a, g, m, t, b in zip(
+    for entry, e, n, p, r, a, g, m, t, b, tr in zip(
             bwd_entries, engine[1:], (train_dq, train_dkv), pipe[1:],
             remat[1:], auto[1:], acc[1:], spmd[1:], two_level[1:],
-            tiled[1:]):
-        entry["launches"] = e + n + p + r + a + g + m + t + b
+            tiled[1:], traced[1:]):
+        entry["launches"] = e + n + p + r + a + g + m + t + b + tr
         entry["launches_by_path"] = {"serving_engine": e,
                                      "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
@@ -3756,7 +4280,10 @@ def main(args) -> int:
                                      "shard_grad_acc": g,
                                      "shard_spmd": m,
                                      "pipeshard_spmd": t,
-                                     "pipeshard_spmd_tiled": b}
+                                     "pipeshard_spmd_tiled": b,
+                                     "pipeshard_traced": tr}
+    print(f"run time: {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included")
     print(card_line())
     print(json.dumps({"kernels": [fwd_entry, *bwd_entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,16 @@ def _keep_global_torch_rng():
 
 
 @pytest.fixture(autouse=True)
+def _fresh_compile_cache():
+    """A fresh memory-only compile cache per test: a plan cached by an
+    earlier test in the process would skip the solves these tests watch."""
+    from alpa_tpu_torch.compile_cache import reset_compile_cache
+    reset_compile_cache()
+    yield
+    reset_compile_cache()
+
+
+@pytest.fixture(autouse=True)
 def _restore_knobs(monkeypatch):
     for k in KNOBS:
         monkeypatch.setattr(tconfig, k, getattr(tconfig, k))

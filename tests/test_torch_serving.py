@@ -191,3 +191,100 @@ def test_register_model_by_config_on_requested_device():
     finally:
         server.shutdown()
     assert get_model(cfg, device="cpu").prompt_buckets == [32, 64, 128]
+
+
+def _families(text):
+    """{family: (type, label names)} of Prometheus text; label names from
+    its samples, ``le`` left out."""
+    import re
+    types, labels = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            types[name] = kind
+            labels.setdefault(name, set())
+        elif line and not line.startswith("#"):
+            sample = line.split("{")[0].split()[0]
+            fam = re.sub(r"_(bucket|sum|count)$", "", sample) \
+                if sample not in types else sample
+            keys = re.findall(r'(\w+)="', line.split("}")[0]) \
+                if "{" in line else []
+            labels.setdefault(fam, set()).update(k for k in keys
+                                                 if k != "le")
+    return {n: (t, frozenset(labels.get(n, ()))) for n, t in types.items()}
+
+
+def _sample(text, name):
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def _sse(port, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/completions",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    tokens = []
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: ") and "token" in line:
+                tokens.append(json.loads(line[len("data: "):])["token"])
+    return tokens
+
+
+def test_metrics_families_and_counts_equal_jax():
+    """After the same batched and streamed requests, ``GET /metrics`` of
+    the port's controller has the serving and KV families of JAX's (names,
+    types, label names), and the same request, token and TTFT counts;
+    ``GET /healthz`` carries ``last_flight_dump``."""
+    from alpa_tpu.serve import run_controller as jax_run_controller
+    jgen, tgen = _generators()
+    prompts = _prompts(seed=4)
+    servers = {"jax": jax_run_controller(port=0),
+               "port": run_controller(port=0, device="cpu")}
+    texts = {}
+    try:
+        servers["jax"].controller.register_model("m", jgen)
+        servers["port"].controller.register_model("m", tgen)
+        for side, server in servers.items():
+            port = server.port
+            before = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=60).read()
+            outs = [_post(port, {"model": "m", "prompt_ids": p.tolist(),
+                                 "max_new_tokens": NEW_TOKENS})
+                    for p in prompts]
+            streams = [_sse(port, {"model": "m", "prompt_ids": p.tolist(),
+                                   "max_new_tokens": NEW_TOKENS})
+                       for p in prompts[:2]]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=60) as resp:
+                assert resp.headers["Content-Type"].startswith("text/plain")
+                texts[side] = (before.decode(), resp.read().decode())
+            assert all(len(o["output_ids"][0]) > len(p)
+                       for o, p in zip(outs, prompts))
+            assert all(len(s) == NEW_TOKENS for s in streams)
+        status, health = _get(servers["port"].port, "/healthz")
+        assert status == 200 and "last_flight_dump" in health
+    finally:
+        for server in servers.values():
+            server.shutdown()
+    fams = {side: {n: v for n, v in _families(after).items()
+                   if n.startswith(("alpa_serving_", "alpa_kv_"))}
+            for side, (_, after) in texts.items()}
+    assert fams["port"] == fams["jax"]
+
+    def delta(side, name):
+        before, after = texts[side]
+        return _sample(after, name) - _sample(before, name)
+    for name in ('alpa_serving_requests_total{outcome="ok"}',
+                 "alpa_serving_batches_total",
+                 "alpa_serving_tokens_total",
+                 "alpa_serving_ttft_seconds_count",
+                 "alpa_serving_admissions_total"):
+        assert delta("port", name) == delta("jax", name), name
+    assert delta("port", 'alpa_serving_requests_total{outcome="ok"}') == \
+        len(prompts)
+    assert delta("port", "alpa_serving_ttft_seconds_count") == 2

@@ -49,6 +49,16 @@ def _keep_global_torch_rng():
 
 
 @pytest.fixture(autouse=True)
+def _fresh_compile_cache():
+    """A fresh memory-only compile cache per test: a plan cached by an
+    earlier test in the process would skip the solves these tests watch."""
+    from alpa_tpu_torch.compile_cache import reset_compile_cache
+    reset_compile_cache()
+    yield
+    reset_compile_cache()
+
+
+@pytest.fixture(autouse=True)
 def _port_cluster():
     yield
     alpa_tpu_torch.shutdown()
@@ -358,21 +368,118 @@ def test_multi_device_optimum_raises_roadmap_a3(monkeypatch):
     np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-5)
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("profiling_mode", "measured", "A.6"),
-    ("cached_compute_cost", "costs.npz", "A.6"),
-    ("profiling_database_filename", "db.json", "A.6"),
-    ("measured_candidates_limit", 4, "A.6"),
-    ("measured_compile_workers", 1, "A.6"),
+def _prof_db(path, backend_key, flops_per_s=5e10):
+    """A profiling database of the two-device CPU mesh under the key
+    ``backend_key``: a dot ladder at ``flops_per_s`` and every collective
+    kind, fitted alike by both packages."""
+    from alpa_tpu_torch import mesh_profiling as tprof
+    res = tprof.MeshProfilingResult()
+    for n in (64, 256, 1024):
+        res.record("dot", ("float32",), 2.0 * n ** 3,
+                   2.0 * n ** 3 / flops_per_s)
+    for kind in tprof.COLLECTIVE_KINDS:
+        for size in (1e3, 1e5, 1e7):
+            res.record(kind, ("f32", 2, "plain"), size, 2e-5 + size / 4e9)
+    db = tprof.ProfilingResultDatabase({backend_key: res})
+    db.save(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("field, value", [
+    ("profiling_mode", "measured"),
+    ("cached_compute_cost", "costs.npz"),
+    ("profiling_database_filename", "db.json"),
+    ("measured_candidates_limit", 3),
+    ("measured_compile_workers", 1),
 ])
-def test_unported_auto_stage_fields_raise(field, value, item):
-    _, t_state, _, batch = _mlp_states()
-    option = AutoStageOption(**{field: value})
-    step = alpa_tpu_torch.parallelize(_port_mlp_step, method=PipeshardParallel(
-        devices=["cpu"], num_micro_batches=2,
-        layer_option=AutoLayerOption(layer_num=2), stage_option=option))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        step(t_state, batch)
+def test_auto_stage_fields_act_as_jax(field, value, tmp_path, monkeypatch):
+    """Each field of ``AutoStageOption`` that the port once refused is
+    taken and acts as JAX's does, on the 4-layer MLP in 2 auto layers over
+    two CPU devices: measured profiling refines candidates (all of the
+    shortlist, or ``measured_candidates_limit`` of it; one compile worker
+    alike) and the step's loss equals JAX's; ``cached_compute_cost``
+    writes the tensors and a second compile reads them back to the same
+    partition; ``profiling_database_filename`` prices the cost tensor in
+    the database's seconds, where both packages choose the same partition
+    and costs within 1e-9 relative of JAX's fit."""
+    from alpa_tpu_torch import mesh_profiling as tprof
+    from alpa_tpu_torch.compile_cache import get_compile_cache
+    monkeypatch.setattr(jprof, "get_effective_calibration", lambda: None)
+    monkeypatch.setattr(jprof, "get_global_calibration", lambda: None)
+    kw = {field: value}
+    if field.startswith("measured_"):
+        kw["profiling_mode"] = "measured"
+    if field == "cached_compute_cost":
+        kw[field] = str(tmp_path / value)
+    if field == "profiling_database_filename":
+        kw[field] = _prof_db(tmp_path / "port_db.json", "1x2-cpu-plain")
+    j_state, _, jb, batch = _mlp_states()
+
+    def port_step():
+        step = alpa_tpu_torch.parallelize(_port_mlp_step,
+                                          method=PipeshardParallel(
+            devices=["cpu"] * 2, num_micro_batches=2,
+            layer_option=AutoLayerOption(layer_num=2),
+            stage_option=AutoStageOption(**kw)))
+        _, loss = step(_mlp_states()[1], batch)
+        return step.get_last_executable().stage_dp_info, float(loss)
+
+    info, t_loss = port_step()
+    if kw.get("profiling_mode") == "measured":
+        n_short = len(tprof.shortlist_candidates(
+            np.where(np.isfinite(info["costs"]), 1.0, np.inf), [1, 2], 2,
+            10 ** 6))
+        want = min(n_short, kw.get("measured_candidates_limit", 16))
+        assert info["measured"] == want > 0
+        assert np.isfinite(info["costs"]).sum() >= want
+    if field == "cached_compute_cost":
+        assert (tmp_path / value).exists() and not info["cost_cache_hit"]
+        get_compile_cache().clear()
+        again, _ = port_step()
+        assert again["cost_cache_hit"]
+        assert again["partition"] == info["partition"]
+        np.testing.assert_array_equal(again["costs"], info["costs"])
+    if field == "profiling_database_filename":
+        assert info["calibrated"]
+        jdb = tmp_path / "jax_db.json"
+        jprof.ProfilingResultDatabase({"1x2-cpu": jprof.MeshProfilingResult
+                                       .from_json(tprof.ProfilingResultDatabase
+                                                  .load(kw[field])
+                                                  .data["1x2-cpu-plain"]
+                                                  .to_json())}).save(str(jdb))
+        jcal = jprof.calibration_from_file(str(jdb))
+        tcal = tprof.calibration_from_file(kw[field], "plain")
+        assert tcal.collective_ab == jcal.collective_ab
+        assert tcal.dot_points == jcal.dot_points
+        for f in (1e6, 1e9, 1e12):
+            assert tcal.sec_per_flop(f) == pytest.approx(
+                jcal.sec_per_flop(f), rel=1e-9)
+    seen = {}
+    solve = jdp.stage_dp_solve
+
+    def recording_solve(costs, *args, **kwargs):
+        seen["part"] = solve(costs, *args, **kwargs)
+        return seen["part"]
+
+    monkeypatch.setattr(jdp, "stage_dp_solve", recording_solve)
+    jkw = dict(kw)
+    if field == "profiling_database_filename":
+        jkw[field] = str(tmp_path / "jax_db.json")
+    if field == "cached_compute_cost":
+        jkw[field] = str(tmp_path / "jax_costs.npz")
+    j_pstep = alpa_tpu.parallelize(_jax_mlp_step,
+                                   method=alpa_tpu.PipeshardParallel(
+                                       devices=_jax_mesh(2),
+                                       num_micro_batches=2,
+                                       layer_option=jlc.AutoLayerOption(
+                                           layer_num=2),
+                                       stage_option=jstage.AutoStageOption(
+                                           **jkw)))
+    _, j_loss = j_pstep(j_state, jb)
+    np.testing.assert_allclose(t_loss, float(j_loss), rtol=1e-5)
+    if kw.get("profiling_mode") != "measured":
+        # measured times differ run to run; the modelled paths agree
+        assert info["partition"] == _jax_partition(seen, 2)
 
 
 def test_use_hlo_cost_model_chooses_exact_or_per_layer_costs():

@@ -4,8 +4,9 @@ the JAX package.
 ``AutoStageOption`` on 8 devices (``tests/pipeline_parallel/
 test_pipeshard.py:400-411``): the JAX package's 8-layer MLP in 4 automatic
 layers, 4 microbatches.  Both cost models run on their uncalibrated path
-(the port has no profiling database, ROADMAP A.6; JAX's calibration is
-set to None): flops x ``DEFAULT_SEC_PER_FLOP`` / devices, plus the ILP's
+(no profiling database is configured on the port's side; JAX's
+calibration is set to None): flops x ``DEFAULT_SEC_PER_FLOP`` / devices,
+plus the ILP's
 objective x 1e-7 of each merged span on each candidate submesh.  The
 port's DP must pick JAX's partition and submeshes, and its step equal the
 serial step (losses rtol 1e-5, parameters 1e-5 of each tensor's largest).
