@@ -68,6 +68,20 @@ Measurement (the telemetry layer, ``telemetry/``):
   calibration store's disk tier.  Under "auto" ``consider_replan`` raises:
   the port's strategy chooser does not read the store yet (ROADMAP A.6).
 
+Fault tolerance and state (``fault.py``, ``elastic.py``,
+``serialization.py``):
+
+* ``elastic_step_budget`` (4), ``elastic_time_budget_s`` (300),
+  ``elastic_grace_period_s`` (30), ``elastic_quiesce_timeout_s`` (60) and
+  ``elastic_snapshot_interval`` (1): ``ElasticSupervisor``'s budgets, its
+  preemption grace window, how long ``quiesce()`` waits for launches in
+  flight, and its checkpoint cadence.
+* ``wedge_probe_timeout_s`` (120): seconds a ``WedgeDetector`` probe may
+  take before its device is classed wedged.
+* ``checkpoint_cache_dir`` (``ALPA_TPU_CKPT_CACHE``): a local directory
+  ``save_checkpoint`` writes first and drains to its target in the
+  background.
+
 The dispatch mode is the JAX driver's "auto" choice: overlap where it is
 eligible, else register-file replay.  ``_pipeline_dispatch_mode`` is a
 private switch for the tests and ``chip_smoke.py``, which force each of
@@ -156,6 +170,21 @@ class GlobalConfig:
             "ALPA_TPU_CALIBRATION_MIN_SAMPLES", "3"))
         self.calibration_dir = os.environ.get("ALPA_TPU_CALIBRATION_DIR",
                                               None)
+        # fault tolerance and state
+        self.elastic_step_budget = int(os.environ.get(
+            "ALPA_TPU_ELASTIC_STEP_BUDGET", "4"))
+        self.elastic_time_budget_s = float(os.environ.get(
+            "ALPA_TPU_ELASTIC_TIME_BUDGET", "300"))
+        self.elastic_grace_period_s = float(os.environ.get(
+            "ALPA_TPU_ELASTIC_GRACE", "30"))
+        self.elastic_quiesce_timeout_s = float(os.environ.get(
+            "ALPA_TPU_ELASTIC_QUIESCE_TIMEOUT", "60"))
+        self.elastic_snapshot_interval = int(os.environ.get(
+            "ALPA_TPU_ELASTIC_SNAPSHOT_INTERVAL", "1"))
+        self.wedge_probe_timeout_s = float(os.environ.get(
+            "ALPA_TPU_WEDGE_PROBE_TIMEOUT", "120"))
+        self.checkpoint_cache_dir = os.environ.get("ALPA_TPU_CKPT_CACHE",
+                                                   None)
 
 
 global_config = GlobalConfig()

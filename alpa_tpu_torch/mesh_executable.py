@@ -72,6 +72,23 @@ class MeshExecutable:
     def get_total_allocation_size(self) -> int:
         raise NotImplementedError
 
+    def get_plan_fingerprint(self) -> str:
+        """A content hash of the executable's parallel plan: the mesh's
+        extent, the logical mesh, the inputs' and outputs' avals and
+        specs, as ``alpa_tpu/mesh_executable.py:153`` hashes its mesh
+        extent, avals and shardings.  ``checkpoint.CheckpointManager``
+        checks it on resume."""
+        import hashlib
+        parts = [repr(tuple(self.physical_mesh.shape))]
+        mesh = getattr(self, "logical_mesh", None)
+        if mesh is not None:
+            parts.append(repr(tuple(mesh.shape)))
+        parts.extend(repr(a) for a in getattr(self, "avals", None) or ())
+        for name in ("in_specs", "out_specs"):
+            parts.extend(repr(s if s is None else tuple(s)) for s in
+                         getattr(self, name, None) or ())
+        return hashlib.sha256("\n".join(parts).encode()).hexdigest()
+
 
 class _SpmdExecution:
     """Running a partitioned program over the logical mesh's devices."""

@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from alpa_tpu_torch import fault as _fault
 from alpa_tpu_torch.device_mesh import DistributedArray
 from alpa_tpu_torch.telemetry import metrics as _tmetrics
 from alpa_tpu_torch.telemetry import trace as _ttrace
@@ -845,6 +846,11 @@ class ReshardingTask:
                  mode: Optional[str] = None
                  ) -> Tuple[List[torch.Tensor], int]:
         mode = self._checked(mode) if mode else self.mode
+        if mode != "device_put":
+            # where the JAX package's executable runs the task (its "planned"
+            # execution); its "device_put" edges never reach it
+            _fault.fire("cross_mesh_recv", mode=mode,
+                        n_requests=len(self.plan.requests))
         if mode == "device_put" or not self.plan.requests:
             report = ExecutionReport(mode="device_put")
             out = self._run_direct(src_shards, report)

@@ -69,7 +69,18 @@ an argument: a replayed CUDA graph returns in microseconds, so a host
 span would time its launch.  None of the hooks is captured into a graph.
 ``get_perf_report`` joins the last step's spans against the program's
 dataflow graph (``telemetry.perf.StepPerfReport``) and feeds the
-calibration store; the fault hook comes with ``fault.py``.
+calibration store.
+
+Faults (``fault.py``): the register-file replay compiles its fault hook
+in while ``fault.instrumented()`` (``runtime_emitter``), and the
+"sequential" and "threaded" loops fire ``stage_launch`` before each RUN
+and ``cross_mesh_send`` before each RESHARD under ``call_with_retry``, as
+the JAX package's interpreter does: a RUN that donates is retried only for
+an injected fault, which fires before it runs.  A fire is a host call
+before the op or its graph replays; it never causes a recapture.  The
+launch gate: ``quiesce()`` closes it and waits for the launches in flight
+(and the cards) to drain, ``resume()`` opens it again, as
+``RecoveryManager`` and ``ElasticSupervisor`` drive them.
 """
 import functools
 import logging
@@ -84,6 +95,7 @@ import numpy as np
 import torch
 from torch import fx
 
+from alpa_tpu_torch import fault as _fault
 from alpa_tpu_torch.device_mesh import DistributedArray, PhysicalDeviceMesh
 from alpa_tpu_torch.global_env import global_config
 from alpa_tpu_torch.ops import flash_attention as _flash
@@ -924,6 +936,14 @@ class PipeshardDriverExecutable:
         self._last_program = None
         self._step_t0_us = self._step_t1_us = 0.0
         self._acct_lock = threading.Lock()
+        # the quiesce gate: recovery pauses new launches and waits out
+        # those in flight before it snapshots the state.  The gate flag
+        # and the count of launches in flight change only together, under
+        # ``_quiesce_cv``, so no launch can pass an open gate and count
+        # itself after a quiesce has read the count as 0.
+        self._gate_open = True
+        self._inflight_launches = 0
+        self._quiesce_cv = threading.Condition()
         self._moved = 0
         self.executed_cross_mesh_bytes = 0.0
         self.executed_intra_mesh_bytes = 0.0
@@ -1226,6 +1246,49 @@ class PipeshardDriverExecutable:
 
     # ---- execution ----
     def launch_on_driver(self, *flat_args):
+        # blocks while quiesced: a launch racing a recovery would
+        # dispatch onto a device being probed or restored (an in-place
+        # restore writes into the tensors its graphs read)
+        with self._quiesce_cv:
+            self._quiesce_cv.wait_for(lambda: self._gate_open)
+            self._inflight_launches += 1
+        try:
+            return self._launch_counted(*flat_args)
+        finally:
+            with self._quiesce_cv:
+                self._inflight_launches -= 1
+                self._quiesce_cv.notify_all()
+
+    def quiesce(self, timeout: Optional[float] = None) -> bool:
+        """Close the launch gate and wait until the launches in flight
+        drain, then for the cards' queues (``sync``).  True when a
+        quiescent point was reached within ``timeout``; launches stay
+        blocked until ``resume``."""
+        with self._quiesce_cv:
+            self._gate_open = False
+            drained = self._quiesce_cv.wait_for(
+                lambda: self._inflight_launches == 0, timeout)
+        if drained:
+            try:
+                self.sync()
+            except Exception:  # pylint: disable=broad-except
+                # a dead card cannot sync; quiescing on the host must
+                # still succeed so that recovery can go on
+                logger.exception("quiesce: device sync failed")
+        return bool(drained)
+
+    def resume(self):
+        """Open the launch gate again after recovery."""
+        with self._quiesce_cv:
+            self._gate_open = True
+            self._quiesce_cv.notify_all()
+
+    def sync(self):
+        """Wait for every card of the meshes to finish its queued work."""
+        for d in self._cuda_devices():
+            torch.cuda.synchronize(d)
+
+    def _launch_counted(self, *flat_args):
         t0 = time.perf_counter()
         step_span = _ttrace.begin("pipeshard.step", "runtime")
         self._step_t0_us = _ttrace.now_us()
@@ -1456,14 +1519,36 @@ class PipeshardDriverExecutable:
     def _exec_inst(self, idx, inst, env, runs, transfers):
         if inst.opcode == PipelineInstType.RUN:
             m = inst.dst_mesh
-            outs = runs[idx]([env[(k[0], k[1], m)]
-                              for k in inst.input_keys])
+            args = [env[(k[0], k[1], m)] for k in inst.input_keys]
+            if _fault.instrumented():
+                # a donating run is not idempotent (a rerun would read
+                # inputs it wrote or freed): only injected faults, which
+                # fire before it runs, are retried there
+                def attempt():
+                    _fault.fire("stage_launch", stage=inst.info, mesh_id=m)
+                    return runs[idx](args)
+                outs = _fault.call_with_retry(
+                    attempt, site="stage_launch", idempotent=not getattr(
+                        inst.executable, "donate_idx", ()))
+            else:
+                outs = runs[idx](args)
             for k, o in zip(inst.output_keys, outs):
                 env[(k[0], k[1], m)] = o
         elif inst.opcode == PipelineInstType.RESHARD:
             v, i = inst.var_key
-            env[(v, i, inst.dst_mesh)] = transfers[idx](
-                env[(v, i, inst.src_mesh)])
+            src = env[(v, i, inst.src_mesh)]
+            if _fault.instrumented():
+                # a transfer reads its source as it is: a rerun is safe
+                def transfer():
+                    _fault.fire("cross_mesh_send", var=str(v),
+                                src_mesh=inst.src_mesh,
+                                dst_mesh=inst.dst_mesh)
+                    return transfers[idx](src)
+                out = _fault.call_with_retry(transfer,
+                                             site="cross_mesh_send")
+            else:
+                out = transfers[idx](src)
+            env[(v, i, inst.dst_mesh)] = out
         else:
             for key in inst.free_keys:
                 env.pop(tuple(key), None)

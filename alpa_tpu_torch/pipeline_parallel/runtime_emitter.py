@@ -24,11 +24,16 @@ node and slot footprint) and ``op_meta`` (span name, category, track
 once per step whether any instrumentation is on (``collect_trace`` or
 tracing, the flight recorder, ``debug_dispatch_races``) and then replays
 a wrapped op list compiled for that combination and cached by it: trace
-span > flight event > ``SlotHazardChecker``, as the JAX module nests them.
-With all of it off the raw closures run.  A driver may hand ``execute`` a
-``timer`` that times ops on the device instead of the host (the CUDA
-event pairs of ``pipeshard_executable``).  The fault hook comes with
-``fault.py``; the plan verifier and the superoptimizer are ROADMAP A.7.
+span > flight event > ``SlotHazardChecker`` > fault site, as the JAX module
+nests them.  The fault hook (compiled in only while ``fault.instrumented()``)
+fires a RUN's ``stage_launch`` and a RESHARD's (or a group's, once per
+member) ``cross_mesh_send`` on the host before the op runs or replays,
+under ``fault.call_with_retry``: a RUN that donates its inputs is retried
+only for injected faults, which fire before it runs.  With all of it off
+the raw closures run.  The executable may hand ``execute`` a ``timer`` that
+times ops on the device instead of the host (the CUDA event pairs of
+``pipeshard_executable``).  The plan verifier and the superoptimizer are
+ROADMAP A.7.
 """
 import dataclasses
 import enum
@@ -37,6 +42,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from alpa_tpu_torch import fault as _fault
 from alpa_tpu_torch.global_env import global_config
 from alpa_tpu_torch.telemetry import flight as _flight
 from alpa_tpu_torch.telemetry import metrics as _tmetrics
@@ -452,6 +458,9 @@ class OpHook:
     kills: Tuple[int, ...] = ()
     slots: Tuple[int, ...] = ()           # union footprint (flight events)
     members: Tuple[int, ...] = ()         # instruction indices replayed
+    fault_site: Optional[str] = None      # fault.py site name
+    fault_infos: Tuple[Any, ...] = ()     # one info dict per member
+    idempotent: bool = True               # retry semantics (donation)
 
 
 class SlotHazardChecker:
@@ -531,6 +540,20 @@ def _wrap_hazard(op, hook: OpHook, checker: SlotHazardChecker):
         def wrapped(regs, _op=op, _h=hook, _c=checker):
             _c.on_exec(_h)
             _op(regs)
+    return wrapped
+
+
+def _wrap_fault(op, hook: OpHook):
+    """Fault-site hook: fire every member's site before the op, retry
+    under the site policy; the same FaultSpec hit counts as the
+    instruction loops' per-instruction wrapping."""
+    def wrapped(regs, _op=op, _site=hook.fault_site,
+                _infos=hook.fault_infos, _idem=hook.idempotent):
+        def attempt():
+            for info in _infos:
+                _fault.fire(_site, **info)
+            _op(regs)
+        _fault.call_with_retry(attempt, site=_site, idempotent=_idem)
     return wrapped
 
 
@@ -619,7 +642,8 @@ class RegisterFileProgram:
             self._hooked[key] = entry
         wrapped, hazard, _ = entry
         self.last_hooks = tuple(name for on, name in zip(
-            (sig[0], sig[2], sig[3]), ("trace", "race", "flight")) if on)
+            (sig[0], sig[2], sig[3], sig[5]),
+            ("trace", "race", "flight", "fault")) if on)
         if hazard is not None:
             hazard.begin_step()
         for op in wrapped:
@@ -635,17 +659,21 @@ class RegisterFileProgram:
         trace_on = _ttrace.enabled() or global_config.collect_trace
         race_on = global_config.debug_dispatch_races
         flight_on = _flight.enabled()
-        if not (trace_on or race_on or flight_on):
+        fault_on = _fault.instrumented()
+        if not (trace_on or race_on or flight_on or fault_on):
             return None
         return (trace_on,
                 id(_ttrace.get_recorder()) if trace_on else 0,
                 race_on, flight_on,
-                id(_flight.get_recorder()) if flight_on else 0)
+                id(_flight.get_recorder()) if flight_on else 0,
+                fault_on)
 
     def _compile_hooks(self, sig, base, timer):
         """The wrapped op list for the active instrumentation, nesting
-        (outermost first) trace span > flight event > hazard check."""
-        trace_on, _tid, race_on, flight_on, _fid = sig
+        (outermost first) trace span > flight event > hazard check >
+        fault site, so a retry re-fires inside one span and the flight
+        event records the outcome after the retries."""
+        trace_on, _tid, race_on, flight_on, _fid, fault_on = sig
         hooks, meta = self.hooks, self.op_meta
         if hooks is None or len(hooks) != len(base):
             return list(base), None
@@ -655,6 +683,8 @@ class RegisterFileProgram:
         wrapped: List[Callable] = []
         for k, (op, hook) in enumerate(zip(base, hooks)):
             w = op
+            if fault_on and hook.fault_site is not None:
+                w = _wrap_fault(w, hook)
             if hazard is not None:
                 w = _wrap_hazard(w, hook, hazard)
             if flight_on:
@@ -789,7 +819,15 @@ def _make_launch_op(transfers, src_slots, dst_slots, label="transfer"):
         def work(_traced=traced, _sub=t_sub):
             t_run = _ttrace.now_us() if _traced else 0.0
             tic = time.perf_counter()
-            outs = [t(v) for t, v in zip(_t, vals)]
+            if _fault.instrumented():
+                # a fault inside the transfer (a tile task's
+                # cross_mesh_recv) surfaces here, in the pool: retried
+                # under cross_mesh_send, as the instruction loops do
+                outs = [_fault.call_with_retry(
+                    lambda _tt=t, _v=v: _tt(_v), site="cross_mesh_send")
+                    for t, v in zip(_t, vals)]
+            else:
+                outs = [t(v) for t, v in zip(_t, vals)]
             busy = time.perf_counter() - tic
             if _traced:
                 _record_pool_spans(_l, _sub, t_run, _ttrace.now_us())
@@ -829,14 +867,43 @@ _OVERLAP_BLOCKED = _OVERLAP_REG.counter(
 _OVERLAP_HOISTED = _OVERLAP_REG.counter(
     "alpa_overlap_hoisted_total",
     "Cross-mesh transfers launched ahead of flat instruction order")
+_OVERLAP_LAUNCHES = _OVERLAP_REG.counter(
+    "alpa_overlap_launches_total",
+    "Async transfer launches issued (a batched group counts once)")
+_OVERLAP_LAST_FRACTION = _OVERLAP_REG.gauge(
+    "alpa_overlap_last_overlap_fraction",
+    "Last step's 1 - wait_blocked/transfer_busy overlap fraction")
+_OVERLAP_LAST_WINDOW = _OVERLAP_REG.gauge(
+    "alpa_overlap_last_window",
+    "Last step's in-flight transfer window")
 
 
 def record_overlap_step(prog: "RegisterFileProgram") -> None:
     """Fold one overlap-mode step into the ``alpa_overlap_*`` counters."""
+    busy = prog.run_stats["transfer_busy_s"]
+    blocked = prog.run_stats["wait_blocked_s"]
     _OVERLAP_STEPS.inc()
-    _OVERLAP_BUSY.inc(prog.run_stats["transfer_busy_s"])
-    _OVERLAP_BLOCKED.inc(prog.run_stats["wait_blocked_s"])
+    _OVERLAP_BUSY.inc(busy)
+    _OVERLAP_BLOCKED.inc(blocked)
     _OVERLAP_HOISTED.inc(prog.n_hoisted)
+    _OVERLAP_LAUNCHES.inc(prog.n_launches)
+    _OVERLAP_LAST_FRACTION.set(max(0.0, min(1.0, 1 - blocked / busy))
+                               if busy > 0 else 1.0)
+    _OVERLAP_LAST_WINDOW.set(prog.overlap_window)
+
+
+def get_overlap_runtime_stats() -> Dict[str, Any]:
+    """The overlap runtime's counters as ``monitoring.get_overlap_stats``
+    reads them (JAX's dict)."""
+    return {
+        "steps": int(_OVERLAP_STEPS.value),
+        "transfer_busy_s": _OVERLAP_BUSY.value,
+        "wait_blocked_s": _OVERLAP_BLOCKED.value,
+        "n_hoisted": int(_OVERLAP_HOISTED.value),
+        "n_launches": int(_OVERLAP_LAUNCHES.value),
+        "last_overlap_fraction": _OVERLAP_LAST_FRACTION.value,
+        "last_window": int(_OVERLAP_LAST_WINDOW.value),
+    }
 
 
 def lower_to_register_file(
@@ -886,7 +953,13 @@ def lower_to_register_file(
                 "op": _make_run_op(run_fn(idx), in_slots, out_slots),
                 "reads": in_slots, "writes": out_slots,
                 "kills": tuple(sorted({in_slots[p] for p in donated})),
-                "name": f"RUN {inst.info}", "mesh": inst.dst_mesh})
+                "name": f"RUN {inst.info}", "mesh": inst.dst_mesh,
+                # the fault site and retry semantics of the instruction
+                # loops' RUN: a donating run is retried only for
+                # injected faults
+                "site": "stage_launch",
+                "finfo": {"stage": inst.info, "mesh_id": inst.dst_mesh},
+                "idem": not donated})
         elif inst.opcode == PipelineInstType.RESHARD:
             by_opcode["RESHARD"] += 1
             v, instance = inst.var_key
@@ -902,7 +975,12 @@ def lower_to_register_file(
                 "cross": inst.src_mesh != inst.dst_mesh,
                 "reads": (ss,), "writes": (ds,), "kills": (),
                 "name": f"RESHARD {inst.src_mesh}->{inst.dst_mesh}{tag}",
-                "mesh": inst.dst_mesh})
+                "mesh": inst.dst_mesh, "site": "cross_mesh_send",
+                "finfo": {"var": str(v), "src_mesh": inst.src_mesh,
+                          "dst_mesh": inst.dst_mesh, "strategy": strategy,
+                          "codec": (strategy if strategy.startswith(
+                              "quantized") else None)},
+                "idem": True})
         else:
             by_opcode["FREE"] += 1
             slots = tuple(slot(tuple(k)) for k in inst.free_keys)
@@ -933,12 +1011,18 @@ def lower_to_register_file(
         reads = tuple(x for m in mem for x in m["reads"])
         writes = tuple(x for m in mem for x in m["writes"])
         kills = tuple(x for m in mem for x in m["kills"])
+        # a wait retires a launch that fired its sites; a FREE has none
+        site = mem[0].get("site") if kind != "wait" else None
         return OpHook(kind=kind, name=name,
                       node=mem[0]["pos"],
                       mesh=mem[0]["mesh"], reads=reads, writes=writes,
                       kills=kills, slots=tuple(sorted({*reads, *writes,
                                                        *kills})),
-                      members=tuple(m["idx"] for m in mem))
+                      members=tuple(m["idx"] for m in mem),
+                      fault_site=site,
+                      fault_infos=(tuple(m["finfo"] for m in mem)
+                                   if site else ()),
+                      idempotent=all(m.get("idem", True) for m in mem))
 
     def emit(r):
         ops.append(r["op"])

@@ -8,10 +8,18 @@ first streamed request, which serves every streamed request.
 
 Endpoints:
   GET  /models       -> {"models": [...]}
-  GET  /health       -> {"status": "ok" | "shedding"} (503 when shedding)
-  GET  /healthz      -> the health report with ``last_flight_dump``, the
-        path of the flight recorder's last post-mortem (null for none)
+  GET  /health       -> {"status": "ok" | "degraded" | "shedding"} (503
+        when shedding)
+  GET  /healthz      -> the recovery state when a ``RecoveryManager`` is
+        attached (200 healthy/suspect/recovering, 503 degraded), else the
+        health report; with ``last_flight_dump`` (the flight recorder's
+        last post-mortem, null for none) and ``elastic`` (the
+        ``ElasticSupervisor``'s report, null without one)
   GET  /metrics      -> the process registry's Prometheus text
+  POST /admin/reload -> {"model", "ckpt_dir", "step"?}: stage and
+        hash-verify a checkpoint's weights, then swap every replica of
+        the model under a drain barrier (``checkpoint.hot_swap``); 409
+        when streams outlive the drain window (weights unchanged)
   POST /completions  -> {"model", "prompt_ids", "max_new_tokens"?,
         "temperature"?, "top_k"?, "do_sample"?, "eos_token_id"?,
         "queue"?, "stream"?}
@@ -20,9 +28,15 @@ Endpoints:
         ``data: {"done": true}`` (or ``data: {"error": ...}``).
 
 The batcher and the controller keep JAX's ``alpa_serving_*`` families and
-``serve.request`` / ``batcher.generate`` spans.  Not ported yet: fault
-sites, the batcher's degraded FIFO fallback, disaggregation, hot swap and
-the router.
+``serve.request`` / ``batcher.generate`` spans.  Faults, as in JAX: the
+batcher fires ``scheduler_take`` before it forms a batch, and a
+scheduler (or an injected fault) that raises there demotes the batcher
+to a fresh FIFO queue with every queued request carried over (health
+"degraded": serving goes on, the policy is lost).  A bound
+``RecoveryManager`` (``attach_recovery``) turns DEGRADED into load
+shedding: new requests get ``fault.ServiceDegradedError``, HTTP 503,
+until recovery clears it.  Not ported yet: disaggregation and the router
+(ROADMAP A.2).
 """
 import dataclasses
 import json
@@ -34,6 +48,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from alpa_tpu_torch import fault as _fault
+from alpa_tpu_torch.fault import ServiceDegradedError
 from alpa_tpu_torch.global_env import global_config
 from alpa_tpu_torch.serve.engine import ContinuousBatchingEngine
 from alpa_tpu_torch.serve.generation import (GenerationConfig, Generator,
@@ -59,10 +75,6 @@ _REQUESTS = _REG.counter(
 _REQ_LATENCY = _REG.histogram(
     "alpa_serving_request_seconds",
     "End-to-end /completions latency (batched path)")
-
-
-class ServiceDegradedError(RuntimeError):
-    """The controller is shedding load; maps to HTTP 503."""
 
 
 class RequestBatcher:
@@ -93,7 +105,16 @@ class RequestBatcher:
                     f"{method}(); see serve.scheduler's queue protocol")
         self._queue = scheduler
         self._cv = threading.Condition()
+        # the drain barrier of a hot weight swap: the worker holds it
+        # while a batch runs on the device, so whoever else takes it
+        # (``_Replica.swap_weights``) knows no batch is mid-flight
+        self._gen_lock = threading.Lock()
         self.batches_run = 0
+        # degraded mode: a broken scheduler demotes this batcher to a
+        # fresh FIFO queue instead of failing the queued requests
+        self.degraded = False
+        self.degraded_reason: Optional[str] = None
+        self.on_degraded = None       # callback(exc), set by _Replica
         self._stop = False
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -160,10 +181,37 @@ class RequestBatcher:
             # a small window lets concurrent arrivals coalesce
             time.sleep(self.max_wait_s)
             with self._cv:
-                batch = self._take_batch()
+                try:
+                    _fault.fire("scheduler_take", backlog=len(self._queue))
+                    batch = self._take_batch()
+                except Exception as e:  # pylint: disable=broad-except
+                    self._demote(e)
+                    continue
                 _QUEUE_DEPTH.set(len(self._queue))
             if batch:
                 self._run_batch(batch)
+
+    def _demote(self, err: BaseException):
+        """A scheduler that raised must not take the queued requests down
+        with it: a fresh FIFO queue takes over with every item carried
+        over (whatever ``drain`` yields before it fails, if it does), and
+        the batcher serves on, degraded.  Called with ``_cv`` held."""
+        logger.exception("scheduler.take failed; degrading to FIFO")
+        fresh = FIFOQueue()
+        try:
+            for item in self._queue.drain():
+                fresh.append(item)
+        except Exception:  # pylint: disable=broad-except
+            logger.exception("scheduler.drain also failed")
+        self._queue = fresh
+        if not self.degraded:
+            self.degraded = True
+            self.degraded_reason = f"{type(err).__name__}: {err}"
+            if self.on_degraded is not None:
+                try:
+                    self.on_degraded(err)
+                except Exception:  # pylint: disable=broad-except
+                    logger.exception("on_degraded callback failed")
 
     def _run_batch(self, batch: List[Dict]):
         try:
@@ -173,11 +221,11 @@ class RequestBatcher:
                 max_new_tokens=max(it["cfg"].max_new_tokens
                                    for it in batch))
             _BATCH_SIZE.observe(len(prompts))
-            with _ttrace.span("batcher.generate", "serving",
-                              {"prompts": len(prompts),
-                               "max_new_tokens": run_cfg.max_new_tokens}
-                              if _ttrace.enabled() else None,
-                              "serve-batcher"):
+            with self._gen_lock, _ttrace.span(
+                    "batcher.generate", "serving",
+                    {"prompts": len(prompts),
+                     "max_new_tokens": run_cfg.max_new_tokens}
+                    if _ttrace.enabled() else None, "serve-batcher"):
                 outs = self.generator.generate(prompts, run_cfg,
                                                prefix=self.prefix)
             self.batches_run += 1
@@ -205,11 +253,13 @@ class _Replica:
     request, its continuous-batching engine."""
 
     def __init__(self, generator: Generator, prefix=None,
-                 scheduler_factory=None, warm_prefix_ids=None):
+                 scheduler_factory=None, warm_prefix_ids=None,
+                 on_degraded=None):
         self.generator = generator
         self.batcher = RequestBatcher(
             generator, prefix=prefix,
             scheduler=scheduler_factory() if scheduler_factory else None)
+        self.batcher.on_degraded = on_degraded
         self.prefix = prefix
         self.scheduler_factory = scheduler_factory
         # the system prompt warmed into the paged prefix index when the
@@ -217,6 +267,57 @@ class _Replica:
         self.warm_prefix_ids = warm_prefix_ids
         self._engine = None
         self._lock = threading.Lock()
+
+    @property
+    def degraded(self) -> bool:
+        return self.batcher.degraded
+
+    def swap_weights(self, new_params, prefix_ids=None,
+                     drain_timeout: float = 30.0) -> None:
+        """Swap this replica onto staged weights under a drain barrier
+        (the swap phase of ``checkpoint.hot_swap``; the weights share the
+        current ones' names, shapes and dtypes, so they are copied into
+        the model's own tensors).  The batch in flight finishes on the
+        old weights; queued requests are never dropped and run on the
+        new ones; a shared prefix's KV is recomputed under the barrier.
+        The streaming engine is drained and retired first, and the next
+        streamed request builds a fresh one with its KV pool (cached KV
+        holds only for the weights that made it).  The copy is in place,
+        so no tick of a live engine may overlap it: where the engine's
+        streams outlive ``drain_timeout`` the swap raises
+        ``HotSwapBusyError`` and the replica keeps its weights and its
+        engine."""
+        from alpa_tpu_torch.checkpoint.hot_swap import (HotSwapBusyError,
+                                                        drain_engine)
+        # the replica lock first: a new stream boards the engine under it
+        # (``submit_stream``), so none can board the old engine while it
+        # is retired
+        with self._lock:
+            old_engine = self._engine
+            if old_engine is not None:
+                if not drain_engine(old_engine, timeout=drain_timeout):
+                    if old_engine._stop:
+                        self._engine = None
+                    raise HotSwapBusyError(
+                        f"the streaming engine's requests outlived the "
+                        f"{drain_timeout:g}s drain window; the weights are "
+                        "unchanged")
+                self._engine = None
+            with self.batcher._gen_lock:
+                self.generator.params = new_params
+                new_prefix = None
+                if prefix_ids is not None:
+                    new_prefix = self.generator.cache_prefix(prefix_ids)
+                self.prefix = new_prefix
+                self.batcher.prefix = new_prefix
+
+    def submit_stream(self, prompt_ids, cfg, queue=None):
+        """Board a streamed request on the engine under the replica lock,
+        so that a weight swap never retires an engine a request is about
+        to board."""
+        with self._lock:
+            return self._engine_locked().submit_stream(prompt_ids, cfg,
+                                                       queue=queue)
 
     @property
     def engine(self) -> ContinuousBatchingEngine:
@@ -227,26 +328,29 @@ class _Replica:
         engine's block pool and requests send full prompts (any shared
         token prefix hits)."""
         with self._lock:
-            if self._engine is None:
-                sched = (self.scheduler_factory()
-                         if self.scheduler_factory else None)
-                pool = None
-                if global_config.kv_paged:
-                    if self.prefix is not None:
-                        logger.warning(
-                            "kv_paged with a static PrefixHandle "
-                            "(kv_prefix_reuse=off): the replica keeps the "
-                            "unpaged suffix engine")
-                    else:
-                        pool = KVBlockPool.for_generator(self.generator)
-                self._engine = ContinuousBatchingEngine(
-                    self.generator,
-                    prompt_bucket=self.generator.prompt_buckets[-1],
-                    prefix=None if pool is not None else self.prefix,
-                    scheduler=sched, kv_pool=pool)
-                if pool is not None and self.warm_prefix_ids is not None:
-                    pool.warm_prefix(self.generator, self.warm_prefix_ids)
-            return self._engine
+            return self._engine_locked()
+
+    def _engine_locked(self) -> ContinuousBatchingEngine:
+        if self._engine is None:
+            sched = (self.scheduler_factory()
+                     if self.scheduler_factory else None)
+            pool = None
+            if global_config.kv_paged:
+                if self.prefix is not None:
+                    logger.warning(
+                        "kv_paged with a static PrefixHandle "
+                        "(kv_prefix_reuse=off): the replica keeps the "
+                        "unpaged suffix engine")
+                else:
+                    pool = KVBlockPool.for_generator(self.generator)
+            self._engine = ContinuousBatchingEngine(
+                self.generator,
+                prompt_bucket=self.generator.prompt_buckets[-1],
+                prefix=None if pool is not None else self.prefix,
+                scheduler=sched, kv_pool=pool)
+            if pool is not None and self.warm_prefix_ids is not None:
+                pool.warm_prefix(self.generator, self.warm_prefix_ids)
+        return self._engine
 
     def shutdown(self):
         self.batcher.shutdown()
@@ -265,22 +369,58 @@ class Controller:
         self._rr: Dict[str, int] = {}
         self._prefix_ids: Dict[str, Any] = {}
         self._lock = threading.Lock()
+        # "ok" serves; "degraded" serves, but a replica lost its
+        # admission policy (FIFO fallback); "shedding": recovery declared
+        # the backend dead, and new work gets ServiceDegradedError (503)
         self._health = "ok"
         self._health_reason: Optional[str] = None
+        # the bound RecoveryManager (attach_recovery), read by /healthz
+        self._recovery = None
+        # completed hot swaps, newest last
+        self.reloads: List[Dict[str, Any]] = []
 
     def set_health(self, state: str, reason: Optional[str] = None):
-        """"ok" serves; "shedding" rejects new requests with 503."""
-        if state not in ("ok", "shedding"):
+        if state not in ("ok", "degraded", "shedding"):
             raise ValueError(f"unknown health state {state!r}")
         with self._lock:
             self._health, self._health_reason = state, reason
+        logger.warning("controller health -> %s (%s)", state, reason)
 
     def health_report(self) -> Dict[str, Any]:
         with self._lock:
-            report = {"status": self._health}
-            if self._health_reason:
-                report["reason"] = self._health_reason
+            state, reason = self._health, self._health_reason
+            degraded = sorted(name for name, reps in self._models.items()
+                              if any(r.degraded for r in reps))
+        if state == "ok" and degraded:
+            state = "degraded"
+            reason = f"replica scheduler fallback: {degraded}"
+        report = {"status": state}
+        if reason:
+            report["reason"] = reason
+        if degraded:
+            report["degraded_models"] = degraded
         return report
+
+    def attach_recovery(self, recovery) -> None:
+        """Bind a ``fault.RecoveryManager``: entering DEGRADED sheds load
+        here (503s), recovering restores service."""
+        self._recovery = recovery
+        recovery.on_degrade = (
+            lambda reason=None: self.set_health(
+                "shedding", reason or "mesh recovery failed"))
+        recovery.on_recover = (
+            lambda: self.set_health("ok", "recovered"))
+
+    def _check_shedding(self):
+        with self._lock:
+            state, reason = self._health, self._health_reason
+        if state == "shedding":
+            raise ServiceDegradedError(
+                f"service unavailable: {reason or 'backend recovering'}")
+
+    def _on_degraded(self, name):
+        return lambda e: logger.warning(
+            "model %s replica degraded to FIFO: %s", name, e)
 
     def register_model(self, name: str, generator, prefix_ids=None,
                        scheduler_factory=None, device=None) -> Generator:
@@ -311,7 +451,8 @@ class Controller:
             with self._lock:
                 self._models.setdefault(name, []).append(_Replica(
                     generator, scheduler_factory=scheduler_factory,
-                    warm_prefix_ids=prefix_ids))
+                    warm_prefix_ids=prefix_ids,
+                    on_degraded=self._on_degraded(name)))
                 self._rr.setdefault(name, 0)
             logger.info("registered model %s (%d replicas, paged KV)", name,
                         len(self._models[name]))
@@ -343,7 +484,8 @@ class Controller:
                 self._prefix_ids[name] = prefix_ids
             self._models.setdefault(name, []).append(_Replica(
                 generator, prefix=prefix,
-                scheduler_factory=scheduler_factory))
+                scheduler_factory=scheduler_factory,
+                on_degraded=self._on_degraded(name)))
             self._rr.setdefault(name, 0)
         logger.info("registered model %s (%d replicas)", name,
                     len(self._models[name]))
@@ -352,6 +494,43 @@ class Controller:
     def list_models(self) -> List[str]:
         with self._lock:
             return sorted(self._models)
+
+    def reload_model(self, name: str, checkpoint_source,
+                     step: Optional[int] = None) -> Dict[str, Any]:
+        """Zero-downtime weight reload (``POST /admin/reload``).  Per
+        replica: stage the checkpoint step onto the replica's devices,
+        hash-verifying every chunk, while requests flow on the old
+        weights (a corrupt checkpoint fails here and touches nothing);
+        then swap under the replica's drain barrier
+        (``_Replica.swap_weights``).  Nothing queued is dropped.  A
+        replica whose streams outlive the drain window keeps its weights
+        and raises ``HotSwapBusyError``, which names the replicas swapped
+        before it."""
+        from alpa_tpu_torch.checkpoint.hot_swap import (
+            HotSwapBusyError, stage_weights_from_checkpoint)
+        with self._lock:
+            if name not in self._models:
+                raise KeyError(f"unknown model {name!r}; "
+                               f"registered: {sorted(self._models)}")
+            replicas = list(self._models[name])
+            prefix_ids = self._prefix_ids.get(name)
+        loaded_step = None
+        for i, replica in enumerate(replicas):
+            new_params, loaded_step = stage_weights_from_checkpoint(
+                checkpoint_source, replica.generator.params, step=step)
+            try:
+                replica.swap_weights(new_params, prefix_ids=prefix_ids)
+            except HotSwapBusyError as e:
+                raise HotSwapBusyError(
+                    f"{name}: replica {i} of {len(replicas)}: {e} ({i} "
+                    "swapped before it)") from e
+        result = {"model": name, "step": loaded_step,
+                  "replicas_swapped": len(replicas)}
+        with self._lock:
+            self.reloads.append(result)
+        logger.info("hot-swapped model %s to checkpoint step %s "
+                    "(%d replicas)", name, loaded_step, len(replicas))
+        return result
 
     def _pick_replica(self, name: str) -> _Replica:
         with self._lock:
@@ -366,11 +545,7 @@ class Controller:
     def _parse_request(self, request: Dict[str, Any]):
         """(replica, prompt_ids, cfg, queue), one parser for the streamed
         and the batched path.  Sheds load first."""
-        with self._lock:
-            state, reason = self._health, self._health_reason
-        if state == "shedding":
-            raise ServiceDegradedError(
-                f"service unavailable: {reason or 'shedding load'}")
+        self._check_shedding()
         replica = self._pick_replica(request["model"])
         prompt_ids = np.asarray(request["prompt_ids"], np.int64)
         queue = request.get("queue")
@@ -418,8 +593,8 @@ class Controller:
             raise ValueError(
                 "streaming accepts exactly one prompt per request; got "
                 f"{prompt_ids.shape[0]} rows")
-        return replica.engine.submit_stream(prompt_ids.reshape(-1), cfg,
-                                            queue=queue)
+        return replica.submit_stream(prompt_ids.reshape(-1), cfg,
+                                     queue=queue)
 
     def shutdown(self):
         """Stop every replica's batcher and engine threads (pending
@@ -460,11 +635,25 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_text(200, _tmetrics.get_registry().to_prometheus_text())
 
     def _healthz(self):
-        """The health report with ``last_flight_dump``: where the flight
-        recorder's last post-mortem landed (null when none was written)."""
+        """Liveness wired to the recovery state machine: 200 while
+        HEALTHY, SUSPECT or RECOVERING (the body names the state), 503
+        once DEGRADED; without a RecoveryManager, the health report.
+        ``last_flight_dump`` is where the flight recorder's last
+        post-mortem landed (null for none), ``elastic`` the
+        ``ElasticSupervisor``'s report (null without one)."""
+        from alpa_tpu_torch import elastic as _elastic
         from alpa_tpu_torch.telemetry import flight as _flight
+        recovery = self.controller._recovery
+        if recovery is not None:
+            state = recovery.state.value
+            self._send(503 if state == "degraded" else 200,
+                       {"status": state,
+                        "last_flight_dump": _flight.last_dump_path(),
+                        "elastic": _elastic.status_report()})
+            return
         report = self.controller.health_report()
         report["last_flight_dump"] = _flight.last_dump_path()
+        report["elastic"] = _elastic.status_report()
         self._send(503 if report["status"] == "shedding" else 200, report)
 
     def do_GET(self):
@@ -482,6 +671,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self):
+        if self.path == "/admin/reload":
+            self._admin_reload()
+            return
         if self.path != "/completions":
             self._send(404, {"error": f"unknown path {self.path}"})
             return
@@ -503,6 +695,36 @@ class _Handler(BaseHTTPRequestHandler):
             logger.exception("completions failed")
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
+    def _admin_reload(self):
+        """``POST /admin/reload`` {"model", "ckpt_dir", "step"?}: stage and
+        hash-verify the checkpoint in the background, then swap every
+        replica of the model under a drain barrier; requests in flight
+        are served throughout.  A corrupt checkpoint is refused (500,
+        ``ChunkCorruptionError``) and serving goes on with the old
+        weights; so is a reload whose streams outlive the drain window
+        (409, ``HotSwapBusyError``)."""
+        from alpa_tpu_torch.checkpoint.hot_swap import HotSwapBusyError
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            request = json.loads(self.rfile.read(length) or b"{}")
+            name = request.get("model")
+            ckpt_dir = request.get("ckpt_dir")
+            if not name or not ckpt_dir:
+                raise ValueError(
+                    "reload needs 'model' and 'ckpt_dir' fields")
+            step = request.get("step")
+            self._send(200, self.controller.reload_model(
+                name, ckpt_dir, step=None if step is None else int(step)))
+        except HotSwapBusyError as e:
+            self._send(409, {"error": f"HotSwapBusyError: {e}"})
+        except KeyError as e:
+            self._send(404, {"error": str(e)})
+        except (json.JSONDecodeError, ValueError, TypeError,
+                FileNotFoundError) as e:
+            self._send(400, {"error": f"bad reload request: {e}"})
+        except Exception as e:  # pylint: disable=broad-except
+            logger.exception("hot reload failed")
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
     def _stream(self, request):
         """Server-sent events: one ``data: {"token": t}`` per generated

@@ -36,6 +36,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from alpa_tpu_torch import fault as _fault
 from alpa_tpu_torch.platform import to_device
 from alpa_tpu_torch.serve.generation import (GenerationConfig, Generator,
                                              _sample_logits)
@@ -586,7 +587,11 @@ class ContinuousBatchingEngine:
         return nxt
 
     def _step(self):
-        """One decode tick for every live row."""
+        """One decode tick for every live row.  The ``scheduler_tick``
+        fault site fires first, on the host, before the tick (or its
+        captured graph) runs."""
+        _fault.fire("scheduler_tick", step=self.decode_steps,
+                    active=int(self._active.sum()))
         self._tok.copy_(self._sample())
         # the sampled tokens reach the host while the tick runs
         self._tok_host.copy_(self._tok, non_blocking=True)

@@ -16,7 +16,7 @@ Not ported yet: speculative decoding, beam search and
 ``parallel_method``.
 """
 import dataclasses
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -106,6 +106,33 @@ class Generator:
         self.prefill_chunk = prefill_chunk
         self.prefill_calls = 0
         self.decode_calls = 0
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's weights by state-dict name: the tensors it reads
+        (the JAX generator's ``params``)."""
+        return dict(self.model.state_dict())
+
+    @params.setter
+    def params(self, new: Dict[str, torch.Tensor]):
+        """Copy ``new`` (the same names, shapes and dtypes) into the
+        model's own tensors: every address stays, so a captured decode
+        tick reads the new weights (a hot swap's pointer flip)."""
+        own = self.model.state_dict()
+        if set(new) != set(own):
+            raise ValueError(
+                f"weights differ in names: missing "
+                f"{sorted(set(own) - set(new))[:4]}, unknown "
+                f"{sorted(set(new) - set(own))[:4]}")
+        for k, t in own.items():
+            src = new[k]
+            if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
+                raise ValueError(
+                    f"weight {k}: {tuple(src.shape)} {src.dtype}, the "
+                    f"model's is {tuple(t.shape)} {t.dtype}")
+        with torch.no_grad():
+            for k, t in own.items():
+                t.copy_(new[k])
 
     def _bucket_len(self, n: int) -> int:
         for b in self.prompt_buckets:

@@ -198,6 +198,28 @@ Phases, each reported on its own line:
    ``GET /metrics``: the ``alpa_serving_*`` and ``alpa_kv_*`` families,
    the requests served and the TTFT histogram's count.
 
+18. faults and state (on one card; (a)-(c) on phase 8's executable):
+   (a) two steps under a ``FaultPlan`` raising once at ``stage_launch``
+   and once at ``cross_mesh_send`` with a retry policy: both retried,
+   losses and parameters bit-identical to the steps without faults, no
+   recapture; (b) two steps, an asynchronous ``CheckpointManager`` save,
+   two more, the saved step restored into the live state and the two
+   steps again, bit-identical with no recapture; a flipped byte of a
+   chunk named by ``verify_step`` and its restore refused; the bytes
+   written, the save's blocking and total seconds, the restore seconds;
+   (c) six steps under ``ElasticSupervisor`` with a preemption notice at
+   step 3: quiesce, a snapshot inside ``elastic_grace_period_s``, the
+   plan reused, the six losses bit-identical to an uninterrupted run;
+   (d) phase 14's narrow GPT under ``Zero2Parallel`` on the card named 4
+   times, a worker lost down to 2: resumed losses equal a direct restore
+   at degree 2, a restore across plans raises
+   ``PlanFingerprintMismatch``; (e) OPT-1.3B through the controller:
+   ``POST /admin/reload`` of seed-1 weights while 8 streams run (all
+   finish; later greedy tokens equal a fresh ``Generator``'s), a corrupt
+   checkpoint refused, ``scheduler_tick`` faults shedding load (503)
+   until recovery, ``check_alive`` and ``WedgeDetector`` ``ok``.  The
+   checkpoints go under a temporary directory, removed after.
+
 ``--four-cards`` (a machine with four cards): GPT-1.3B at batch 32 (8 per
 card) under ``DataParallel``, ``Zero2Parallel`` and the ILP's
 ``ShardParallel`` over the four cards (collectives over NCCL), held by
@@ -209,10 +231,7 @@ over 4 x 989 TFLOP/s, collective bytes and NCCL device time per step, the
 plan's ILP objective beside the measured step, peak memory per card.
 Phase 16 over the four cards is not run: the port refuses stage meshes of
 several devices over distinct cards until ROADMAP C.4 is repaired.
-``--c4-bisection`` runs phase 16 on ``[c0, c1, c0, c1]`` as it is and
-with every card synchronised around each collective and tile copy
-(``c4_ordering``); ``--c4-bisection --checked`` its first step with
-every collective and tile held to the host (``c4_checked``).
+``c4_values.py`` holds C.4's value-by-value step, on two cards.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
@@ -2204,6 +2223,8 @@ def phase_pipeshard(shard_profile):
                                    phase_telemetry_pipeshard, cfg, batch,
                                    run)
     run["traced_counts"], run["joined"] = traced, joined
+    run["fault_counts"], run["faults"] = timed(
+        "faults and state (a)-(c)", phase_faults_pipeshard, cfg, batch, run)
     del run["step"], run["ex"], run["state"], report
     torch.cuda.empty_cache()
     peaks = apply_grad_peaks(cfg, batch)
@@ -3436,7 +3457,7 @@ def wrapped(cls, name, make):
 
 def wide_stages_over_cards():
     """The refusal of stage meshes of several devices over distinct cards
-    (ROADMAP C.4) lifted, for C.4's bisection only."""
+    (ROADMAP C.4) lifted, for C.4's bisection and ``c4_values.py`` only."""
     from alpa_tpu_torch.pipeline_parallel import pipeshard_executable
     return wrapped(pipeshard_executable, "_refuse_wide_stages_over_cards",
                    lambda orig: lambda mesh_device_lists: None)
@@ -4017,6 +4038,492 @@ def four_card_two_level(cards):
     return failures
 
 
+# ---- phase 18: faults and state ----------------------------------------
+
+# the serving swap's streams: prompts of 128 tokens, 48 greedy new tokens
+SWAP_STREAMS = 8
+SWAP_PROMPT = 128
+SWAP_NEW_TOKENS = 48
+
+
+def tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def disk_room(path, need, label):
+    """Print the free space under ``path`` and fail, naming the bytes,
+    where ``need`` do not fit."""
+    import shutil
+    free = shutil.disk_usage(path).free
+    print(f"{label}: {free / 2**30:.1f} GiB free under {path}, "
+          f"{need / 2**30:.1f} GiB needed")
+    check(free >= need, f"{label}: the checkpoints need {need} bytes under "
+          f"{path}; {free} are free")
+
+
+def flip_chunk_byte(store, step, leaf):
+    """Flip one byte of the first chunk of ``leaf`` in ``step``."""
+    ent = store.read_manifest(step)["leaves"][leaf]["chunks"][0]
+    with open(store.chunk_path(ent["hash"]), "r+b") as f:
+        first = f.read(1)
+        f.seek(0)
+        f.write(bytes([first[0] ^ 0xFF]))
+
+
+def phase_faults_pipeshard(cfg, batch, run):
+    """Phase 18 (a)-(c) on phase 8's executable (``run``: what
+    ``timed_pipeshard`` kept, the state put back by the phases before):
+    (a) two steps from the seed state under a ``FaultPlan`` raising once
+    at ``stage_launch`` and once at ``cross_mesh_send`` with a retry
+    policy installed, against the same steps without faults; (b) two
+    steps, an asynchronous ``CheckpointManager`` save, two more steps, the
+    saved step restored into the live state and the two steps again, then
+    a byte of a chunk flipped; (c) six steps under ``ElasticSupervisor``
+    with a preemption notice at step 3, against six uninterrupted steps.
+    Returns the flash launches of (a)-(c) and the numbers."""
+    import os
+    import shutil
+    import tempfile
+    from alpa_tpu_torch import elastic, fault
+    from alpa_tpu_torch.checkpoint import (CheckpointManager,
+                                           ChunkCorruptionError,
+                                           RetentionPolicy)
+    from alpa_tpu_torch.checkpoint import metrics as ckpt_metrics
+    step, state, ex = run["step"], run.pop("state"), run["ex"]
+    cards = sorted(set(str(d) for d in ex.mesh_devices))
+    batch = {k: torch.as_tensor(v, device=cards[0]) for k, v in batch.items()}
+    model = GPTModel(cfg, device=cards[0], param_dtype=torch.float32)
+    init_random_(model, SEED)
+    seed = {k: p.detach() for k, p in model.named_parameters()}
+    del model
+    card = card_line()
+    captures = (ex.capture_count, ex.recapture_count)
+    out = {}
+
+    def steps(n, st):
+        losses = []
+        for _ in range(n):
+            st, loss = step(st, batch)
+            losses.append(float(loss))
+        return st, losses
+
+    def params_equal(st, ref):
+        return all(torch.equal(p, ref[k]) for k, p in st.params.items())
+
+    reset_launch_counts()
+    # (a) retry on the training path
+    state, ref_losses = steps(2, reset_state_(state, seed))
+    ref_params = {k: p.clone() for k, p in state.params.items()}
+    state = reset_state_(state, seed)
+    fault.set_retry_policy(fault.RetryPolicy(max_attempts=3, base_delay=0.0,
+                                             jitter=0.0))
+    try:
+        with fault.FaultPlan(
+                fault.FaultSpec("stage_launch", times=1, after=5),
+                fault.FaultSpec("cross_mesh_send", times=1, after=1)) as plan:
+            state, losses = steps(2, state)
+    finally:
+        fault.set_retry_policy(None)
+    same = losses == ref_losses and params_equal(state, ref_params)
+    del ref_params
+    print(f"faults (a) [{card}]: phase 8's step (dispatch "
+          f"{ex.last_dispatch_stats['mode']}, CUDA graphs replayed) under a "
+          f"FaultPlan raising once at stage_launch and once at "
+          f"cross_mesh_send: events {[(s, k) for s, k, _ in plan.events]}, "
+          f"retries {plan.retries}; losses {losses}, losses and parameters "
+          f"bit-identical to the steps without faults: {same}; captures, "
+          f"recaptures {(ex.capture_count, ex.recapture_count)} (before "
+          f"{captures})")
+    check(plan.retries == {"stage_launch": 1, "cross_mesh_send": 1},
+          f"faults (a): retries {plan.retries}")
+    check(same, "faults (a): the retried step differs from the plain one")
+    check((ex.capture_count, ex.recapture_count) == captures,
+          "faults (a): a retry captured the step again")
+
+    root = tempfile.mkdtemp(prefix="alpa_port_ckpt_")
+    try:
+        nbytes = tensor_bytes((state.params, state.opt_state))
+        disk_room(root, int(2.2 * nbytes), "faults (b)-(c)")
+        # (b) checkpoint and resume at full width
+        ckpt_metrics.reset()
+        state, first = steps(2, reset_state_(state, seed))
+        mgr = CheckpointManager(os.path.join(root, "b"),
+                                policy=RetentionPolicy(keep_last_k=2))
+        mgr.save(2, state, executable=ex)
+        blocking = mgr.last_blocking_seconds
+        state, later = steps(2, state)
+        later_params = {k: p.clone() for k, p in state.params.items()}
+        mgr.wait()
+        write_s = mgr.last_write_seconds
+        written = ckpt_metrics.snapshot().get("bytes_written", 0)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        state = mgr.restore(state, step=2, executable=ex, in_place=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - tic
+        state, again = steps(2, state)
+        same = again == later and params_equal(state, later_params)
+        del later_params
+        leaf = "params.wte.weight"
+        flip_chunk_byte(mgr.store, 2, leaf)
+        report = mgr.store.verify_step(2)
+        wte = state.params["wte.weight"].clone()
+        try:
+            mgr.restore(state, step=2, executable=ex, in_place=True)
+            refused = None
+        except ChunkCorruptionError as e:
+            refused = e
+        untouched = torch.equal(state.params["wte.weight"], wte)
+        del wte
+        print(f"faults (b) [{card}]: GPT-1.3B state of {nbytes} bytes "
+              f"(fp32 parameters and Adam) saved at step 2 asynchronously: "
+              f"{mgr.last_bytes} bytes staged, {written} bytes written in "
+              f"chunks; save {blocking:.3f} s blocking (the device-to-host "
+              f"copies), {blocking + write_s:.3f} s total ({write_s:.3f} s "
+              f"writing in the background while steps 3-4 ran); restore "
+              f"into the live state {restore_s:.3f} s; steps 3-4 "
+              f"{later}, again after the restore {again}, losses and "
+              f"parameters bit-identical: {same}; captures, recaptures "
+              f"{(ex.capture_count, ex.recapture_count)}; a flipped byte: "
+              f"verify_step ok {report['ok']}, bad leaves "
+              f"{sorted({b['leaf'] for b in report['bad']})}, restore "
+              f"refused: {type(refused).__name__}, state untouched: "
+              f"{untouched}")
+        check(same, "faults (b): the restored steps differ")
+        check((ex.capture_count, ex.recapture_count) == captures,
+              "faults (b): the restore made the step captured again")
+        check(not report["ok"] and
+              {b["leaf"] for b in report["bad"]} == {leaf},
+              f"faults (b): verify_step reported {report['bad'][:2]}")
+        check(refused is not None and untouched,
+              "faults (b): a corrupt step was restored")
+        out.update(save_blocking_s=blocking, save_total_s=blocking + write_s,
+                   restore_s=restore_s, bytes_written=written)
+        shutil.rmtree(os.path.join(root, "b"))
+
+        # (c) an elastic episode
+        state, base = steps(6, reset_state_(state, seed))
+        state = reset_state_(state, seed)
+        mgr = CheckpointManager(os.path.join(root, "c"),
+                                policy=RetentionPolicy(keep_last_k=2),
+                                async_save=False)
+        tic = time.perf_counter()
+        sup = elastic.ElasticSupervisor(
+            lambda devices: step, state, manager=mgr,
+            devices=[str(d) for d in ex.mesh_devices],
+            snapshot_interval=100, register_globally=False)
+        initial_s = time.perf_counter() - tic
+        state = None
+        notice = fault.FaultSpec(
+            "preemption_notice", times=1, after=3,
+            exc=lambda: elastic.PreemptionNotice(
+                grace_s=global_config.elastic_grace_period_s))
+        with fault.FaultPlan(notice):
+            losses = [float(sup.step(batch)) for _ in range(6)]
+        ep = sup.episodes[0] if sup.episodes else {}
+        print(f"faults (c) [{card}]: ElasticSupervisor over phase 8's step, "
+              f"step-0 restore point in {initial_s:.3f} s, a preemption "
+              f"notice at step 3: episode {json.dumps(ep, default=str)}; "
+              f"wall clock {ep.get('seconds')} s (grace "
+              f"{global_config.elastic_grace_period_s} s, budget "
+              f"{global_config.elastic_time_budget_s} s), replay distance "
+              f"{ep.get('replay_steps')} steps; losses {losses}, an "
+              f"uninterrupted run {base}: bit-identical {losses == base}; "
+              f"captures, recaptures {(ex.capture_count, ex.recapture_count)}")
+        check(len(sup.episodes) == 1 and
+              ep["reason"] == "preemption_notice" and
+              ep["quiesced"] is True and ep["snapshot"] == "grace" and
+              ep["snapshot_before_kill"] is True and
+              ep["replan"] == "reused" and ep["restored_step"] == 3 and
+              ep["within_step_budget"] and ep["within_time_budget"],
+              f"faults (c): episode {ep}")
+        check(losses == base, f"faults (c): losses {losses}, want {base}")
+        check((ex.capture_count, ex.recapture_count) == captures,
+              "faults (c): the episode made the step captured again")
+        out.update(episode_s=ep["seconds"], replay=ep["replay_steps"],
+                   snapshot_s=ep.get("snapshot_seconds"))
+        state = sup.state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    run["state"] = state
+    del seed
+    return launch_counts(), out
+
+
+def phase_faults_zero2():
+    """Phase 18 (d): phase 14's narrow fp32 GPT on the flash kernels under
+    ``Zero2Parallel`` on the card named 4 times, supervised: a worker lost
+    after step 2 leaves the card named twice; the episode re-solves there,
+    restores the state into the new plan's layout (each block through
+    ``read_leaf_slice``) and resumes.  The later losses must equal the
+    same step restored directly at degree 2, bit for bit, and a restore
+    checked against the degree-2 plan's fingerprint must raise
+    ``PlanFingerprintMismatch``.  Returns the flash launches."""
+    import tempfile
+    from alpa_tpu_torch import elastic, fault
+    from alpa_tpu_torch.checkpoint import (CheckpointManager,
+                                           PlanFingerprintMismatch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.float32, attention_impl="flash",
+                         remat_blocks=True), num_layers=4, hidden_size=256,
+        num_heads=4, seq_len=256, vocab_size=1024)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in lm_batch(cfg, 8).items()}
+    cache = {}
+
+    def solve(devices):
+        if len(devices) not in cache:
+            cache[len(devices)] = make_train_step(
+                alpa_tpu_torch.Zero2Parallel(devices=list(devices)))
+        return cache[len(devices)]
+
+    devices = ["cuda:0"] * 4
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="alpa_port_zero2_") as root:
+        sup = elastic.ElasticSupervisor(
+            solve, sgd_state(cfg), checkpoint_root=root, devices=devices,
+            register_globally=False)
+        losses = {}
+        with fault.FaultPlan(fault.FaultSpec(
+                "worker_lost", times=1, after=2,
+                exc=lambda: elastic.WorkerLost(survivors=devices[:2]))):
+            while sup.step_index < 5:
+                loss = sup.step(batch)
+                losses[sup.step_index] = float(loss)
+        ep = sup.episodes[0]
+        r = ep["restored_step"]
+        mgr = CheckpointManager(root, async_save=False)
+        direct = solve(devices[:2])
+        ex2, _ = direct.get_executable(sgd_state(cfg), batch)
+        try:
+            mgr.restore(sgd_state(cfg), step=r, executable=ex2)
+            mismatch = None
+        except PlanFingerprintMismatch as e:
+            mismatch = e
+        c_state = mgr.restore(sgd_state(cfg), step=r)
+        direct_losses = {}
+        for i in range(r + 1, 6):
+            c_state, loss = direct(c_state, batch)
+            direct_losses[i] = float(loss)
+    counts = launch_counts()
+    later = {i: losses[i] for i in direct_losses}
+    print(f"faults (d) [{card_line()}]: phase 14's narrow GPT under "
+          f"Zero2Parallel on the card named 4 times, a worker lost after "
+          f"step 2: episode reason {ep['reason']}, replan {ep['replan']}, "
+          f"verdict {ep['verdict']}, devices {ep['devices_before']} -> "
+          f"{ep['devices_after']}, restored step {r}, replay "
+          f"{ep['replay_steps']}, {ep['seconds']:.3f} s; losses after the "
+          f"episode {later}, restored directly at degree 2 {direct_losses}: "
+          f"bit-identical {later == direct_losses}; a restore checked "
+          f"against the degree-2 plan raised "
+          f"{type(mismatch).__name__}")
+    check(ep["replan"] == "accepted" and ep["devices_after"] == 2,
+          f"faults (d): episode {ep}")
+    check(later == direct_losses, "faults (d): resumed losses differ")
+    check(mismatch is not None, "faults (d): a silent restore across plans")
+    return counts
+
+
+def phase_serving_swap():
+    """Phase 18 (e): OPT-1.3B (bf16, flash, random weights from the seed)
+    through the port's controller.  Weights of seed 1 saved with
+    ``CheckpointManager``; ``POST /admin/reload`` while 8 streamed requests
+    run: every stream finishes, and batched requests after the swap give
+    the greedy tokens of a fresh ``Generator`` on the new weights.  A
+    reload from a checkpoint with a flipped byte is refused and serving
+    goes on with the weights it has.  Errors injected at
+    ``scheduler_tick`` make a ``RecoveryManager`` (probing with a one-token
+    request) shed load: ``/health`` 503, ``/healthz`` naming
+    ``last_flight_dump``; with the plan cleared it recovers and serves.
+    ``check_alive`` and ``WedgeDetector`` read ``ok`` for the card.
+    Returns the flash launches."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.error
+    from alpa_tpu_torch import fault, monitoring
+    from alpa_tpu_torch.checkpoint import CheckpointManager
+    from alpa_tpu_torch.device_mesh import PhysicalDeviceMesh
+    from alpa_tpu_torch.elastic import WedgeDetector
+    from alpa_tpu_torch.telemetry import flight
+    label = "faults (e)"
+    card = card_line()
+    cfg = config_from_opt_spec("1.3b", dtype=torch.bfloat16,
+                               attention_impl="flash")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTModel(cfg, device="cuda")
+    init_random_(model, SEED)
+    gen = Generator(model, cfg)
+    new_model = GPTModel(cfg, device="cuda")
+    init_random_(new_model, 1)
+    fresh = Generator(new_model, cfg)
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(0, cfg.vocab_size, SWAP_PROMPT)
+               for _ in range(SWAP_STREAMS + 3)]
+    root = tempfile.mkdtemp(prefix="alpa_port_swap_")
+    server = run_controller(port=0)
+    name = "opt-1.3b-swap"
+
+    def status(path):
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}{path}",
+                    timeout=60) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def post_json(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}{path}",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def want(p):
+        return fresh.generate([p], GenerationConfig(
+            max_new_tokens=NEW_TOKENS))[0].tolist()
+
+    try:
+        disk_room(root, 3 * tensor_bytes(dict(new_model.state_dict())),
+                  label)
+        mgr = CheckpointManager(os.path.join(root, "new"), async_save=False)
+        tic = time.perf_counter()
+        mgr.save(1, dict(new_model.state_dict()))
+        save_s = time.perf_counter() - tic
+        server.controller.register_model(name, gen)
+        # warm-up: the engine's capture and one batched request
+        read_sse(server.port, {"model": name,
+                               "prompt_ids": prompts[0].tolist(),
+                               "max_new_tokens": 4}, [])
+        post(server.port, {"model": name, "prompt_ids": prompts[0].tolist(),
+                           "max_new_tokens": 4})
+        # the reference tokens first: their launches are not the path's
+        wanted = [want(p) for p in prompts[SWAP_STREAMS:]]
+        reset_launch_counts()
+        times = [[] for _ in range(SWAP_STREAMS)]
+        results = [None] * SWAP_STREAMS
+        errors = []
+
+        def stream(i):
+            try:
+                results[i] = read_sse(server.port, {
+                    "model": name, "prompt_ids": prompts[i].tolist(),
+                    "max_new_tokens": SWAP_NEW_TOKENS}, times[i])
+            except Exception as e:  # pylint: disable=broad-except
+                errors.append(e)
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(SWAP_STREAMS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 300
+        while not all(times) and time.monotonic() < deadline:
+            time.sleep(0.005)
+        tic = time.perf_counter()
+        code, swapped = post_json("/admin/reload", {
+            "model": name, "ckpt_dir": os.path.join(root, "new")})
+        reload_s = time.perf_counter() - tic
+        for t in threads:
+            t.join(timeout=600)
+        finished = [r is not None and r[1] == {"done": True} and
+                    len(r[0]) == SWAP_NEW_TOKENS for r in results]
+        after = [post(server.port, {"model": name, "prompt_ids": p.tolist(),
+                                    "max_new_tokens": NEW_TOKENS})
+                 for p in prompts[SWAP_STREAMS:]]
+        print(f"{label} [{card}]: OPT-1.3B bf16 seed-1 weights saved in "
+              f"{save_s:.3f} s; POST /admin/reload while {SWAP_STREAMS} "
+              f"streams of {SWAP_NEW_TOKENS} tokens ran: {code} {swapped} "
+              f"in {reload_s:.3f} s; streams finished {sum(finished)} of "
+              f"{SWAP_STREAMS}, errors {errors[:1]}; batched requests after "
+              f"the swap equal a fresh Generator on the new weights: "
+              f"{after == wanted}")
+        check(code == 200 and swapped["step"] == 1,
+              f"{label}: reload answered {code} {swapped}")
+        check(all(finished) and not errors,
+              f"{label}: streams finished {finished}, errors {errors[:1]}")
+        check(after == wanted, f"{label}: tokens after the swap differ from "
+              "the new weights' greedy tokens")
+
+        # a corrupt checkpoint is refused and touches nothing
+        mgr_bad = CheckpointManager(os.path.join(root, "bad"),
+                                    async_save=False)
+        mgr_bad.save(1, dict(model.state_dict()))
+        flip_chunk_byte(mgr_bad.store, 1, "wte.weight")
+        code, refused = post_json("/admin/reload", {
+            "model": name, "ckpt_dir": os.path.join(root, "bad")})
+        still = post(server.port, {"model": name,
+                                   "prompt_ids": prompts[-1].tolist(),
+                                   "max_new_tokens": NEW_TOKENS})
+        print(f"{label} [{card}]: reload from a checkpoint with a flipped "
+              f"byte: {code} {refused.get('error', '')[:80]}; reloads "
+              f"{len(server.controller.reloads)}; serving the swapped "
+              f"weights still: {still == wanted[-1]}")
+        check(code == 500 and "ChunkCorruptionError" in refused["error"] and
+              len(server.controller.reloads) == 1 and still == wanted[-1],
+              f"{label}: a corrupt reload was not refused cleanly")
+
+        # load shedding under scheduler_tick faults, then recovery
+        engine = server.controller._models[name][0].engine
+
+        def probe(_mesh):
+            engine.submit(prompts[0][:16], GenerationConfig(
+                max_new_tokens=1))
+            return True
+
+        rm = fault.RecoveryManager(
+            ["cuda:0"], retry_policy=fault.RetryPolicy(
+                max_attempts=2, base_delay=0.0, jitter=0.0), probe=probe)
+        server.controller.attach_recovery(rm)
+        with fault.FaultPlan(fault.FaultSpec("scheduler_tick", times=-1)):
+            degraded = rm.tick().value
+            health = status("/health")
+            healthz = status("/healthz")
+            shed = post_json("/completions", {
+                "model": name, "prompt_ids": prompts[-1].tolist(),
+                "max_new_tokens": 4})
+        recovered = rm.tick().value
+        served = post(server.port, {"model": name,
+                                    "prompt_ids": prompts[-1].tolist(),
+                                    "max_new_tokens": NEW_TOKENS})
+        transitions = [(o.value, n.value) for o, n, _ in rm.transitions]
+        alive = monitoring.check_alive("cuda:0", timeout=60.0)
+        wedge = WedgeDetector(mesh_group=[PhysicalDeviceMesh(["cuda:0"])],
+                              probe_timeout_s=60.0).check()
+        print(f"{label} [{card}]: scheduler_tick faults: recovery "
+              f"{transitions}, state {degraded}; GET /health {health[0]} "
+              f"{health[1]}; GET /healthz {healthz[0]} {healthz[1]}; POST "
+              f"/completions {shed[0]}; plan cleared: {recovered}, serving "
+              f"again {served == wanted[-1]}; check_alive {alive}, "
+              f"WedgeDetector {wedge}; engine step failures "
+              f"{engine.step_failures}, flight dump "
+              f"{flight.last_dump_path()}")
+        check(degraded == "degraded" and health[0] == 503 and
+              health[1]["status"] == "shedding" and healthz[0] == 503 and
+              "last_flight_dump" in healthz[1] and shed[0] == 503,
+              f"{label}: shedding {degraded} {health} {healthz} {shed[0]}")
+        check(recovered == "healthy" and served == wanted[-1],
+              f"{label}: recovery {recovered}, served {served[:4]}")
+        check(alive and wedge == {0: "ok"},
+              f"{label}: check_alive {alive}, WedgeDetector {wedge}")
+        counts = launch_counts()
+    finally:
+        server.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    del model, new_model, gen, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_bwd_dq_bf16_kernel<64>`` from its mangled name."""
     # the last "flash_": nvcc names an anonymous namespace after the file
@@ -4073,131 +4580,12 @@ def timed(name, fn, *args):
     return out
 
 
-@contextlib.contextmanager
-def synchronised_cross_card(devices):
-    """Every card of ``devices`` synchronised before and after each
-    collective (``collectives.all_reduce``, ``all_gather``,
-    ``reduce_scatter``, ``broadcast``) and each tile copy between devices
-    (``ReshardingTask._to``), in this process only: an ordering fault
-    between streams cannot show under it."""
-    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
-    from alpa_tpu_torch.shard_parallel import collectives
-
-    def synced(orig):
-        def call(*args, **kwargs):
-            sync_cards(devices)
-            out = orig(*args, **kwargs)
-            sync_cards(devices)
-            return out
-        return call
-    with contextlib.ExitStack() as stack:
-        for name in ("all_reduce", "all_gather", "reduce_scatter",
-                     "broadcast"):
-            stack.enter_context(wrapped(collectives, name, synced))
-        stack.enter_context(wrapped(cmr.ReshardingTask, "_to",
-                                    lambda orig: staticmethod(synced(orig))))
-        yield
-
-
-def c4_ordering(cards):
-    """ROADMAP C.4's next step: phase 16 (GPT-1.3B, bf16, 4 microbatches)
-    with its two stages on ``[c0, c1, c0, c1]`` (NCCL inside each stage),
-    held to phase 8's step on one card by phase 16's bounds, once as it
-    runs and once with every card synchronised around each collective and
-    each tile copy (``synchronised_cross_card``).  The synchronised run
-    within the bounds and the plain one not: an ordering fault.  Returns
-    ``{"plain": failure or None, "synchronised": ...}``."""
-    devices = [cards[0], cards[1], cards[0], cards[1]]
-    cfg = pipeshard_config(pipeline_boundary_every=12)
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in lm_batch(cfg, 8).items()}
-    ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
-    result = {}
-    for label in ("plain", "synchronised"):
-        with wide_stages_over_cards(), contextlib.ExitStack() as stack:
-            if label == "synchronised":
-                stack.enter_context(synchronised_cross_card(cards[:2]))
-            try:
-                two_level_run(f"C.4 two-level {devices} {label}", cfg,
-                              two_level_method(devices), batch, ref, devices,
-                              timed_steps=1)
-                result[label] = None
-            except SmokeFailure as e:
-                result[label] = str(e)
-        print(f"C.4 ordering [{card_line()} x2] {label}: "
-              f"{result[label] or 'within the bounds'}")
-    return result
-
-
-def c4_checked(cards):
-    """ROADMAP C.4, the step after ``c4_ordering``: phase 16's first step
-    with its stages on ``[c0, c1, c0, c1]``, every collective held to the
-    plain one on the host and every tile to its source
-    (``checked_collectives``, ``checked_tiles``), and Adam's first moment
-    against phase 8's step per tensor, the five worst printed.  Returns
-    ``(collective and tile misses, worst first-moment reading)``."""
-    from alpa_tpu_torch.pipeline_parallel import cross_mesh_resharding as cmr
-    from alpa_tpu_torch.shard_parallel import collectives
-    devices = [cards[0], cards[1], cards[0], cards[1]]
-    cfg = pipeshard_config(pipeline_boundary_every=12)
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in lm_batch(cfg, 8).items()}
-    ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
-    violations = []
-    with wide_stages_over_cards(), \
-            wrapped(collectives, "run_collective",
-                    checked_collectives(violations)), \
-            wrapped(cmr.ReshardingTask, "__call__",
-                    checked_tiles(violations)):
-        state = train_state(cfg)
-        step = make_train_step(two_level_method(devices))
-        state, loss = step(state, batch)
-        rel = max_rel_diff(gathered_mu(state), ref["mu"])
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-    print(f"C.4 checked [{card_line()} x2] devices {devices}: first loss "
-          f"{float(loss):.6f} vs {ref['loss']:.6f}; collective and tile "
-          f"misses {len(violations)} {violations[:6]}; first moment worst "
-          f"tensors " + ", ".join(f"{k} {v:.3e}" for k, v in worst) +
-          f"; host peak RSS {host_rss_gib():.1f} GiB")
-    del state, step
-    gc.collect()
-    torch.cuda.empty_cache()
-    return violations, worst[0]
-
-
-def c4_only():
-    """``--c4-bisection``: ROADMAP C.4's ordering step alone, on the cards
-    there are (two or more): ``c4_ordering``.  It passes where the plain
-    run holds its bounds; it fails naming an ordering fault where only
-    the synchronised one does, and with both readings where neither does
-    (the narrow layouts of ``c4_bisection`` run under ``--four-cards``)."""
-    n = torch.cuda.device_count()
-    check(n >= 2, f"--c4-bisection needs two cards, found {n}")
-    cards = [f"cuda:{i}" for i in range(n)]
-    if "--checked" in sys.argv:
-        violations, worst = c4_checked(cards)
-        check(not violations and worst[1] <= TWO_LEVEL_GRAD_TOL,
-              f"C.4 checked: {len(violations)} misses, first moment "
-              f"{worst[0]} {worst[1]:.3e}")
-        return
-    ordering = c4_ordering(cards)
-    if ordering["synchronised"] is None:
-        check(ordering["plain"] is None,
-              f"C.4 is an ordering fault: {ordering['plain']}")
-    check(ordering["plain"] is None,
-          f"C.4 is not an ordering fault: plain: {ordering['plain']}; "
-          f"synchronised: {ordering['synchronised']}")
-
-
 def main(args) -> int:
     modes = {"--two-cards": lambda: two_cards(),
-             "--four-cards": lambda: four_cards(),
-             "--c4-bisection": lambda: c4_only()}
-    if args[1:] == ["--checked"] and args[0] == "--c4-bisection":
-        args = args[:1]
+             "--four-cards": lambda: four_cards()}
     if args and (len(args) != 1 or args[0] not in modes):
-        print("usage: chip_smoke.py [--two-cards | --four-cards | "
-              "--c4-bisection [--checked]]", file=sys.stderr)
+        print("usage: chip_smoke.py [--two-cards | --four-cards]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -4246,13 +4634,17 @@ def main(args) -> int:
         timed("gradient codec", phase_grad_codec)
         timed("telemetry calibration", phase_calibration, phase8["joined"])
         timed("telemetry compile cache", phase_compile_cache)
+        zero2 = timed("faults and state (d)", phase_faults_zero2)
+        swap = timed("faults and state (e)", phase_serving_swap)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     traced = phase8["traced_counts"]
+    faults = tuple(a + b for a, b in zip(phase8["fault_counts"], zero2))
     fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
                              + remat[0] + auto[0] + infer + acc[0] + spmd[0]
-                             + two_level[0] + tiled[0] + traced[0])
+                             + two_level[0] + tiled[0] + traced[0]
+                             + faults[0] + swap[0])
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
                                      "training": train_fwd,
@@ -4264,14 +4656,16 @@ def main(args) -> int:
                                      "shard_spmd": spmd[0],
                                      "pipeshard_spmd": two_level[0],
                                      "pipeshard_spmd_tiled": tiled[0],
-                                     "pipeshard_traced": traced[0]}
+                                     "pipeshard_traced": traced[0],
+                                     "fault_recovery": faults[0],
+                                     "serving_swap": swap[0]}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
-    for entry, e, n, p, r, a, g, m, t, b, tr in zip(
+    for entry, e, n, p, r, a, g, m, t, b, tr, fr, sw in zip(
             bwd_entries, engine[1:], (train_dq, train_dkv), pipe[1:],
             remat[1:], auto[1:], acc[1:], spmd[1:], two_level[1:],
-            tiled[1:], traced[1:]):
-        entry["launches"] = e + n + p + r + a + g + m + t + b + tr
+            tiled[1:], traced[1:], faults[1:], swap[1:]):
+        entry["launches"] = e + n + p + r + a + g + m + t + b + tr + fr + sw
         entry["launches_by_path"] = {"serving_engine": e,
                                      "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
@@ -4281,7 +4675,9 @@ def main(args) -> int:
                                      "shard_spmd": m,
                                      "pipeshard_spmd": t,
                                      "pipeshard_spmd_tiled": b,
-                                     "pipeshard_traced": tr}
+                                     "pipeshard_traced": tr,
+                                     "fault_recovery": fr,
+                                     "serving_swap": sw}
     print(f"run time: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")
     print(card_line())

@@ -5,6 +5,7 @@ identical; the test asserts that every greedy choice it compares was won
 by a top-2 logit margin above 1e-3, far above the fp32 logit error
 (< 1e-5 at this size), so the comparison cannot hinge on a near-tie.
 """
+import copy
 import functools
 import json
 import threading
@@ -49,10 +50,12 @@ def _models():
 
 
 def _generators(prefill_chunk=None):
+    """Each call gets its own copy of the port's model: a weight swap
+    writes into the model's tensors, and must not reach other tests."""
     jmodel, params, jcfg, tmodel, tcfg = _models()
     return (JaxGenerator(jmodel, params, jcfg, prefill_chunk=prefill_chunk),
-            Generator(tmodel, tcfg, prefill_chunk=prefill_chunk,
-                      device="cpu"))
+            Generator(copy.deepcopy(tmodel), tcfg,
+                      prefill_chunk=prefill_chunk, device="cpu"))
 
 
 def _prompts(lengths=(5, 17, 30), seed=0):
@@ -288,3 +291,328 @@ def test_metrics_families_and_counts_equal_jax():
     assert delta("port", 'alpa_serving_requests_total{outcome="ok"}') == \
         len(prompts)
     assert delta("port", "alpa_serving_ttft_seconds_count") == 2
+
+
+# ---- faults, degraded mode and hot swap (after tests/serve/
+# test_degraded_mode.py and test_hot_swap.py) ------------------------------
+
+def _status(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _post_status(port, body):
+    try:
+        return 200, _post(port, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _degraded_walk(pkg, gen, tmp_path):
+    """One script on a package's controller: a scheduler fault demotes
+    the batcher to FIFO (queued requests all served); a RecoveryManager
+    that loses its mesh sheds load (503 on /completions, /health,
+    /healthz) and recovers.  Returns every (code, status) it saw."""
+    if pkg == "jax":
+        from alpa_tpu import fault
+        from alpa_tpu.global_env import global_config as cfg
+        from alpa_tpu.serve import run_controller as run
+        from alpa_tpu.serve.scheduler import WeightedFairQueue
+        server = run(port=0)
+    else:
+        from alpa_tpu_torch import fault
+        from alpa_tpu_torch.global_env import global_config as cfg
+        from alpa_tpu_torch.serve.scheduler import WeightedFairQueue
+        server = run_controller(port=0, device="cpu")
+    saved_dir = cfg.flight_dump_dir
+    cfg.flight_dump_dir = str(tmp_path / pkg)
+    seen = []
+    body = {"model": "m", "prompt_ids": [1, 2, 3], "max_new_tokens": 2}
+    try:
+        ctl = server.controller
+        ctl.register_model("m", gen, scheduler_factory=WeightedFairQueue)
+        batcher = ctl._models["m"][0].batcher
+        with fault.FaultPlan(fault.FaultSpec("scheduler_take", times=1)):
+            outs, errors = [None] * 3, []
+
+            def call(i):
+                try:
+                    outs[i] = batcher.submit(
+                        [np.array([1 + i, 2, 3], np.int32)],
+                        (GenerationConfig if pkg == "port" else
+                         JaxGenerationConfig)(max_new_tokens=2))
+                except Exception as e:  # noqa: BLE001 -- recorded
+                    errors.append(e)
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+        seen.append(("served", len(errors), all(o is not None for o in outs),
+                     type(batcher._queue).__name__, batcher.degraded))
+        code, health = _status(server.port, "/health")
+        seen.append(("health", code, health["status"],
+                     health.get("degraded_models")))
+        alive = {"ok": False}
+        rm = fault.RecoveryManager(
+            ["mesh0"], retry_policy=fault.RetryPolicy(
+                max_attempts=2, base_delay=0.0, jitter=0.0),
+            probe=lambda mesh: alive["ok"])
+        ctl.attach_recovery(rm)
+        seen.append(("tick", rm.tick().value))
+        for path in ("/health", "/healthz"):
+            code, rep = _status(server.port, path)
+            seen.append((path, code, rep["status"],
+                         "last_flight_dump" in rep and
+                         "elastic" in rep))
+        code, rep = _post_status(server.port, body)
+        seen.append(("shed", code, "unavailable" in rep.get("error", "")))
+        alive["ok"] = True
+        seen.append(("tick", rm.tick().value))
+        code, _ = _post_status(server.port, body)
+        seen.append(("served again", code, _status(server.port,
+                                                   "/healthz")[0]))
+    finally:
+        server.shutdown()
+        cfg.flight_dump_dir = saved_dir
+    return seen
+
+
+def test_degraded_fallback_and_shedding_codes_as_jax(tmp_path):
+    """The same script on both controllers gives the same HTTP codes and
+    health fields: FIFO fallback with every queued request served
+    ("degraded"), 503 while the recovery manager is DEGRADED (with
+    ``last_flight_dump`` and ``elastic`` in ``/healthz``), 200 after."""
+    jgen, tgen = _generators()
+    port = _degraded_walk("port", tgen, tmp_path)
+    assert port == _degraded_walk("jax", jgen, tmp_path)
+    assert port[0] == ("served", 0, True, "FIFOQueue", True)
+    assert port[3][:3] == ("/health", 503, "shedding")
+    assert port[4][:3] == ("/healthz", 503, "degraded")
+    assert port[-1] == ("served again", 200, 200)
+
+
+def test_engine_tick_fault_fails_the_rows_and_serves_on(tmp_path,
+                                                        monkeypatch):
+    from alpa_tpu_torch import fault
+    from alpa_tpu_torch.global_env import global_config as cfg
+    from alpa_tpu_torch.serve import ContinuousBatchingEngine
+    monkeypatch.setattr(cfg, "flight_dump_dir", str(tmp_path))
+    _, tgen = _generators()
+    eng = ContinuousBatchingEngine(tgen, max_batch=1)
+    try:
+        with fault.FaultPlan(fault.FaultSpec("scheduler_tick",
+                                             times=1)) as plan:
+            with pytest.raises(fault.InjectedFault):
+                eng.submit(np.array([1, 2], np.int32),
+                           GenerationConfig(max_new_tokens=3))
+        assert plan.fired("scheduler_tick") == 1 and eng.step_failures == 1
+        assert len(eng.submit(np.array([3, 4], np.int32),
+                              GenerationConfig(max_new_tokens=3))) == 5
+    finally:
+        eng.shutdown()
+
+
+def _perturbed():
+    """The JAX tiny model's weights x 0.5 + 0.25 (JAX's hot-swap
+    perturbation), as flax params and as the port's state dict."""
+    _, params, _, _, tcfg = _models()
+    new = jax.tree_util.tree_map(lambda x: x * 0.5 + 0.25, params)
+    return new, gpt_params_from_flax(new, tcfg, "cpu")
+
+
+def test_reload_under_requests_gives_jax_swapped_tokens(tmp_path):
+    """``POST /admin/reload`` while batched and streamed requests run on
+    the port's controller: none fails, each batched answer is the old or
+    the new weights' greedy output, and requests after the swap give the
+    tokens of a fresh Generator on the new weights and of JAX's controller
+    swapped to the same weights (saved by each package's manager)."""
+    from alpa_tpu.checkpoint.manager import CheckpointManager as JManager
+    from alpa_tpu.serve import run_controller as jax_run_controller
+    from alpa_tpu_torch.checkpoint import CheckpointManager
+    jgen, tgen = _generators()
+    jnew, tnew = _perturbed()
+    jm = JManager(str(tmp_path / "jax"), async_save=False)
+    jm.save(1, jnew)
+    tm = CheckpointManager(str(tmp_path / "port"), async_save=False)
+    tm.save(1, tnew)
+    jmodel, _, jcfg, _, tcfg = _models()
+    fresh_model = tgm.GPTModel(tcfg)
+    fresh_model.load_state_dict(tnew)
+    fresh = Generator(fresh_model, tcfg, device="cpu")
+    prompt = _prompts(lengths=(9,), seed=5)[0]
+    cfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    want_old = tgen.generate([prompt], cfg)[0].tolist()
+    want_new = fresh.generate([prompt], cfg)[0].tolist()
+    assert want_old != want_new
+    body = {"model": "m", "prompt_ids": prompt.tolist(),
+            "max_new_tokens": NEW_TOKENS}
+    server = run_controller(port=0, device="cpu")
+    jserver = jax_run_controller(port=0)
+    try:
+        server.controller.register_model("m", tgen)
+        jserver.controller.register_model("m", jgen)
+        outputs, errors, streams = [], [], []
+        started, stop = threading.Event(), threading.Event()
+
+        def hammer():
+            try:
+                while not stop.is_set():
+                    outputs.append(_post(server.port, body)["output_ids"][0])
+                    started.set()
+            except Exception as e:  # noqa: BLE001 -- recorded
+                errors.append(e)
+
+        def stream():
+            try:
+                streams.append(_sse(server.port, {**body,
+                                                  "max_new_tokens": 24}))
+            except Exception as e:  # noqa: BLE001 -- recorded
+                errors.append(e)
+        threads = [threading.Thread(target=hammer) for _ in range(3)] + [
+            threading.Thread(target=stream) for _ in range(2)]
+        for t in threads:
+            t.start()
+        assert started.wait(120)
+        result = _post(server.port, {"model": "m",
+                                     "ckpt_dir": str(tmp_path / "port")},
+                       path="/admin/reload")
+        stop.set()
+        for t in threads:
+            t.join(120)
+        assert result == {"model": "m", "step": 1, "replicas_swapped": 1}
+        assert not errors and len(streams) == 2
+        assert all(len(s) == 24 for s in streams)
+        assert outputs and all(o in (want_old, want_new) for o in outputs)
+        after = _post(server.port, body)["output_ids"][0]
+        _post(jserver.port, {"model": "m",
+                             "ckpt_dir": str(tmp_path / "jax")},
+              path="/admin/reload")
+        jafter = _post(jserver.port, body)["output_ids"][0]
+        assert after == want_new == jafter
+        assert _sse(server.port, body) == want_new[len(prompt):]
+    finally:
+        server.shutdown()
+        jserver.shutdown()
+
+
+def test_corrupt_checkpoint_never_touches_serving(tmp_path):
+    from alpa_tpu_torch.checkpoint import CheckpointManager
+    _, tgen = _generators()
+    _, tnew = _perturbed()
+    mgr = CheckpointManager(str(tmp_path / "ck"), async_save=False)
+    mgr.save(1, tnew)
+    leaf = next(iter(mgr.store.read_manifest(1)["leaves"].values()))
+    with open(mgr.store.chunk_path(leaf["chunks"][0]["hash"]), "r+b") as f:
+        f.write(b"\xff\xff\xff\xff")
+    prompt = _prompts(lengths=(7,), seed=6)[0]
+    body = {"model": "m", "prompt_ids": prompt.tolist(),
+            "max_new_tokens": NEW_TOKENS}
+    want_old = tgen.generate([prompt], GenerationConfig(
+        max_new_tokens=NEW_TOKENS))[0].tolist()
+    server = run_controller(port=0, device="cpu")
+    try:
+        server.controller.register_model("m", tgen)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/admin/reload",
+            data=json.dumps({"model": "m",
+                             "ckpt_dir": str(tmp_path / "ck")}).encode(),
+            headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=60)
+        assert e.value.code == 500
+        assert "ChunkCorruptionError" in json.loads(e.value.read())["error"]
+        assert server.controller.reloads == []
+        assert _post(server.port, body)["output_ids"][0] == want_old
+    finally:
+        server.shutdown()
+
+
+def test_swap_waits_out_no_stream_and_no_tick_sees_mixed_weights(
+        tmp_path, monkeypatch):
+    """The swap copies the new weights into the model's own tensors, so it
+    may not overlap a tick of a live engine.  With a row active and a
+    drain window of 0, ``swap_weights`` raises ``HotSwapBusyError`` and
+    changes nothing, and ``POST /admin/reload`` answers 409; the stream
+    then finishes on the old weights, every tick of it reading the old
+    weights whole.  Once the stream is done the swap goes through, the
+    old engine's thread has ended, and a new stream reads the new weights
+    whole."""
+    from alpa_tpu_torch.checkpoint import CheckpointManager
+    from alpa_tpu_torch.checkpoint import hot_swap
+    _, gen = _generators()
+    tcfg = _models()[4]
+    _, tnew = _perturbed()
+    old = {k: v.clone() for k, v in gen.params.items()}
+    prompt = _prompts(lengths=(9,), seed=5)[0]
+    cfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    want_old = gen.generate([prompt], cfg)[0].tolist()[len(prompt):]
+    fresh_model = tgm.GPTModel(tcfg)
+    fresh_model.load_state_dict(tnew)
+    want_new = Generator(fresh_model, tcfg, device="cpu").generate(
+        [prompt], cfg)[0].tolist()[len(prompt):]
+    assert want_old != want_new
+
+    def weights():
+        now = gen.params
+        if all(torch.equal(now[k], old[k]) for k in now):
+            return "old"
+        if all(torch.equal(now[k], tnew[k]) for k in now):
+            return "new"
+        return "mixed"
+
+    def watch(engine, seen, gate=None):
+        tick = engine._tick
+
+        def watched():
+            if gate is not None and not seen:
+                gate[0].set()
+                assert gate[1].wait(60.0)
+            seen.append(weights())
+            tick()
+        engine._tick = watched
+
+    mgr = CheckpointManager(str(tmp_path / "ck"), async_save=False)
+    mgr.save(1, tnew)
+    server = run_controller(port=0, device="cpu")
+    try:
+        server.controller.register_model("m", gen)
+        replica = server.controller._models["m"][0]
+        engine = replica.engine
+        in_tick, release = threading.Event(), threading.Event()
+        seen_old = []
+        watch(engine, seen_old, (in_tick, release))
+        stream = replica.submit_stream(prompt, cfg)
+        assert in_tick.wait(60.0)
+        with pytest.raises(hot_swap.HotSwapBusyError):
+            replica.swap_weights(tnew, drain_timeout=0.0)
+        assert weights() == "old" and replica._engine is engine
+        drain = hot_swap.drain_engine
+        monkeypatch.setattr(hot_swap, "drain_engine",
+                            lambda e, timeout, poll=0.01:
+                            drain(e, timeout=0.0, poll=poll))
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(server.port, {"model": "m",
+                                "ckpt_dir": str(tmp_path / "ck")},
+                  path="/admin/reload")
+        assert e.value.code == 409
+        assert "HotSwapBusyError" in json.loads(e.value.read())["error"]
+        assert server.controller.reloads == [] and weights() == "old"
+        monkeypatch.setattr(hot_swap, "drain_engine", drain)
+        release.set()
+        assert list(stream) == want_old
+        assert seen_old and set(seen_old) == {"old"}
+        replica.swap_weights(tnew)
+        assert weights() == "new" and replica._engine is None
+        assert not engine._thread.is_alive()
+        seen_new = []
+        watch(replica.engine, seen_new)
+        assert list(replica.submit_stream(prompt, cfg)) == want_new
+        assert seen_new and set(seen_new) == {"new"}
+    finally:
+        server.shutdown()
