@@ -16,6 +16,20 @@ environment variables and defaults:
   engine batches of sequences.
 * ``kv_prefix_reuse``: full prompt and output blocks are published to a
   hash-chain index, so admissions sharing a token prefix skip them.
+* ``router_policy`` ("least_loaded" or "round_robin"),
+  ``router_shed_ttft_ms`` (0: off) and ``router_shed_queue_depth`` (64):
+  ``serve.router``'s placement and the per-replica saturation it routes
+  around; ``router_health_fail_threshold`` (3) failed probes drop a
+  replica; ``router_autoscale_window_s`` (30),
+  ``router_autoscale_hi_queue`` (8) and ``router_autoscale_lo_queue`` (1):
+  the autoscale callbacks' window and mean depths.
+* ``disagg_mode`` ("off", "auto" or "forced"): split prefill and decode
+  over replica pools (``serve.disagg``); ``disagg_codec`` ("off", "int8",
+  "fp8"): the handoff payload's codec; ``disagg_backpressure_depth`` (0:
+  off): the decode pool's depth above which new prefills shed;
+  ``disagg_ttft_slo_ms`` and ``disagg_itl_slo_ms`` (0: off): the pools'
+  SLO steers; ``disagg_retain_artifacts`` (64): artifacts a prefill engine
+  keeps for re-ingest.
 * ``ilp_time_limit``: seconds the auto-sharding ILP may take per mesh
   shape (600) when ``AutoShardingOption.solver_timeout`` is not given.
 * ``zero_stage``: the default of ``AutoShardingOption.zero_stage``
@@ -114,6 +128,32 @@ class GlobalConfig:
         self.kv_cache_blocks = int(os.environ.get(
             "ALPA_TPU_KV_CACHE_BLOCKS", "0"))
         self.kv_prefix_reuse = _env_bool("ALPA_TPU_KV_PREFIX_REUSE", True)
+        # the multi-replica router
+        self.router_policy = os.environ.get("ALPA_TPU_ROUTER_POLICY",
+                                            "least_loaded")
+        self.router_shed_ttft_ms = float(os.environ.get(
+            "ALPA_TPU_ROUTER_SHED_TTFT_MS", "0"))
+        self.router_shed_queue_depth = int(os.environ.get(
+            "ALPA_TPU_ROUTER_SHED_QUEUE_DEPTH", "64"))
+        self.router_health_fail_threshold = int(os.environ.get(
+            "ALPA_TPU_ROUTER_HEALTH_FAILS", "3"))
+        self.router_autoscale_window_s = float(os.environ.get(
+            "ALPA_TPU_ROUTER_AUTOSCALE_WINDOW", "30"))
+        self.router_autoscale_hi_queue = float(os.environ.get(
+            "ALPA_TPU_ROUTER_AUTOSCALE_HI_QUEUE", "8"))
+        self.router_autoscale_lo_queue = float(os.environ.get(
+            "ALPA_TPU_ROUTER_AUTOSCALE_LO_QUEUE", "1"))
+        # disaggregated prefill/decode
+        self.disagg_mode = os.environ.get("ALPA_TPU_DISAGG_MODE", "off")
+        self.disagg_codec = os.environ.get("ALPA_TPU_DISAGG_CODEC", "off")
+        self.disagg_backpressure_depth = int(os.environ.get(
+            "ALPA_TPU_DISAGG_BACKPRESSURE_DEPTH", "0"))
+        self.disagg_ttft_slo_ms = float(os.environ.get(
+            "ALPA_TPU_DISAGG_TTFT_SLO_MS", "0"))
+        self.disagg_itl_slo_ms = float(os.environ.get(
+            "ALPA_TPU_DISAGG_ITL_SLO_MS", "0"))
+        self.disagg_retain_artifacts = int(os.environ.get(
+            "ALPA_TPU_DISAGG_RETAIN_ARTIFACTS", "64"))
         self.ilp_time_limit = int(os.environ.get("ALPA_TPU_ILP_TIME_LIMIT",
                                                  "600"))
         self.zero_stage = os.environ.get("ALPA_TPU_ZERO_STAGE", "auto")

@@ -768,26 +768,6 @@ class _CapturedStep:
         return moved, held_back
 
 
-def _refuse_wide_stages_over_cards(mesh_device_lists):
-    """Stage meshes of several devices run over one card (named as often as
-    the mesh has devices) and the host.  Over distinct cards (two H100s or
-    four) the two-level step's first moment of the first stage's weights
-    misses the one-device step's (9.2e-01 of its largest entry at the tied
-    embedding), deterministically, with every collective and tile right
-    and with every card synchronised around them (ROADMAP C.4), so such a
-    pipeline is refused until that is repaired."""
-    if max(len(devs) for devs in mesh_device_lists) == 1:
-        return
-    cards = sorted({d.index or 0 for devs in mesh_device_lists
-                    for d in devs if d.type == "cuda"})
-    if len(cards) > 1:
-        raise NotImplementedError(
-            f"stage meshes of several devices over distinct cards {cards}: "
-            "the two-level step over several cards gives a wrong gradient "
-            "of a weight two stages share (ROADMAP C.4); name one card for "
-            "every device of the pipeline (devices=['cuda:0'] * n)")
-
-
 class PipeshardDriverExecutable:
     """Stages, schedule and instruction program of one pipeshard step."""
 
@@ -818,7 +798,6 @@ class PipeshardDriverExecutable:
         self.mesh_shapes = [tuple(int(x) for x in m.devices.shape)
                             for m in meshes]
         self.schedule_name = schedule_name
-        _refuse_wide_stages_over_cards(self.mesh_device_lists)
         self.num_meshes = len(fwd_stages)
         self.num_micro_batches = num_micro_batches
         self.global_invars = global_invars

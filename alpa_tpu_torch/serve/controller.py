@@ -16,6 +16,13 @@ Endpoints:
         last post-mortem, null for none) and ``elastic`` (the
         ``ElasticSupervisor``'s report, null without one)
   GET  /metrics      -> the process registry's Prometheus text
+  POST /disagg/prefill -> the body of /completions; => the KV handoff
+        artifact's wire JSON (``serve.disagg``)
+  POST /disagg/ingest  -> an artifact's wire JSON; => the SSE token stream
+        of the request joining the decode batch (422 for a corrupt
+        artifact)
+  POST /disagg/fetch | /disagg/ack -> {"request_id"}: a retained
+        artifact, again / released
   POST /admin/reload -> {"model", "ckpt_dir", "step"?}: stage and
         hash-verify a checkpoint's weights, then swap every replica of
         the model under a drain barrier (``checkpoint.hot_swap``); 409
@@ -43,6 +50,7 @@ import json
 import logging
 import threading
 import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
@@ -51,6 +59,7 @@ import numpy as np
 from alpa_tpu_torch import fault as _fault
 from alpa_tpu_torch.fault import ServiceDegradedError
 from alpa_tpu_torch.global_env import global_config
+from alpa_tpu_torch.serve import disagg as _disagg
 from alpa_tpu_torch.serve.engine import ContinuousBatchingEngine
 from alpa_tpu_torch.serve.generation import (GenerationConfig, Generator,
                                              get_model)
@@ -266,6 +275,7 @@ class _Replica:
         # engine is built (kv_paged + kv_prefix_reuse)
         self.warm_prefix_ids = warm_prefix_ids
         self._engine = None
+        self._prefill_engine = None
         self._lock = threading.Lock()
 
     @property
@@ -282,7 +292,8 @@ class _Replica:
         new ones; a shared prefix's KV is recomputed under the barrier.
         The streaming engine is drained and retired first, and the next
         streamed request builds a fresh one with its KV pool (cached KV
-        holds only for the weights that made it).  The copy is in place,
+        holds only for the weights that made it), and so is the prefill
+        engine with its retained artifacts.  The copy is in place,
         so no tick of a live engine may overlap it: where the engine's
         streams outlive ``drain_timeout`` the swap raises
         ``HotSwapBusyError`` and the replica keeps its weights and its
@@ -310,6 +321,11 @@ class _Replica:
                     new_prefix = self.generator.cache_prefix(prefix_ids)
                 self.prefix = new_prefix
                 self.batcher.prefix = new_prefix
+            if self._prefill_engine is not None:
+                # its pool's KV and its retained artifacts hold only for
+                # the weights that made them
+                self._prefill_engine.shutdown()
+                self._prefill_engine = None
 
     def submit_stream(self, prompt_ids, cfg, queue=None):
         """Board a streamed request on the engine under the replica lock,
@@ -352,11 +368,37 @@ class _Replica:
                 pool.warm_prefix(self.generator, self.warm_prefix_ids)
         return self._engine
 
+    @property
+    def prefill_engine(self) -> "_disagg.PrefillEngine":
+        """The prefill-only engine of the disaggregated prefill pool,
+        built at first use.  Its admission is the streaming engine's (the
+        same prompt bucket, the same prefix-hit path), so a handoff carries
+        the KV the monolithic engine would compute in place.  A replica
+        with a static ``PrefixHandle`` cannot serve the prefill pool."""
+        with self._lock:
+            if self._prefill_engine is None:
+                if self.prefix is not None:
+                    raise ServiceDegradedError(
+                        "the replica runs a static PrefixHandle; the "
+                        "disaggregated prefill pool needs paged KV "
+                        "(kv_paged + kv_prefix_reuse)")
+                self._prefill_engine = _disagg.PrefillEngine(
+                    self.generator,
+                    prompt_bucket=self.generator.prompt_buckets[-1],
+                    scheduler=(self.scheduler_factory()
+                               if self.scheduler_factory else None))
+                if self.warm_prefix_ids is not None:
+                    self._prefill_engine.pool.warm_prefix(
+                        self.generator, self.warm_prefix_ids)
+            return self._prefill_engine
+
     def shutdown(self):
         self.batcher.shutdown()
         with self._lock:
             if self._engine is not None:
                 self._engine.shutdown()
+            if self._prefill_engine is not None:
+                self._prefill_engine.shutdown()
 
 
 class Controller:
@@ -378,6 +420,9 @@ class Controller:
         self._recovery = None
         # completed hot swaps, newest last
         self.reloads: List[Dict[str, Any]] = []
+        # recent request latencies (seconds) behind load_report's p99: the
+        # router's placement signal
+        self._latencies = deque(maxlen=512)
 
     def set_health(self, state: str, reason: Optional[str] = None):
         if state not in ("ok", "degraded", "shedding"):
@@ -400,6 +445,34 @@ class Controller:
         if degraded:
             report["degraded_models"] = degraded
         return report
+
+    def load_report(self) -> Dict[str, Any]:
+        """Load signals for the multi-replica router and ``/healthz``: the
+        queued requests (batcher, engine and prefill-engine queues), the
+        tokens held by live engine rows, and the p99 of the recent request
+        latencies in ms (None before any traffic)."""
+        depth = 0
+        tokens_in_flight = 0
+        with self._lock:
+            replicas = [r for reps in self._models.values() for r in reps]
+        for rep_ in replicas:
+            depth += len(rep_.batcher._queue)
+            pe = rep_._prefill_engine
+            if pe is not None:
+                depth += pe.queue_depth()
+            eng = rep_._engine
+            if eng is None:
+                continue
+            with eng._cv:
+                depth += len(eng._queue)
+                for it in eng._rows:
+                    if it is not None:
+                        tokens_in_flight += (len(it["prompt"]) +
+                                             len(it["tokens"]))
+        lat = sorted(self._latencies)
+        p99 = lat[int(0.99 * (len(lat) - 1))] * 1e3 if lat else None
+        return {"queue_depth": depth, "tokens_in_flight": tokens_in_flight,
+                "ttft_p99_ms": p99}
 
     def attach_recovery(self, recovery) -> None:
         """Bind a ``fault.RecoveryManager``: entering DEGRADED sheds load
@@ -581,7 +654,9 @@ class Controller:
             _REQUESTS.labels("error").inc()
             raise
         _REQUESTS.labels("ok").inc()
-        _REQ_LATENCY.observe(time.monotonic() - tic)
+        elapsed = time.monotonic() - tic
+        _REQ_LATENCY.observe(elapsed)
+        self._latencies.append(elapsed)
         return {"output_ids": [o.tolist() for o in outs]}
 
     def completions_stream(self, request: Dict[str, Any]):
@@ -595,6 +670,56 @@ class Controller:
                 f"{prompt_ids.shape[0]} rows")
         return replica.submit_stream(prompt_ids.reshape(-1), cfg,
                                      queue=queue)
+
+    # ---- disaggregated prefill/decode (serve.disagg) ----
+
+    def disagg_prefill(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """The prefill half of a disaggregated request: the prompt's
+        prefill on a replica's prefill engine; returns the (retained)
+        handoff artifact's wire form."""
+        tic = time.monotonic()
+        replica, prompt_ids, cfg, queue = self._parse_request(request)
+        if prompt_ids.ndim > 1 and prompt_ids.shape[0] != 1:
+            raise ValueError(
+                "disaggregated prefill takes exactly one prompt per "
+                f"request; got {prompt_ids.shape[0]} rows")
+        pe = replica.prefill_engine
+        pe.model = request["model"]
+        art = pe.prefill(prompt_ids.reshape(-1), cfg, queue=queue)
+        self._latencies.append(time.monotonic() - tic)
+        return art.to_wire()
+
+    def disagg_ingest(self, wire: Dict[str, Any]):
+        """The decode half: check the artifact (a hash mismatch raises
+        ``ArtifactCorruptError``: corrupt KV is never decoded), land it on
+        a replica's streaming engine and return the token stream of the
+        request joining its decode batch."""
+        self._check_shedding()
+        art = _disagg.KVHandoffArtifact.from_wire(wire)   # checks
+        replica = self._pick_replica(art.model)
+        with replica._lock:
+            return _disagg.ingest_stream(replica._engine_locked(), art)
+
+    def disagg_fetch(self, request_id: str) -> Dict[str, Any]:
+        """The retained artifact of ``request_id``: the router's re-ingest
+        source after a decode-side failure."""
+        with self._lock:
+            replicas = [r for reps in self._models.values() for r in reps]
+        for rep_ in replicas:
+            pe = rep_._prefill_engine
+            if pe is not None:
+                art = pe.fetch(request_id)
+                if art is not None:
+                    return art.to_wire()
+        raise KeyError(f"no retained artifact {request_id!r}")
+
+    def disagg_ack(self, request_id: str) -> bool:
+        """Drop the retained artifact: its decode stream finished."""
+        with self._lock:
+            replicas = [r for reps in self._models.values() for r in reps]
+        return any(rep_._prefill_engine is not None and
+                   rep_._prefill_engine.ack(request_id)
+                   for rep_ in replicas)
 
     def shutdown(self):
         """Stop every replica's batcher and engine threads (pending
@@ -629,9 +754,11 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def _metrics(self):
-        """The whole process registry as Prometheus text; the serving and
-        KV families register when their modules load, which the
-        controller's imports guarantee."""
+        """The whole process registry as Prometheus text; the serving, KV
+        and disaggregation families register when their modules load,
+        which the controller's imports guarantee, and the router's are
+        pulled in here."""
+        import alpa_tpu_torch.serve.router  # noqa: F401  pylint: disable=unused-import
         self._send_text(200, _tmetrics.get_registry().to_prometheus_text())
 
     def _healthz(self):
@@ -640,7 +767,8 @@ class _Handler(BaseHTTPRequestHandler):
         once DEGRADED; without a RecoveryManager, the health report.
         ``last_flight_dump`` is where the flight recorder's last
         post-mortem landed (null for none), ``elastic`` the
-        ``ElasticSupervisor``'s report (null without one)."""
+        ``ElasticSupervisor``'s report (null without one), ``load`` the
+        controller's ``load_report`` (the router's signals)."""
         from alpa_tpu_torch import elastic as _elastic
         from alpa_tpu_torch.telemetry import flight as _flight
         recovery = self.controller._recovery
@@ -649,11 +777,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(503 if state == "degraded" else 200,
                        {"status": state,
                         "last_flight_dump": _flight.last_dump_path(),
-                        "elastic": _elastic.status_report()})
+                        "elastic": _elastic.status_report(),
+                        "load": self.controller.load_report()})
             return
         report = self.controller.health_report()
         report["last_flight_dump"] = _flight.last_dump_path()
         report["elastic"] = _elastic.status_report()
+        report["load"] = self.controller.load_report()
         self._send(503 if report["status"] == "shedding" else 200, report)
 
     def do_GET(self):
@@ -673,6 +803,9 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         if self.path == "/admin/reload":
             self._admin_reload()
+            return
+        if self.path.startswith("/disagg/"):
+            self._disagg()
             return
         if self.path != "/completions":
             self._send(404, {"error": f"unknown path {self.path}"})
@@ -735,6 +868,41 @@ class _Handler(BaseHTTPRequestHandler):
         ``data: {"error": ...}`` event."""
         it = self.controller.completions_stream(request)  # validates
         self._stream_body(it)
+
+    def _disagg(self):
+        """``/disagg/prefill`` -> the artifact's wire JSON;
+        ``/disagg/ingest`` -> the SSE token stream joining the decode
+        batch; ``/disagg/fetch`` and ``/disagg/ack`` manage the prefill
+        side's retained artifacts.  A corrupt artifact answers 422, so
+        that the router re-fetches the retained copy."""
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            request = json.loads(self.rfile.read(length) or b"{}")
+            if self.path == "/disagg/prefill":
+                self._send(200, self.controller.disagg_prefill(request))
+            elif self.path == "/disagg/ingest":
+                it = self.controller.disagg_ingest(request)   # checks
+                self._stream_body(it)
+            elif self.path == "/disagg/fetch":
+                self._send(200, self.controller.disagg_fetch(
+                    str(request.get("request_id"))))
+            elif self.path == "/disagg/ack":
+                self._send(200, {"acked": self.controller.disagg_ack(
+                    str(request.get("request_id")))})
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+        except ServiceDegradedError as e:
+            self._send(503, {"error": str(e)})
+        except _disagg.ArtifactCorruptError as e:
+            self._send(422, {"error": str(e)})
+        except KeyError as e:
+            self._send(404, {"error": str(e)})
+        except (json.JSONDecodeError, ValueError, AssertionError,
+                TypeError) as e:
+            self._send(400, {"error": f"bad request: {e}"})
+        except Exception as e:  # pylint: disable=broad-except
+            logger.exception("disagg request failed")
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
     def _stream_body(self, it):
         """Write an already validated token iterator as SSE."""

@@ -258,6 +258,38 @@ class ContinuousBatchingEngine:
         self._enqueue(item)
         return _TokenStream(item, q)
 
+    def submit_prefilled(self, prompt: np.ndarray,
+                         cfg: Optional[GenerationConfig], caches1, logits1,
+                         on_token=None,
+                         queue: Optional[str] = None) -> np.ndarray:
+        """Blocking decode of a request whose prefill ran elsewhere (the
+        decode half of ``serve.disagg``): ``caches1`` are one row's
+        per-layer ``[(k, v, index)]``, ``(1, n, heads, head_dim)`` with
+        ``n`` at least the prompt's length, and ``logits1`` its last-token
+        logits, as this engine's own prefill would leave them.  The row
+        joins the decode batch at the next admission point, between two
+        ticks, by in-place copies into the resident buffers: the captured
+        decode graph is replayed as it is."""
+        item = self._make_item(prompt, cfg, on_token, queue=queue,
+                               prefilled=(logits1, caches1))
+        self._enqueue(item)
+        item["done"].wait()
+        if item["error"] is not None:
+            raise item["error"]
+        row = np.asarray(item["tokens"], np.int32)
+        return np.concatenate([item["prompt"], row])
+
+    def submit_prefilled_stream(self, prompt: np.ndarray,
+                                cfg: Optional[GenerationConfig], caches1,
+                                logits1, queue: Optional[str] = None):
+        """``submit_prefilled`` as a token stream (``submit_stream``'s)."""
+        q: "queue_mod.Queue" = queue_mod.Queue()
+        item = self._make_item(prompt, cfg, q.put,
+                               on_done=lambda: q.put(_STREAM_END),
+                               queue=queue, prefilled=(logits1, caches1))
+        self._enqueue(item)
+        return _TokenStream(item, q)
+
     def _enqueue(self, item):
         with self._cv:
             if self._stop:
@@ -265,12 +297,20 @@ class ContinuousBatchingEngine:
             self._queue.append(item)
             self._cv.notify()
 
-    def _make_item(self, prompt, cfg, on_token, on_done=None, queue=None):
+    def _make_item(self, prompt, cfg, on_token, on_done=None, queue=None,
+                   prefilled=None):
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         cfg = cfg or GenerationConfig()
         seq_len = self.gen.config.seq_len
         plen = self._prefix.length if self._prefix is not None else 0
-        if len(prompt) > self.bucket:
+        if prefilled is not None and self._prefix is not None:
+            raise ValueError(
+                "prefilled admission is incompatible with a static "
+                "PrefixHandle engine (ingested caches carry the whole "
+                "prompt)")
+        # a prefilled row never runs this engine's prefill, so the prefill
+        # bucket does not bound it (seq_len does)
+        if prefilled is None and len(prompt) > self.bucket:
             raise ValueError(
                 f"prompt {len(prompt)} exceeds engine bucket {self.bucket}")
         if plen + len(prompt) + cfg.max_new_tokens > seq_len:
@@ -296,7 +336,8 @@ class ContinuousBatchingEngine:
         return {"prompt": prompt, "cfg": cfg, "tokens": [],
                 "done": _DoneEvent(on_done), "error": None,
                 "on_token": on_token, "cancelled": False,
-                "queue": queue or "default", "t_submit": time.monotonic()}
+                "queue": queue or "default", "prefilled": prefilled,
+                "t_submit": time.monotonic()}
 
     def shutdown(self):
         with self._cv:
@@ -346,8 +387,9 @@ class ContinuousBatchingEngine:
         take, total = [], 0
         while len(take) < len(free):
             nxt = self._next_live()
-            if nxt is None or total + len(nxt["prompt"]) > \
-                    self._packed.total_bucket:
+            # a prefilled row is admitted alone: it has no prefill to pack
+            if nxt is None or nxt.get("prefilled") is not None or \
+                    total + len(nxt["prompt"]) > self._packed.total_bucket:
                 break
             take.append(self._queue.popleft())
             total += len(take[-1]["prompt"])
@@ -421,7 +463,17 @@ class ContinuousBatchingEngine:
     def _admit_row(self, r: int, item, seq):
         p = item["prompt"]
         gen = self.gen
-        if seq is not None and seq.matched_tokens:
+        if item.get("prefilled") is not None:
+            # a disaggregated handoff: the row as another replica's
+            # prefill left it, copied in unchanged
+            logits1, caches1 = item["prefilled"]
+            item["prefilled"] = None          # drop the reference
+            for i, (k1, v1, _i) in enumerate(caches1):
+                n = k1.shape[1]
+                self._kv[0, i, r, :n].copy_(k1[0])
+                self._kv[1, i, r, :n].copy_(v1[0])
+            length = len(p)
+        elif seq is not None and seq.matched_tokens:
             # a prefix-reuse hit: the cached blocks into the row, then the
             # suffix alone from the match offset
             m = seq.matched_tokens

@@ -12,8 +12,14 @@ each request's suffix over a copy of its caches.  The port's caches are
 written in place (``update_kv_cache``), so a suffix is never prefilled
 over the handle's own tensors.
 
-Not ported yet: speculative decoding, beam search and
-``parallel_method``.
+Speculative decoding (``generate_speculative``) draws on the host from
+``np.random.default_rng(seed)`` exactly as the JAX package does, so its
+sampled tokens match JAX's under one seed as far as the logits agree;
+greedy speculation gives exactly the tokens of greedy ``generate``.  Beam
+search (``generate_beam``) prefills once and reorders the beams' stacked
+caches with an ``index_select`` per step.
+
+Not ported yet: ``parallel_method``.
 """
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
@@ -26,6 +32,7 @@ from alpa_tpu_torch.model.gpt_model import (GPTConfig, GPTModel,
                                             config_from_spec,
                                             init_kv_caches, init_random_)
 from alpa_tpu_torch.platform import get_device, to_device
+from alpa_tpu_torch.serve.kv_cache import stacked_kv_caches
 
 
 @dataclasses.dataclass
@@ -70,6 +77,55 @@ def _sample_logits(logits, generator: torch.Generator,
     return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
 
 
+def _warp_probs_np(logits, cfg: GenerationConfig) -> np.ndarray:
+    """Host-side probabilities under the cfg's temperature and top-k, with
+    ``_sample_logits``'s semantics (ties at the k-th value survive), in
+    float64 for exact rejection-sampling ratios."""
+    x = np.asarray(logits, np.float64)
+    if cfg.temperature != 1.0:
+        x = x / max(cfg.temperature, 1e-6)
+    if cfg.top_k > 0:
+        kth = np.partition(x, -cfg.top_k, axis=-1)[..., -cfg.top_k, None]
+        x = np.where(x < kth, TOP_K_MASK, x)
+    x = x - x.max(axis=-1, keepdims=True)
+    p = np.exp(x)
+    return p / p.sum(axis=-1, keepdims=True)
+
+
+def _sample_from_probs(p: np.ndarray, u: float) -> int:
+    """Inverse-CDF draw from a probability vector with one uniform."""
+    c = np.cumsum(p)
+    return int(np.clip(np.searchsorted(c, u * c[-1], side="right"),
+                       0, len(p) - 1))
+
+
+def speculative_accept(props, q_probs, p_probs, us, u_extra):
+    """Rejection-sampling acceptance (Leviathan et al.): proposal ``i``,
+    drawn from ``q_i``, is accepted with probability ``min(1, p_i(x) /
+    q_i(x))``; the first rejection emits from the residual ``norm(max(p_i
+    - q_i, 0))``, and a round accepted whole emits a bonus token from
+    ``p_k``, so every emitted token is distributed exactly as ``p``.
+    Returns ``(num_accepted, extra_token)``.
+
+    ``props``: k proposed tokens; ``q_probs``: (k, V) draft probabilities;
+    ``p_probs``: (k+1, V) target probabilities; ``us``: k uniforms;
+    ``u_extra``: one uniform for the residual or bonus draw."""
+    k = len(props)
+    for i in range(k):
+        x = int(props[i])
+        ratio = p_probs[i][x] / max(q_probs[i][x], 1e-300)
+        if us[i] < min(1.0, ratio):
+            continue
+        residual = np.maximum(p_probs[i] - q_probs[i], 0.0)
+        s = residual.sum()
+        if s <= 0.0:
+            # p == q: the residual is empty and acceptance was certain up
+            # to rounding; draw from p itself
+            residual, s = p_probs[i], p_probs[i].sum()
+        return i, _sample_from_probs(residual / s, u_extra)
+    return k, _sample_from_probs(p_probs[k], u_extra)
+
+
 def default_prompt_buckets(seq_len: int) -> List[int]:
     """Power-of-two prompt-length buckets up to seq_len."""
     buckets, b = [], 32
@@ -92,7 +148,9 @@ class Generator:
     ``prefill_chunk``: chunked prefill; prompts stream through the cached
     path in fixed-size chunks written at a scalar cache index.
 
-    ``prefill_calls`` / ``decode_calls`` count model calls of each kind.
+    ``prefill_calls`` / ``decode_calls`` / ``verify_calls`` count model
+    calls of each kind (a verify call is speculative decoding's forward of
+    several tokens at the per-row index).
     """
 
     def __init__(self, model: GPTModel, config: GPTConfig,
@@ -106,6 +164,7 @@ class Generator:
         self.prefill_chunk = prefill_chunk
         self.prefill_calls = 0
         self.decode_calls = 0
+        self.verify_calls = 0
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -319,6 +378,241 @@ class Generator:
             outs.append(np.concatenate([p, row]))
         return outs
 
+
+    # ---- speculative decoding ----
+
+    def generate_speculative(self, draft: "Generator", input_ids,
+                             generation_config: Optional[
+                                 GenerationConfig] = None,
+                             num_draft: int = 4, seed: int = 0):
+        """Speculative decoding of one prompt: ``draft`` (any Generator
+        over the same vocabulary) proposes ``num_draft`` tokens a round and
+        this (target) model verifies them in one cached forward.
+
+        Greedy mode accepts the agreeing argmax prefix and emits exactly
+        the tokens of greedy ``generate``.  With ``cfg.do_sample`` the
+        proposals are drawn from the draft's warped distribution and
+        accepted by rejection sampling (``speculative_accept``), so every
+        emitted token is distributed as the target's; ``seed`` drives the
+        host-side draws (``np.random.default_rng``, as in JAX).  Rollback
+        after a rejection resets the caches' index: the K/V beyond it stay
+        masked.  Returns ``(row, stats)``, the prompt and its tokens and
+        ``{"rounds", "proposed", "accepted"}``."""
+        with torch.inference_mode():
+            return self._generate_speculative(
+                draft, input_ids, generation_config or GenerationConfig(),
+                int(num_draft), seed)
+
+    def _generate_speculative(self, draft, input_ids, cfg, k, seed):
+        np_rng = np.random.default_rng(seed)
+        prompt = np.asarray(input_ids, np.int32).reshape(-1)
+        if k < 1:
+            raise ValueError(f"num_draft must be >= 1, got {k}")
+        if len(prompt) + cfg.max_new_tokens > self.config.seq_len:
+            raise ValueError(
+                f"prompt {len(prompt)} + max_new_tokens "
+                f"{cfg.max_new_tokens} exceeds seq_len "
+                f"{self.config.seq_len}")
+        if len(prompt) + cfg.max_new_tokens > draft.config.seq_len:
+            # a draft cache too small would overrun silently: proposals
+            # turn to garbage and acceptance collapses with no error
+            raise ValueError(
+                f"draft seq_len {draft.config.seq_len} cannot hold "
+                f"prompt {len(prompt)} + max_new_tokens "
+                f"{cfg.max_new_tokens}")
+
+        def host(logits):
+            return logits.float().cpu().numpy()
+
+        def pick_target(logits):
+            """The next token from target logits: argmax or a warped
+            draw."""
+            if not cfg.do_sample:
+                return int(np.argmax(host(logits)[0]))
+            p = _warp_probs_np(host(logits)[0], cfg)
+            return _sample_from_probs(p, np_rng.uniform())
+
+        t_logits, t_caches = self._spec_prefill(self, prompt)
+        _, d_caches = self._spec_prefill(draft, prompt)
+        pending = pick_target(t_logits)
+        generated = [pending]
+        stats = {"rounds": 0, "proposed": 0, "accepted": 0}
+        eos = cfg.eos_token_id
+        cap = min(self.config.seq_len, draft.config.seq_len)
+        while len(generated) < cfg.max_new_tokens and \
+                (eos is None or pending != eos):
+            # shrink the round near the cache's end so that the verify
+            # write (k_r + 1 tokens) always fits: greedy exactness holds
+            # up to the edge
+            idx = int(t_caches[0][2][0])
+            k_r = min(k, cap - idx - 1, cfg.max_new_tokens - len(generated))
+            if k_r < 1:
+                # no room for a round: one plain decode
+                t_logits, t_caches = self._decode(
+                    self._ints([pending]), t_caches[0][2], t_caches)
+                pending = pick_target(t_logits)
+                generated.append(pending)
+                continue
+            # the draft proposes k_r tokens in k_r + 1 decodes: the last
+            # feed keeps its cache in step with the verify write
+            props, q_rows = [], []
+            tok = pending
+            for _ in range(k_r):
+                d_logits, d_caches = draft._decode(
+                    draft._ints([tok]), d_caches[0][2], d_caches)
+                if cfg.do_sample:
+                    q = _warp_probs_np(host(d_logits)[0], cfg)
+                    q_rows.append(q)
+                    tok = _sample_from_probs(q, np_rng.uniform())
+                else:
+                    tok = int(np.argmax(host(d_logits)[0]))
+                props.append(tok)
+            _, d_caches = draft._decode(draft._ints([props[-1]]),
+                                        d_caches[0][2], d_caches)
+            # the target verifies [pending, p1..p_k_r] in one forward
+            v_logits, t_caches = self._verify(
+                self._ints([[pending] + props]), t_caches)
+            if cfg.do_sample:
+                p_rows = _warp_probs_np(host(v_logits)[0], cfg)
+                a, extra = speculative_accept(
+                    props, np.stack(q_rows), p_rows,
+                    np_rng.uniform(size=k_r), np_rng.uniform())
+                emitted = props[:a] + [extra]
+            else:
+                t_preds = np.argmax(host(v_logits)[0], axis=-1)
+                a = 0
+                while a < k_r and t_preds[a] == props[a]:
+                    a += 1
+                emitted = props[:a] + [int(t_preds[a])]
+            stats["rounds"] += 1
+            stats["proposed"] += k_r
+            stats["accepted"] += a
+            # rollback: this round confirmed pending and a proposals
+            conf = 1 + a
+            t_caches = [(kc, vc, i - (k_r + 1) + conf)
+                        for (kc, vc, i) in t_caches]
+            d_caches = [(kc, vc, i - (k_r + 1) + conf)
+                        for (kc, vc, i) in d_caches]
+            for t in emitted:
+                generated.append(t)
+                if eos is not None and t == eos:
+                    break
+            pending = generated[-1]
+        gen = np.asarray(generated[:cfg.max_new_tokens], np.int32)
+        if eos is not None:
+            hits = np.nonzero(gen == eos)[0]
+            if hits.size:
+                gen = gen[:hits[0] + 1]
+        return np.concatenate([prompt, gen]), stats
+
+    def _ints(self, values) -> torch.Tensor:
+        return to_device(torch.tensor(values, dtype=torch.int64),
+                         self.device)
+
+    @staticmethod
+    def _spec_prefill(gen: "Generator", prompt):
+        """One prompt prefilled by ``gen``'s own path (chunked or
+        bucketed); the caches continue at the per-row index."""
+        lengths = gen._ints([len(prompt)])
+        if gen.prefill_chunk:
+            return gen._run_chunked_prefill([prompt], lengths)
+        return gen._run_bucketed_prefill([prompt], lengths)
+
+    def _verify(self, toks, caches):
+        """The verify leg: ``toks`` (B, s) written at the per-row index in
+        one cached forward, all s logits returned (on
+        ``reference_attention``, as every per-row-index forward)."""
+        b, s = toks.shape
+        pos = caches[0][2][:, None] + torch.arange(s, device=self.device)
+        self.verify_calls += 1
+        return self.model(toks, pos, caches)
+
+    # ---- beam search ----
+
+    def generate_beam(self, input_ids, num_beams: int = 4,
+                      max_new_tokens: int = 32, length_penalty: float = 1.0,
+                      eos_token_id: Optional[int] = None) -> np.ndarray:
+        """Beam search for one prompt: prefill once, repeat the prompt's
+        caches over the beams (one stacked tensor) and after every step
+        reorder them with one ``index_select`` on the beam axis.  Scoring
+        is JAX's: a finished beam extends only by eos at no cost (-1e9 for
+        any other token), each beam's generated length stops at its eos,
+        and the best beam is the one with the highest score over
+        ``max(length, 1) ** length_penalty``.  Returns it as (1, S + T)."""
+        with torch.inference_mode():
+            return self._generate_beam(input_ids, int(num_beams),
+                                       max_new_tokens, length_penalty,
+                                       eos_token_id)
+
+    def _generate_beam(self, input_ids, num_beams, max_new_tokens,
+                       length_penalty, eos_token_id):
+        ids = np.asarray(input_ids, np.int64)
+        if ids.ndim == 1:
+            ids = ids[None]
+        if ids.shape[0] != 1:
+            raise ValueError("beam search takes one prompt")
+        s = ids.shape[1]
+        if s + max_new_tokens > self.config.seq_len:
+            raise ValueError(
+                f"prompt {s} + max_new_tokens {max_new_tokens} exceeds "
+                f"seq_len {self.config.seq_len}")
+        kv1, caches1 = stacked_kv_caches(self.config, 1, self.device)
+        lengths = self._ints([s])
+        if self.prefill_chunk:
+            logits1, _ = self._run_chunked_prefill([ids[0]], lengths,
+                                                   caches=caches1)
+        else:
+            logits1, _ = self._run_bucketed_prefill([ids[0]], lengths,
+                                                    caches=caches1)
+        k = num_beams
+        kv = kv1.repeat(1, 1, k, 1, 1, 1)
+        del kv1, caches1
+        beams = self._ints(ids).repeat(k, 1)                     # (K, S)
+        logits = logits1.repeat(k, 1)
+        scores = torch.full((k,), -1e9, device=self.device)
+        scores[0] = 0.0
+        finished = torch.zeros((k,), dtype=torch.bool, device=self.device)
+        # generated length per beam, frozen at its eos
+        gen_len = torch.zeros((k,), device=self.device)
+        vocab = torch.arange(logits.shape[-1], device=self.device)
+        eos_row = torch.where(vocab == (eos_token_id or 0), 0.0, -1e9)
+        index = s
+        for t in range(max_new_tokens):
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            cand = scores[:, None] + torch.where(finished[:, None],
+                                                 eos_row[None], logp)
+            flat = cand.reshape(-1)
+            # a stable sort: equal scores keep the lower flat index first,
+            # as XLA's top_k does
+            top_idx = torch.sort(flat, descending=True,
+                                 stable=True).indices[:k]
+            top_scores = flat[top_idx]
+            v = logp.shape[-1]
+            beam_idx = top_idx // v
+            tok_idx = top_idx % v
+            beams = torch.cat([beams.index_select(0, beam_idx),
+                               tok_idx[:, None]], dim=1)
+            scores = top_scores
+            finished = finished.index_select(0, beam_idx)
+            gen_len = gen_len.index_select(0, beam_idx)
+            # beams running at the start of this step count its token,
+            # eos included
+            gen_len = torch.where(finished, gen_len, gen_len + 1.0)
+            if eos_token_id is not None:
+                finished = finished | (tok_idx == eos_token_id)
+            if t == max_new_tokens - 1 or (
+                    eos_token_id is not None and bool(finished.all())):
+                break
+            kv = kv.index_select(2, beam_idx)
+            caches = [(kv[0, i], kv[1, i],
+                       torch.full((k,), index, dtype=torch.int64,
+                                  device=self.device))
+                      for i in range(kv.shape[1])]
+            logits, _ = self._decode(tok_idx, caches[0][2], caches)
+            index += 1
+        norm = scores / (gen_len.clamp(min=1.0) ** length_penalty)
+        best = int(torch.argmax(norm))
+        return beams[best:best + 1].cpu().numpy().astype(np.int32)
 
 def get_model(name_or_config, params=None, seed: int = 0,
               device=None) -> Generator:

@@ -415,14 +415,14 @@ class KVBlockPool:
                 for i in range(out.shape[1])]
 
     def gather_blocks(self, seq: PagedSequence, num_blocks: int):
-        """The first ``num_blocks`` blocks of ``seq`` as host arrays
+        """The first ``num_blocks`` blocks of ``seq`` as host tensors
         ``[(k, v)]`` per layer, each ``(num_blocks, block_size, heads,
-        head_dim)``: gather moves the bits unchanged."""
+        head_dim)`` in the pool's dtype (bf16 included): gather moves the
+        bits unchanged."""
         ids = self._ids(seq.ids[:num_blocks])
         with self._lock:
             blocks = self._kv[:, :, ids].cpu()
-        return [(blocks[0, i].numpy(), blocks[1, i].numpy())
-                for i in range(blocks.shape[1])]
+        return [(blocks[0, i], blocks[1, i]) for i in range(blocks.shape[1])]
 
     def scatter_prompt(self, seq: PagedSequence, dense: torch.Tensor):
         """Store the freshly prefilled prompt region of one dense row (a

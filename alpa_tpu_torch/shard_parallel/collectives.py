@@ -21,7 +21,8 @@ list of results, one per device:
 
 Each result is a tensor of its own on its operand's device, never a view
 of another device's, so that a device's later in-place writes touch only
-its own values.
+its own values, and contiguous on both backends, so that an op reading
+it gets the same layout whichever backend made it.
 """
 import dataclasses
 import threading
@@ -75,6 +76,15 @@ def _moved(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.movedim(dim, 0).contiguous()
 
 
+def _handed_back(out: torch.Tensor, dim: int) -> torch.Tensor:
+    """An NCCL result gathered or scattered along dim 0, with ``dim`` moved
+    back, in the contiguous layout the plain path's ``cat``/``chunk``
+    gives.  Some aten kernels read an input as contiguous whatever its
+    strides (``native_layer_norm_backward`` its saved mean and rstd), so
+    a moved view of equal values gave other results (ROADMAP C.4)."""
+    return out.movedim(0, dim).contiguous()
+
+
 def all_reduce(xs: Sequence[torch.Tensor], devices, op: str = "sum"
                ) -> List[torch.Tensor]:
     if backend_of(devices) == "nccl":
@@ -113,7 +123,7 @@ def all_gather(xs: Sequence[torch.Tensor], devices, dim: int
                 for x in ins]
         with _NCCL_LOCK:
             nccl.all_gather(ins, outs)
-        return [o.movedim(0, dim) for o in outs]
+        return [_handed_back(o, dim) for o in outs]
     home = xs[0].device
     full = torch.cat([x.to(home) for x in xs], dim)
     return [full] + [full.to(x.device, copy=True) for x in xs[1:]]
@@ -129,7 +139,7 @@ def reduce_scatter(xs: Sequence[torch.Tensor], devices, dim: int,
                 for x in ins]
         with _NCCL_LOCK:
             nccl.reduce_scatter(ins, outs, op=_NCCL_OPS[op])
-        return [o.movedim(0, dim) for o in outs]
+        return [_handed_back(o, dim) for o in outs]
     total = _plain_reduce(xs, op)
     return [c.to(x.device, copy=True).contiguous()
             for c, x in zip(total.chunk(n, dim), xs)]

@@ -61,11 +61,13 @@ Phases, each reported on its own line:
    parameters to 1e-4 of their tensor's largest value where the step-0
    gradient is at least 1e-2 of the tensor's largest, to Adam's bound of
    2 x lr x steps elsewhere (``param_diffs``).  Full
-   width: 24 layers, bf16 compute, fp32 params and Adam, no remat, batch 8
-   in 4 microbatches, 3 warm-up and 5 timed steps: a finite loss that
-   falls, the first step's loss within 1e-2 relative of one
-   ``ShardParallel`` step from the same state and batch, and exactly 96
-   forward, 96 dq and 96 dk/dv launches per step; step time, tokens/s,
+   width at ``PIPESHARD_LAYERS`` (12) of its 24 layers (every pipeshard
+   phase's depth, a boundary after the sixth block), bf16 compute, fp32
+   params and Adam, no remat, batch 8 in 4 microbatches, 3 warm-up and 5
+   timed steps: a finite loss that falls, the first step's loss within
+   1e-2 relative of one ``ShardParallel`` step from the same state and
+   batch, and exactly 4 x 12 forward, dq and dk/dv launches per step;
+   step time, tokens/s,
    TFLOPS, MFU, the allocated peak of the replayed steps beside the CUDA
    graphs' pools, trace and build time, the instruction counts and the
    schedule, then ``torch.profiler`` over two more steps (the first step
@@ -87,7 +89,7 @@ Phases, each reported on its own line:
 9. pipeshard auto-layer fidelity: the fidelity check of phase 8 for 4
    layers without boundaries under ``AutoLayerOption(layer_num=4,
    remat_layer=True)``;
-10. pipeshard auto: the README's headline form at full width and depth,
+10. pipeshard auto: the README's headline form at phase 8's width and depth,
    GPT-1.3B with no boundaries under ``AutoLayerOption(layer_num=8,
    remat_layer=True)`` and ``UniformStageOption(2)``, 4 microbatches, 1F1B,
    as phase 8 measures it (first loss within 1e-6 of ``ShardParallel``'s,
@@ -106,7 +108,8 @@ Phases, each reported on its own line:
    ``ShardParallel()`` from the same weights (phase 8's checks: step-0
    gradients to 1e-4 of each tensor's largest, over 2 Adam steps losses to
    1e-5 relative and parameters by ``param_diffs``); then ``bench.py``'s
-   GPT-1.3B step at full width and depth (bf16 compute, fp32 params and
+   GPT-1.3B step at full width and 12 of its 24 layers (bf16 compute,
+   fp32 params and
    Adam, flash, per-block remat) under ``ShardParallel(
    num_micro_batches=4)``, batch 32 (phase 6's batch of 8 per
    microbatch): 3 warm-up and 5 timed steps, exactly 192 forward, 96 dq
@@ -137,8 +140,9 @@ Phases, each reported on its own line:
    1e-5 relative and parameters to 1e-5 of each tensor's largest, and 4 x
    the one-device flash launches; the plan's specs and the collectives
    per step by kind and bytes;
-15. spmd: phase 6's GPT-1.3B (24 layers, bf16 compute, fp32 params and
-   Adam, flash, per-block remat, batch 8) under ``ShardParallel`` with
+15. spmd: phase 6's GPT-1.3B at ``SPMD_LAYERS`` (12) of its 24 layers
+   (full width, bf16 compute, fp32 params and Adam, flash, per-block
+   remat, batch 8) under ``ShardParallel`` with
    the ILP's mesh-shape search and under ``Zero2Parallel``, each over the
    card named twice, against the one-device step on the same weights
    and batch: Adam's first moment after one step (0.1 x the step-0
@@ -164,8 +168,8 @@ Phases, each reported on its own line:
    first pipeshard with one stage on the card and one on the host; then
    ``AutoStageOption`` on the card named 4 times: its partition,
    submeshes and solve seconds, and its first loss;
-16. two-level: phase 8's GPT-1.3B (24 layers, bf16 compute, fp32 params
-   and Adam, flash, no remat, a boundary every 12 blocks, batch 8 in 4
+16. two-level: phase 8's GPT-1.3B (12 layers, bf16 compute, fp32 params
+   and Adam, flash, no remat, a boundary after 6 blocks, batch 8 in 4
    microbatches, 1F1B) in two stages of two virtual devices each (the card
    named 4 times), each stage planned by the ILP and run by the SPMD
    partitioner, values moved between the stage meshes as tiles; held to
@@ -220,7 +224,34 @@ Phases, each reported on its own line:
    until recovery, ``check_alive`` and ``WedgeDetector`` ``ok``.  The
    checkpoints go under a temporary directory, removed after.
 
-``--four-cards`` (a machine with four cards): GPT-1.3B at batch 32 (8 per
+19. the rest of serving, OPT-1.3B (bf16, flash, 24 layers, seed 0) with
+   OPT-125M (seed 1) as the draft: (a) greedy ``generate_speculative``
+   (4 drafts a round) with the OPT-125M draft and with the target as its
+   own draft, 4 prompts of 32-480 tokens and 64 new tokens, equal to
+   greedy ``generate`` (or parted at a near-tie, ``NEAR_TIE``), the
+   self-draft accepting at least ``SELF_DRAFT_MIN_ACCEPT`` of its
+   proposals; acceptance, target forwards per token and ms per token
+   beside plain decode's; one sampled run, reproducible under its seed;
+   (b) ``generate_beam`` with 1 beam (== greedy) and 4, 32 new tokens,
+   one prefill per search; (c) a prefill controller and a decode
+   controller in this process behind a ``Router`` in ``forced``
+   disaggregation: phase 4b's 16 streamed requests (32 new tokens) equal
+   the monolithic paged engine token for token, the decode engine
+   captured once; handoff seconds and artifact bytes; a corrupt artifact
+   refused and re-fetched; the int8 handoff within 4 x the codec's bound;
+   (d) ``RouterServer`` over two local replicas and an
+   ``HTTPReplicaHandle`` to a controller on localhost: 32 concurrent
+   requests, half over SSE, against one replica's tokens, the placement
+   split, ``POST /admin/rolling_reload`` under traffic with zero errors,
+   one replica's health dropped and restored; (e) the target's weights
+   through ``save_params_dir``/``load_params_dir`` (temporary directory),
+   bit-equal, served to the same tokens.  Each path's flash launches are
+   24 per prefill model call (12 for the draft's) and appear in the
+   kernels line.
+
+``--four-cards`` (a machine with four cards): first C.4's bisection
+(phase 16a's narrow pipeshard over the card layouts, every dispatch
+mode, collectives and tiles checked); then GPT-1.3B at batch 32 (8 per
 card) under ``DataParallel``, ``Zero2Parallel`` and the ILP's
 ``ShardParallel`` over the four cards (collectives over NCCL), held by
 phase 15's bounds against phase 12's one-card
@@ -228,10 +259,9 @@ phase 15's bounds against phase 12's one-card
 Adam's first moment and the parameters after one step), 4 x its flash
 launches per microbatch; step time, tokens/s, MFU
 over 4 x 989 TFLOP/s, collective bytes and NCCL device time per step, the
-plan's ILP objective beside the measured step, peak memory per card.
-Phase 16 over the four cards is not run: the port refuses stage meshes of
-several devices over distinct cards until ROADMAP C.4 is repaired.
-``c4_values.py`` holds C.4's value-by-value step, on two cards.
+plan's ILP objective beside the measured step, peak memory per card;
+then phase 16 over the four cards (two stages of two cards, NCCL inside
+each), direct and tiled, held to phase 8's step by phase 16's bounds.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
@@ -744,7 +774,7 @@ def near_tie_divergence(model, prompt, got, want):
     if pos is None:
         return None if len(got) == len(want) else (len(got), float("inf"))
     ids = torch.as_tensor(np.concatenate([prompt, got[:pos]])[None],
-                          device="cuda")
+                          device=next(model.parameters()).device)
     with torch.inference_mode():
         logits = model(ids)[0, -1].float()
     top = float(logits.max())
@@ -1462,10 +1492,13 @@ def pipeshard_fidelity(label, cfg, method, batch_size=4,
 
 
 def pipeshard_config(**kw):
-    """GPT-1.3B at full width and depth for the pipeshard phases: bf16
-    compute, flash, no per-block remat unless ``kw`` asks for it."""
-    return config_from_spec("1.3B", dtype=torch.bfloat16,
-                            attention_impl="flash", **kw)
+    """GPT-1.3B at full width and ``PIPESHARD_LAYERS`` of its 24 layers for
+    the pipeshard phases: bf16 compute, flash, no per-block remat unless
+    ``kw`` asks for it."""
+    return dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.bfloat16,
+                         attention_impl="flash", **kw),
+        num_layers=PIPESHARD_LAYERS)
 
 
 def shard_first_loss(cfg, batch):
@@ -2207,13 +2240,14 @@ def phase_compile_cache():
 
 
 def phase_pipeshard(shard_profile):
-    """GPT-1.3B at full width and depth through PipeshardParallel with manual
-    layers (a boundary every 12 blocks), 2 stages, 4 microbatches; then the
+    """GPT-1.3B at full width and phase 8's depth (``PIPESHARD_LAYERS``)
+    through PipeshardParallel with manual layers (a boundary after
+    ``PIPESHARD_BOUNDARY`` blocks), 2 stages, 4 microbatches; then the
     dispatch modes on its executable (``phase_dispatch``); then its peak
     without and with the in-place apply-grad (``apply_grad_peaks``).
     Returns phase 8's run (``timed_pipeshard``, without step and state) and
     the ShardParallel reference loss."""
-    cfg = pipeshard_config(pipeline_boundary_every=12)
+    cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY)
     batch = lm_batch(cfg, 8)
     ref_loss = shard_first_loss(cfg, batch)
     run = timed_pipeshard("pipeshard", cfg, pipeshard_method(4), batch,
@@ -2256,12 +2290,13 @@ def phase_pipeshard(shard_profile):
 
 def phase_pipeshard_remat_blocks(shard_profile, phase8):
     """GPT-1.3B with per-block remat (``remat_blocks=True``, ``bench.py``'s
-    setting) inside a pipeshard trace: manual layers (a boundary every 12
+    setting) inside a pipeshard trace: manual layers (a boundary after 6
     blocks), 2 stages, 4 microbatches, 1F1B, as phase 8 measures it; the
     first loss within 1e-2 relative of ShardParallel's on the same config;
     each block's forward runs twice (192/96/96 launches per step).  Prints
     the peak and step beside phase 8's."""
-    cfg = pipeshard_config(pipeline_boundary_every=12, remat_blocks=True)
+    cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY,
+                           remat_blocks=True)
     batch = lm_batch(cfg, 8)
     ref_loss = shard_first_loss(cfg, batch)
     label = "pipeshard remat blocks"
@@ -2276,9 +2311,10 @@ def phase_pipeshard_remat_blocks(shard_profile, phase8):
 
 
 def phase_pipeshard_infer():
-    """The inference path at full width and depth: a forward-only function
+    """The inference path at full width and phase 8's depth: a
+    forward-only function
     returning GPT-1.3B's logits (bf16, flash, manual layers at a boundary
-    every 12 blocks), ``parallelize``d under PipeshardParallel with 2 stages
+    after 6 blocks), ``parallelize``d under PipeshardParallel with 2 stages
     x 4 microbatches and the ``"inference"`` schedule, batch 8, one card:
     the logits of every call against the same ``GPTModel`` forward run
     eagerly (bf16 tolerance, atol 1e-2 and rtol 1e-2); exactly 24 x 4
@@ -2287,7 +2323,7 @@ def phase_pipeshard_infer():
     them), 5 timed, then ``torch.profiler`` over 2 more: call time, host
     time, device share, tokens/s."""
     label = "pipeshard infer"
-    cfg = pipeshard_config(pipeline_boundary_every=12)
+    cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY)
     gc.collect()
     torch.cuda.empty_cache()
     model = GPTModel(cfg, device="cuda", param_dtype=torch.float32)
@@ -2366,7 +2402,8 @@ def phase_pipeshard_infer():
 
 
 def phase_pipeshard_auto(shard_profile, ref_loss=None):
-    """The README's headline form at full width and depth: GPT-1.3B with no
+    """The README's headline form at full width and phase 8's depth:
+    GPT-1.3B with no
     boundaries, ``AutoLayerOption(layer_num=8, remat_layer=True)``, 2
     uniform stages, 4 microbatches, 1F1B; each block's flash forward runs
     twice (the recompute).  Prints the layer cuts; then one step under
@@ -2451,11 +2488,14 @@ def eager_microbatch_loss(state, batch, num_micro_batches):
 
 
 def phase_shard_grad_acc(shard_profile):
-    """Phase 12: ``bench.py``'s GPT-1.3B step under ``ShardParallel(
+    """Phase 12: ``bench.py``'s GPT-1.3B step (full width,
+    ``SPMD_LAYERS`` of its 24 layers) under ``ShardParallel(
     num_micro_batches=4)``, batch 32 (phase 6's batch of 8 per
     microbatch).  Returns the flash launches of the run."""
-    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
-                           attention_impl="flash", remat_blocks=True)
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.bfloat16,
+                         attention_impl="flash", remat_blocks=True),
+        num_layers=SPMD_LAYERS)
     batch_size, nmb, warmup, n_iter = 32, 4, 3, 5
     alpa_tpu_torch.init(cluster="local")
     gc.collect()
@@ -2823,6 +2863,14 @@ def adam_bound(steps):
 # first moment by a share of 1, not of 1e-2.
 SPMD_LOSS_TOL = 1e-4
 SPMD_GRAD_TOL = 1e-2
+# the depth of phases 8-12 and 15-18: half of GPT-1.3B's 24 layers at its
+# full width, so that the whole run stays inside its time limit as phases
+# are added (the plans and the checks do not depend on the depth; phases
+# 6 and 13 and --four-cards keep 24); the pipeshard phases cut it into two
+# stages at the middle
+SPMD_LAYERS = 12
+PIPESHARD_LAYERS = 12
+PIPESHARD_BOUNDARY = PIPESHARD_LAYERS // 2
 SPMD_PARAM_TOL = 0.25
 # Phase 16's first-moment bound, at cuBLAS's default configuration.  The
 # two-level step runs each stage's products on one device's rows where
@@ -3000,8 +3048,9 @@ def nccl_seconds(run, label):
 
 
 def phase_spmd(shard_profile):
-    """Phase 15: GPT-1.3B at full width and depth (phase 6's model, batch
-    8) under ``ShardParallel`` with the ILP's mesh-shape search and under
+    """Phase 15: GPT-1.3B at full width and ``SPMD_LAYERS`` of its 24
+    layers (phase 6's model otherwise, batch 8) under ``ShardParallel``
+    with the ILP's mesh-shape search and under
     ``Zero2Parallel``, both over the card named twice: the first loss,
     Adam's first moment after one step and the parameters after 2 steps
     against the one-device step from the same weights and batch
@@ -3009,8 +3058,10 @@ def phase_spmd(shard_profile):
     the plan, the collectives, peak memory and the step time (a one-card
     number: the two virtual devices share the card).  Returns the flash
     launches of the run."""
-    cfg = config_from_spec("1.3B", dtype=torch.bfloat16,
-                           attention_impl="flash", remat_blocks=True)
+    cfg = dataclasses.replace(
+        config_from_spec("1.3B", dtype=torch.bfloat16,
+                         attention_impl="flash", remat_blocks=True),
+        num_layers=SPMD_LAYERS)
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in lm_batch(cfg, 8).items()}
     ref_grads = one_device_grads(cfg, batch)
@@ -3043,9 +3094,10 @@ def phase_spmd(shard_profile):
         tflops = compute_gpt_tflops(8, cfg.seq_len, cfg.num_layers,
                                     cfg.hidden_size, cfg.vocab_size, 1,
                                     m["latency"])
-        print(f"{label} metrics [{card}]: step {m['latency']:.5f} s on one "
-              f"card (two virtual devices share it; phase 6's one-device "
-              f"step {shard_profile['latency']:.5f} s), "
+        print(f"{label} metrics [{card}]: {cfg.num_layers} layers, step "
+              f"{m['latency']:.5f} s on one card (two virtual devices share "
+              f"it; phase 6's one-device step at 24 layers "
+              f"{shard_profile['latency']:.5f} s), "
               f"{8 * cfg.seq_len / m['latency']:.1f} tokens/s, {tflops:.3f} "
               f"TFLOPS of the card, peak allocated "
               f"{m['peak'] / 2**30:.3f} GiB "
@@ -3397,8 +3449,8 @@ def two_level_reference(cfg, batch, devices):
 
 
 def phase_pipeshard_spmd(phase8):
-    """Phase 16: phase 8's GPT-1.3B (24 layers, bf16 compute, fp32 params
-    and Adam, flash, no remat, a boundary every 12 blocks, batch 8 in 4
+    """Phase 16: phase 8's GPT-1.3B (12 layers, bf16 compute, fp32 params
+    and Adam, flash, no remat, a boundary after 6 blocks, batch 8 in 4
     microbatches, 1F1B) under the two-level plan: two stages of two
     virtual devices each (the card named 4 times), each planned by the
     ILP and run by the SPMD partitioner, values moved between the stage
@@ -3408,7 +3460,7 @@ def phase_pipeshard_spmd(phase8):
     ``phase8``: phase 8's step, peak and pools, for the comparison line.
     Then phase 16b (``phase_two_level_tiled``).  Returns the flash
     launches of phase 16's run and of phase 16b's."""
-    cfg = pipeshard_config(pipeline_boundary_every=12)
+    cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY)
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in lm_batch(cfg, 8).items()}
     ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
@@ -3453,14 +3505,6 @@ def wrapped(cls, name, make):
         yield
     finally:
         setattr(cls, name, orig)
-
-
-def wide_stages_over_cards():
-    """The refusal of stage meshes of several devices over distinct cards
-    (ROADMAP C.4) lifted, for C.4's bisection and ``c4_values.py`` only."""
-    from alpa_tpu_torch.pipeline_parallel import pipeshard_executable
-    return wrapped(pipeshard_executable, "_refuse_wide_stages_over_cards",
-                   lambda orig: lambda mesh_device_lists: None)
 
 
 def reshard_line(label, ex):
@@ -3887,50 +3931,49 @@ def c4_bisection(layouts):
     ref_losses, ref_params, _ = narrow_run(method(["cuda:0"] * 4), base,
                                            batch)
     card = card_line()
-    with wide_stages_over_cards():
-        for devices in layouts:
-            for mode in modes:
-                for checking in (False, True):
-                    violations = []
-                    with knobs(_pipeline_dispatch_mode=mode), \
-                            contextlib.ExitStack() as stack:
-                        if checking:
-                            stack.enter_context(wrapped(
-                                collectives, "run_collective",
-                                checked_collectives(violations)))
-                            stack.enter_context(wrapped(
-                                cmr.ReshardingTask, "__call__",
-                                checked_tiles(violations)))
-                        try:
-                            losses, params, ex = narrow_run(
-                                method(devices), base, batch)
-                        except Exception as e:  # reported, not swallowed
-                            failures.append(f"{devices} {mode}: {e!r}")
-                            print(f"C.4 bisection {devices} {mode}: raised "
-                                  f"{e!r}")
-                            continue
-                    rel = max_rel_diff(params, ref_params)
-                    worst = max(rel, key=rel.get)
-                    loss_rel = max(abs(a - b) / abs(b)
-                                   for a, b in zip(losses, ref_losses))
-                    bad = loss_rel > 1e-5 or rel[worst] > 1e-5 or violations
-                    print(f"C.4 bisection [{card} x{len(set(devices))}] "
-                          f"devices {devices} mode {mode} "
-                          f"{'checked' if checking else 'unchecked'}: losses "
-                          f"{loss_rel:.3e} relative (tol 1e-5), parameters "
-                          f"{rel[worst]:.3e} at {worst} (tol 1e-5), collective "
-                          f"and tile misses {len(violations)} "
-                          f"{violations[:4]}; executed between cards "
-                          f"{ex.executed_resharding_bytes} bytes, "
-                          f"collectives {sorted((k, r['backend']) for k, r in ex.get_collective_counts().items())}; "
-                          f"host peak RSS {host_rss_gib():.1f} GiB")
-                    if bad:
-                        failures.append(f"{devices} {mode} "
-                                        f"{'checked' if checking else ''}: "
-                                        f"loss {loss_rel:.3e}, {worst} "
-                                        f"{rel[worst]:.3e}, {violations[:2]}")
-                    del ex
-                    gc.collect()
+    for devices in layouts:
+        for mode in modes:
+            for checking in (False, True):
+                violations = []
+                with knobs(_pipeline_dispatch_mode=mode), \
+                        contextlib.ExitStack() as stack:
+                    if checking:
+                        stack.enter_context(wrapped(
+                            collectives, "run_collective",
+                            checked_collectives(violations)))
+                        stack.enter_context(wrapped(
+                            cmr.ReshardingTask, "__call__",
+                            checked_tiles(violations)))
+                    try:
+                        losses, params, ex = narrow_run(
+                            method(devices), base, batch)
+                    except Exception as e:  # reported, not swallowed
+                        failures.append(f"{devices} {mode}: {e!r}")
+                        print(f"C.4 bisection {devices} {mode}: raised "
+                              f"{e!r}")
+                        continue
+                rel = max_rel_diff(params, ref_params)
+                worst = max(rel, key=rel.get)
+                loss_rel = max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, ref_losses))
+                bad = loss_rel > 1e-5 or rel[worst] > 1e-5 or violations
+                print(f"C.4 bisection [{card} x{len(set(devices))}] "
+                      f"devices {devices} mode {mode} "
+                      f"{'checked' if checking else 'unchecked'}: losses "
+                      f"{loss_rel:.3e} relative (tol 1e-5), parameters "
+                      f"{rel[worst]:.3e} at {worst} (tol 1e-5), collective "
+                      f"and tile misses {len(violations)} "
+                      f"{violations[:4]}; executed between cards "
+                      f"{ex.executed_resharding_bytes} bytes, "
+                      f"collectives {sorted((k, r['backend']) for k, r in ex.get_collective_counts().items())}; "
+                      f"host peak RSS {host_rss_gib():.1f} GiB")
+                if bad:
+                    failures.append(f"{devices} {mode} "
+                                    f"{'checked' if checking else ''}: "
+                                    f"loss {loss_rel:.3e}, {worst} "
+                                    f"{rel[worst]:.3e}, {violations[:2]}")
+                del ex
+                gc.collect()
     torch.cuda.empty_cache()
     return failures
 
@@ -4000,11 +4043,9 @@ def four_cards():
     del ref_params, ref_grads, ref_mu
     gc.collect()
     torch.cuda.empty_cache()
-    if not failures:
-        # the bisection found no fault: phase 16 over the four cards (two
-        # stages of two cards each), direct and tiled, with the refusal
-        # of ROADMAP C.4 lifted
-        failures += four_card_two_level(cards)
+    # phase 16 over the four cards (two stages of two cards each), direct
+    # and tiled (ROADMAP C.4, repaired)
+    failures += four_card_two_level(cards)
     check(not failures, "; ".join(failures))
 
 
@@ -4013,7 +4054,7 @@ def four_card_two_level(cards):
     planned ("tiled"), each held to phase 8's step on one card by phase
     16's bounds; the bytes moved between cards per step of each.  Returns
     the failures."""
-    cfg = pipeshard_config(pipeline_boundary_every=12)
+    cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY)
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in lm_batch(cfg, 8).items()}
     ref = two_level_reference(cfg, batch, ["cuda:0"] * 2)
@@ -4021,8 +4062,7 @@ def four_card_two_level(cards):
     for label, execution in (("four cards two-level", "device_put"),
                              ("four cards two-level tiled", "planned")):
         try:
-            with wide_stages_over_cards(), \
-                    knobs(resharding_execution=execution):
+            with knobs(resharding_execution=execution):
                 _, m = two_level_run(label, cfg, two_level_method(cards),
                                      batch, ref, cards, timed_steps=2)
         except SmokeFailure as e:
@@ -4564,12 +4604,637 @@ def two_cards():
     check(torch.cuda.device_count() >= 2,
           f"--two-cards needs two cards, found {torch.cuda.device_count()}")
     phase_pipeshard_fidelity()
-    cfg = pipeshard_config(pipeline_boundary_every=12)
+    cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY)
     batch = lm_batch(cfg, 8)
     ref_loss = shard_first_loss(cfg, batch)
     run = timed_pipeshard("pipeshard two cards", cfg, pipeshard_method(4),
                           batch, ref_loss, 1e-2, {}, keep=True)
     phase_dispatch(cfg, batch, run, label="pipeshard two cards dispatch")
+
+
+# phase 19: the rest of serving.  19a-b on OPT-1.3B with OPT-125M as the
+# draft; 19c the disaggregated handoff over phase 4b's request mix; 19d the
+# router over three replicas; 19e a params directory round trip
+SPEC_PROMPTS = 4
+SPEC_NEW_TOKENS = 64
+SPEC_DRAFT = 4
+BEAM_NEW_TOKENS = 32
+DISAGG_NEW_TOKENS = 32
+ROUTER_REQUESTS = 32
+ROUTER_NEW_TOKENS = 16
+# the self-draft's least acceptance: the verify leg's logits (k + 1 rows at
+# once) and the draft's (one row) are two bf16 paths through the same
+# weights, which may order a near-tie differently
+SELF_DRAFT_MIN_ACCEPT = 0.75
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def same_or_near_tie(model, prompt, got, want, label):
+    """Check ``got`` equals ``want`` or parts from it at a near-tie
+    (``NEAR_TIE``), phase 4b's rule for two bf16 paths; the parting or
+    None."""
+    # the near-tie forward is the check's, not the path's: its launches
+    # are taken back out of the counts
+    saved = launch_counts()
+    tie = near_tie_divergence(model, prompt, list(got), list(want))
+    (fa.FLASH_FWD_LAUNCHES, fa.FLASH_BWD_DQ_LAUNCHES,
+     fa.FLASH_BWD_DKV_LAUNCHES) = saved
+    check(tie is None or tie[1] <= NEAR_TIE, f"{label}: tokens part beyond "
+          f"a near-tie at (position, logit gap) {tie}")
+    return tie
+
+
+def count_prefills(*gens):
+    return sum(g.prefill_calls * g.config.num_layers
+               for g in {id(g): g for g in gens}.values())
+
+
+def serving_models(device, cfg=None, draft_cfg=None):
+    """OPT-1.3B (seed 0) and OPT-125M (seed 1), bf16, flash attention."""
+    cfg = cfg or config_from_opt_spec("1.3b", dtype=torch.bfloat16,
+                                      attention_impl="flash")
+    draft_cfg = draft_cfg or config_from_opt_spec(
+        "125m", dtype=torch.bfloat16, attention_impl="flash")
+    model = GPTModel(cfg, device=device)
+    init_random_(model, SEED)
+    draft = GPTModel(draft_cfg, device=device)
+    init_random_(draft, 1)
+    return cfg, model, draft_cfg, draft
+
+
+def phase_speculative(device, cfg, model, draft_cfg, draft_model):
+    """19a-b: greedy speculation with the draft and with the target as
+    its own draft against plain greedy ``generate``, a sampled run, beam
+    search with 1 and 4 beams.  Returns the launches of each path."""
+    label = "serving rest (a)"
+    card = card_line()
+    gen = Generator(model, cfg, device=device)
+    dgen = Generator(draft_model, draft_cfg, device=device)
+    rng = np.random.default_rng(SEED + 19)
+    lengths = rng.integers(32, 481, SPEC_PROMPTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    greedy = GenerationConfig(max_new_tokens=SPEC_NEW_TOKENS)
+    # warm-up: each path once (cuBLAS handles, the allocator)
+    gen.generate(prompts[0][None], GenerationConfig(max_new_tokens=4))
+    gen.generate_speculative(dgen, prompts[0], GenerationConfig(
+        max_new_tokens=8), num_draft=SPEC_DRAFT)
+    plain, plain_s = [], 0.0
+    for p in prompts:
+        sync(device)
+        tic = time.perf_counter()
+        plain.append(gen.generate(p[None], greedy)[0][len(p):])
+        sync(device)
+        plain_s += time.perf_counter() - tic
+    reset_launch_counts()
+    calls0 = {k: (g.prefill_calls, g.decode_calls, g.verify_calls)
+              for k, g in (("target", gen), ("draft", dgen))}
+    rows = {}
+    for name, drafter in (("opt-125m draft", dgen), ("self draft", gen)):
+        stats = {"rounds": 0, "proposed": 0, "accepted": 0}
+        forwards0 = gen.prefill_calls + gen.decode_calls + gen.verify_calls
+        if drafter is gen:
+            forwards0 = gen.prefill_calls + gen.verify_calls
+        secs, ties = 0.0, []
+        for p, want in zip(prompts, plain):
+            sync(device)
+            tic = time.perf_counter()
+            out, st = gen.generate_speculative(drafter, p, greedy,
+                                               num_draft=SPEC_DRAFT)
+            sync(device)
+            secs += time.perf_counter() - tic
+            for k in stats:
+                stats[k] += st[k]
+            tie = same_or_near_tie(model, p, out[len(p):], want,
+                                   f"{label} {name}")
+            if tie is not None:
+                ties.append(tie)
+        # target forwards: prefills, verify legs and plain decodes (a
+        # self-draft's decodes are the draft's, not counted)
+        forwards = gen.prefill_calls + gen.verify_calls - forwards0
+        if drafter is not gen:
+            forwards += gen.decode_calls
+        tokens = SPEC_PROMPTS * SPEC_NEW_TOKENS
+        rows[name] = (stats, forwards / tokens, secs / tokens * 1e3, ties)
+        print(f"{label} {name}: {SPEC_PROMPTS} prompts of {sorted(lengths)} "
+              f"tokens, {SPEC_NEW_TOKENS} greedy new tokens, num_draft "
+              f"{SPEC_DRAFT}: {stats}, acceptance "
+              f"{stats['accepted'] / max(1, stats['proposed']):.4f}, target "
+              f"forwards per token {forwards / tokens:.4f}, "
+              f"{secs / tokens * 1e3:.3f} ms per token [{card}]; tokens equal "
+              f"plain greedy for {SPEC_PROMPTS - len(ties)} of "
+              f"{SPEC_PROMPTS}, parted at (position, logit gap) {ties}")
+    self_stats = rows["self draft"][0]
+    accept = self_stats["accepted"] / max(1, self_stats["proposed"])
+    check(accept >= SELF_DRAFT_MIN_ACCEPT, f"{label}: the target as its own "
+          f"draft accepted {accept:.4f} of its proposals")
+    print(f"{label} plain greedy decode: {plain_s / (SPEC_PROMPTS * SPEC_NEW_TOKENS) * 1e3:.3f} "
+          f"ms per token (the same prompts, B=1) [{card}]")
+    sampled = GenerationConfig(max_new_tokens=SPEC_NEW_TOKENS,
+                               do_sample=True, temperature=0.8, top_k=50)
+    out, st = gen.generate_speculative(dgen, prompts[0], sampled,
+                                       num_draft=SPEC_DRAFT, seed=SEED)
+    again, _ = gen.generate_speculative(dgen, prompts[0], sampled,
+                                        num_draft=SPEC_DRAFT, seed=SEED)
+    new = out[len(prompts[0]):]
+    check(len(new) == SPEC_NEW_TOKENS and (0 <= new).all() and
+          (new < cfg.vocab_size).all() and np.array_equal(out, again),
+          f"{label}: the sampled run gave {len(new)} tokens or differed "
+          "under one seed")
+    print(f"{label} sampled (temperature 0.8, top-k 50, seed {SEED}): "
+          f"{st}, acceptance {st['accepted'] / max(1, st['proposed']):.4f}, "
+          f"reproducible under its seed")
+    launches_spec = launch_counts()
+    target_prefills = gen.prefill_calls - calls0["target"][0]
+    draft_prefills = dgen.prefill_calls - calls0["draft"][0]
+    check(launches_spec == (cfg.num_layers * target_prefills +
+                            draft_cfg.num_layers * draft_prefills, 0, 0),
+          f"{label}: flash launches {launches_spec} for {target_prefills} "
+          f"target and {draft_prefills} draft prefill calls")
+    # 19b: beam search
+    label = "serving rest (b)"
+    p = prompts[0]
+    want = gen.generate(p[None], GenerationConfig(
+        max_new_tokens=BEAM_NEW_TOKENS))[0]
+    gen.generate_beam(p, num_beams=4, max_new_tokens=4)     # warm-up
+    reset_launch_counts()
+    prefills0 = gen.prefill_calls
+    times = {}
+    for beams in (1, 4):
+        sync(device)
+        tic = time.perf_counter()
+        out = gen.generate_beam(p, num_beams=beams,
+                                max_new_tokens=BEAM_NEW_TOKENS)
+        sync(device)
+        times[beams] = time.perf_counter() - tic
+        check(out.shape == (1, len(p) + BEAM_NEW_TOKENS) and
+              np.array_equal(out[0, :len(p)], p), f"{label}: beam search "
+              f"with {beams} beams returned {out.shape}")
+        if beams == 1:
+            tie = same_or_near_tie(model, p, out[0, len(p):],
+                                   want[len(p):], f"{label} beams=1")
+    launches_beam = launch_counts()
+    prefills = gen.prefill_calls - prefills0
+    check(launches_beam == (cfg.num_layers * prefills, 0, 0) and
+          prefills == 2, f"{label}: flash launches {launches_beam} for "
+          f"{prefills} prefill calls (one per search)")
+    print(f"{label}: a {len(p)}-token prompt, {BEAM_NEW_TOKENS} new tokens: "
+          f"1 beam {times[1]:.3f} s (== greedy: {tie is None}, parted at "
+          f"{tie}), 4 beams {times[4]:.3f} s; one prefill per search, "
+          f"flash launches {launches_beam} [{card}]")
+    return launches_spec, launches_beam
+
+
+class CountingHandle:
+    """A replica handle that counts the requests placed on it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.placed = 0
+
+    def completions(self, request):
+        self.placed += 1
+        return self.inner.completions(request)
+
+    def completions_stream(self, request):
+        self.placed += 1
+        return self.inner.completions_stream(request)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def phase_disagg(device, cfg, model):
+    """19c: a prefill and a decode controller in this process, behind a
+    router in ``forced`` disaggregation, against the monolithic paged
+    engine on phase 4b's request mix.  Returns the launches."""
+    from alpa_tpu_torch.serve import Controller, LocalReplicaHandle, Router
+    from alpa_tpu_torch.serve import disagg
+    from alpa_tpu_torch.pipeline_parallel import reshard_codec
+    label = "serving rest (c)"
+    card = card_line()
+    rng = np.random.default_rng(SEED + 4)
+    system = rng.integers(0, cfg.vocab_size, ENGINE_PREFIX)
+    suffix_lens = rng.integers(32, 481, ENGINE_REQUESTS)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+               for n in suffix_lens]
+    saved = (global_config.kv_paged, global_config.kv_prefix_reuse,
+             global_config.kv_block_size)
+    global_config.kv_paged = global_config.kv_prefix_reuse = True
+    global_config.kv_block_size = 16
+    gcfg = GenerationConfig(max_new_tokens=DISAGG_NEW_TOKENS)
+    mono_gen = Generator(model, cfg, prefill_chunk=ENGINE_CHUNK,
+                         device=device)
+    pool = KVBlockPool.for_generator(mono_gen, block_size=16)
+    mono = ContinuousBatchingEngine(mono_gen, max_batch=ENGINE_ROWS,
+                                    prompt_bucket=cfg.seq_len, kv_pool=pool)
+    try:
+        pool.warm_prefix(mono_gen, system)
+        with mono._cv:
+            streams = [mono.submit_stream(p, gcfg) for p in prompts]
+        want = [list(s) for s in streams]
+    finally:
+        mono.shutdown()
+    del mono, pool
+    gc.collect()
+    cp, cd = Controller(device=device), Controller(device=device)
+    pgen = Generator(model, cfg, prefill_chunk=ENGINE_CHUNK, device=device)
+    dgen = Generator(model, cfg, prefill_chunk=ENGINE_CHUNK, device=device)
+    stage = {"prefill": [], "ingest": [], "bytes": []}
+    try:
+        cp.register_model("opt", pgen, prefix_ids=system)
+        cd.register_model("opt", dgen, prefix_ids=system)
+        router = Router(disagg_mode="forced")
+        router.add_replica("p0", LocalReplicaHandle(cp), phase="prefill")
+        router.add_replica("d0", LocalReplicaHandle(cd), phase="decode")
+        body = {"model": "opt", "max_new_tokens": DISAGG_NEW_TOKENS}
+        # warm-up: builds both engines; the decode engine captures here
+        list(router.submit_stream(dict(body, prompt_ids=prompts[0][:300]
+                                       .tolist())))
+        engine = cd._models["opt"][0].engine
+
+        def timing(key):
+            def make(orig):
+                def call(self, *args, **kwargs):
+                    tic = time.perf_counter()
+                    out = orig(self, *args, **kwargs)
+                    stage[key].append(time.perf_counter() - tic)
+                    if key == "prefill":
+                        stage["bytes"].append(out[1]["payload_nbytes"])
+                    return out
+                return call
+            return make
+        reset_launch_counts()
+        prefills0, dprefills0 = pgen.prefill_calls, dgen.prefill_calls
+        results = [None] * len(prompts)
+        errors = []
+
+        def one(i):
+            try:
+                results[i] = list(router.submit_stream(
+                    dict(body, prompt_ids=prompts[i].tolist())))
+            except Exception as e:  # pylint: disable=broad-except
+                errors.append(e)
+        tic = time.perf_counter()
+        with wrapped(Router, "_disagg_prefill", timing("prefill")), \
+                wrapped(Router, "_disagg_ingest", timing("ingest")):
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        wall = time.perf_counter() - tic
+        launches = launch_counts()
+        check(not errors and all(r is not None for r in results),
+              f"{label}: a disaggregated stream failed: {errors[:1]}")
+        same = sum(r == w for r, w in zip(results, want))
+        print(f"{label}: {len(prompts)} streams ({ENGINE_PREFIX}-token warmed "
+              f"prefix + {sorted(suffix_lens)}), {DISAGG_NEW_TOKENS} greedy "
+              f"new tokens: disaggregated == monolithic paged engine for "
+              f"{same} of {len(prompts)}; {router.disagg_handoffs} handoffs, "
+              f"decode engine captures {engine.decode_captures}, step "
+              f"failures {engine.step_failures}, prefill-side prefix hits "
+              f"{cp._models['opt'][0]._prefill_engine.pool.stats()['prefix_hits']}")
+        check(same == len(prompts), f"{label}: disaggregated streams differ "
+              "from the monolithic engine's")
+        check(engine.decode_captures == (1 if engine._capture else 0) and
+              engine.step_failures == 0, f"{label}: the decode engine "
+              f"captured {engine.decode_captures} times")
+        prefills = pgen.prefill_calls - prefills0
+        check(launches == (cfg.num_layers * prefills, 0, 0) and
+              dgen.prefill_calls == dprefills0, f"{label}: flash launches "
+              f"{launches} for {prefills} prefill-side prefill calls, "
+              f"{dgen.prefill_calls - dprefills0} on the decode side")
+        nbytes = np.asarray(stage["bytes"], np.float64)
+        print(f"{label} handoff [{card}]: prefill + artifact (router-side "
+              f"call) mean {np.mean(stage['prefill']):.4f} s max "
+              f"{max(stage['prefill']):.4f} s; ingest (check, land, join) "
+              f"mean {np.mean(stage['ingest']):.4f} s max "
+              f"{max(stage['ingest']):.4f} s; artifact payload mean "
+              f"{nbytes.mean() / 2**20:.2f} MiB, total "
+              f"{nbytes.sum() / 2**20:.2f} MiB; {len(prompts)} streams in "
+              f"{wall:.3f} s")
+        # a corrupt wire copy: refused, re-fetched, decoded right
+        st = router._replicas["d0"]
+        real = st.handle
+        flips = []
+
+        class Corrupting:
+            def __getattr__(self, name):
+                if name != "ingest":
+                    return getattr(real, name)
+
+                def ingest(wire):
+                    if not flips:
+                        flips.append(wire["request_id"])
+                        wire = dict(wire, block_hashes=["f" * 64] +
+                                    wire["block_hashes"][1:])
+                    return real.ingest(wire)
+                return ingest
+        st.handle = Corrupting()
+        reingests0 = router.disagg_reingests
+        again = list(router.submit_stream(dict(
+            body, prompt_ids=prompts[1].tolist())))
+        st.handle = real
+        # the prompt's own blocks now hit too: its suffix prefill starts
+        # later than the monolithic engine's, so phase 4b's near-tie rule
+        check(flips and router.disagg_reingests == reingests0 + 1,
+              f"{label}: the corrupt artifact was not refused and "
+              "re-fetched")
+        same_or_near_tie(model, prompts[1], again, want[1],
+                         f"{label} re-fetched")
+        print(f"{label} corrupt artifact: refused (ArtifactCorruptError), "
+              f"re-fetched and decoded; reingests "
+              f"{router.disagg_reingests - reingests0}")
+        # the int8 handoff of one prompt against the verbatim one, both
+        # prefilled on the same path (fresh pools, a miss)
+        arts = {}
+        for codec in ("off", "int8"):
+            small = KVBlockPool(cfg, num_blocks=64, block_size=16,
+                                device=device)
+            pe = disagg.PrefillEngine(pgen, kv_pool=small, codec=codec,
+                                      model="opt")
+            try:
+                arts[codec] = disagg.KVHandoffArtifact.from_wire(
+                    pe.prefill(prompts[2], gcfg).to_wire())
+            finally:
+                pe.shutdown()
+        raw, art8 = arts["off"], arts["int8"]
+        worst = 0.0
+        for i, lay in enumerate(raw.layers):
+            tail = tuple(lay["k"].shape[2:])
+            for got, ref in zip(art8.dense_rows(i, tail), (lay["k"], lay["v"])):
+                ref = ref.reshape((-1,) + tail).float()
+                worst = max(worst, float((got.float() - ref).abs().max()) /
+                            (float(ref.abs().max()) or 1.0))
+        bound8 = 4 * reshard_codec.ERROR_BOUND["int8"]
+        print(f"{label} int8 handoff: payload {art8.payload_nbytes} bytes "
+              f"against {raw.payload_nbytes} verbatim "
+              f"({raw.payload_nbytes / art8.payload_nbytes:.3f}x fewer); "
+              f"largest error {worst:.3e} of a layer's largest magnitude "
+              f"(bound {bound8:.3e})")
+        check(worst <= bound8, f"{label}: int8 handoff error {worst}")
+    finally:
+        cp.shutdown()
+        cd.shutdown()
+        (global_config.kv_paged, global_config.kv_prefix_reuse,
+         global_config.kv_block_size) = saved
+    return launches
+
+
+def phase_router(device, cfg, model):
+    """19d: ``RouterServer`` over two local replicas and one
+    ``HTTPReplicaHandle`` to a controller on localhost: concurrent batched
+    and streamed requests against one replica's tokens, a rolling reload
+    under traffic, a replica's health dropped and restored.  Returns the
+    launches."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+    from alpa_tpu_torch.checkpoint import CheckpointManager
+    from alpa_tpu_torch.serve import (Controller, HTTPReplicaHandle,
+                                      LocalReplicaHandle, Router,
+                                      RouterServer)
+    from alpa_tpu_torch.serve import router as router_mod
+    label = "serving rest (d)"
+    card = card_line()
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in rng.integers(32, 481, 8)]
+    ref_gen = Generator(model, cfg, device=device)
+    gcfg = GenerationConfig(max_new_tokens=ROUTER_NEW_TOKENS)
+    want = [ref_gen.generate(p[None], gcfg)[0][len(p):].tolist()
+            for p in prompts]
+    gens = [Generator(copy.deepcopy(model), cfg, device=device)
+            for _ in range(3)]
+    locals_ = [Controller(device=device) for _ in range(2)]
+    remote = run_controller(port=0, device=device)
+    root = tempfile.mkdtemp(prefix="alpa_port_router_")
+    server = None
+    try:
+        for c, g in zip(locals_ + [remote.controller], gens):
+            c.register_model("opt", g)
+        handles = {"local0": CountingHandle(LocalReplicaHandle(locals_[0])),
+                   "local1": CountingHandle(LocalReplicaHandle(locals_[1])),
+                   "remote": CountingHandle(HTTPReplicaHandle(
+                       f"http://127.0.0.1:{remote.port}", timeout=600))}
+        router = Router(policy="least_loaded")
+        for name, h in handles.items():
+            router.add_replica(name, h)
+        server = RouterServer(router, port=0)
+        server.start()
+        body = {"model": "opt", "max_new_tokens": ROUTER_NEW_TOKENS}
+        for i in range(3):      # warm-up: each replica's batcher and engine
+            post(server.port, dict(body, prompt_ids=prompts[i].tolist()))
+            read_sse(server.port, dict(body, prompt_ids=prompts[i].tolist()),
+                     [])
+        for h in handles.values():
+            h.placed = 0
+        reset_launch_counts()
+        prefills0 = sum(g.prefill_calls for g in gens)
+        results = [None] * ROUTER_REQUESTS
+        errors = []
+
+        def one(i):
+            p = prompts[i % len(prompts)]
+            try:
+                if i % 2:
+                    tokens, final = read_sse(server.port, dict(
+                        body, prompt_ids=p.tolist()), [])
+                    check(final == {"done": True}, f"stream ended {final}")
+                    results[i] = tokens
+                else:
+                    results[i] = post(server.port, dict(
+                        body, prompt_ids=p.tolist()))[len(p):]
+            except Exception as e:  # pylint: disable=broad-except
+                errors.append(e)
+        tic = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(ROUTER_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - tic
+        launches = launch_counts()
+        check(not errors and all(r is not None for r in results),
+              f"{label}: a routed request failed: {errors[:1]}")
+        ties = []
+        for i, got in enumerate(results):
+            p = prompts[i % len(prompts)]
+            tie = same_or_near_tie(model, p, got, want[i % len(prompts)],
+                                   label)
+            if tie is not None:
+                ties.append(tie)
+        split = {n: h.placed for n, h in handles.items()}
+        prefills = sum(g.prefill_calls for g in gens) - prefills0
+        print(f"{label}: {ROUTER_REQUESTS} concurrent requests (half over "
+              f"SSE) through RouterServer, {ROUTER_NEW_TOKENS} greedy new "
+              f"tokens, in {wall:.3f} s [{card}]; placement {split}; equal "
+              f"to one replica's tokens for {ROUTER_REQUESTS - len(ties)}, "
+              f"parted at (position, logit gap) {ties}; flash launches "
+              f"{launches} for {prefills} prefill calls")
+        check(sum(split.values()) == ROUTER_REQUESTS and
+              sum(1 for v in split.values() if v) >= 2,
+              f"{label}: placement {split}")
+        check(launches == (cfg.num_layers * prefills, 0, 0),
+              f"{label}: flash launches {launches} for {prefills} prefills")
+        # a rolling reload under traffic (the same weights: tokens stay)
+        disk_room(root, 2 * tensor_bytes(dict(model.state_dict())), label)
+        mgr = CheckpointManager(os.path.join(root, "ck"), async_save=False)
+        mgr.save(1, dict(model.state_dict()))
+        stop = threading.Event()
+        served, errors = [], []
+
+        def hammer(stream):
+            i = 0
+            while not stop.is_set():
+                p = prompts[i % len(prompts)]
+                i += 1
+                try:
+                    if stream:
+                        got, final = read_sse(server.port, dict(
+                            body, prompt_ids=p.tolist()), [])
+                        check(final == {"done": True}, f"stream {final}")
+                    else:
+                        got = post(server.port, dict(
+                            body, prompt_ids=p.tolist()))[len(p):]
+                    served.append((p, got, want[(i - 1) % len(prompts)]))
+                except Exception as e:  # pylint: disable=broad-except
+                    errors.append(e)
+                    return
+        threads = [threading.Thread(target=hammer, args=(s,))
+                   for s in (False, True, True)]
+        for t in threads:
+            t.start()
+        tic = time.perf_counter()
+        try:
+            reload_out = json.loads(urllib.request.urlopen(
+                urllib.request.Request(
+                    f"http://127.0.0.1:{server.port}/admin/rolling_reload",
+                    data=json.dumps({"model": "opt", "ckpt_dir": os.path.join(
+                        root, "ck")}).encode(),
+                    headers={"Content-Type": "application/json"}),
+                timeout=600).read())
+            reload_s = time.perf_counter() - tic
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=600)
+        for p, got, w in served:
+            same_or_near_tie(model, p, got, w, f"{label} during the reload")
+        print(f"{label} rolling reload: {[r['replica'] for r in reload_out['reloads']]} "
+              f"in {reload_s:.3f} s under traffic; {len(served)} requests "
+              f"served during it, errors {len(errors)}")
+        check(not errors and len(reload_out["reloads"]) == 3,
+              f"{label}: the rolling reload saw errors {errors[:1]}")
+        # one replica's health dropped and restored
+        locals_[1].set_health("shedding", "drill")
+        probes = [router.probe() for _ in range(
+            router.health_fail_threshold)]
+        placed0 = handles["local1"].placed
+        for p in prompts[:4]:
+            post(server.port, dict(body, prompt_ids=p.tolist()))
+        dropped = handles["local1"].placed - placed0
+        locals_[1].set_health("ok", "drill over")
+        restored = router.probe()
+        print(f"{label} health: probes {probes} -> restored {restored}; "
+              f"requests placed on the dropped replica {dropped}")
+        check(probes[-1]["local1"] is False and dropped == 0 and
+              restored["local1"] is True, f"{label}: health drop and "
+              f"restore: {probes}, {dropped}, {restored}")
+        ok = {n: router_mod._ROUTER_REQS.labels(n, "ok").value
+              for n in handles}
+        print(f"{label} metrics: alpa_router_requests_total ok by replica "
+              f"{ok}")
+    finally:
+        if server is not None:
+            server.shutdown()
+        remote.shutdown()
+        for c in locals_:
+            c.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_weight_loading(device, cfg, model):
+    """19e: the target's weights through ``save_params_dir`` and
+    ``load_params_dir`` (the JAX package's layout, fp32 files) under a
+    temporary directory, served again.  Returns the launches."""
+    import shutil
+    import tempfile
+    from alpa_tpu_torch.model.weight_loading import (load_params_dir,
+                                                     save_params_dir)
+    label = "serving rest (e)"
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="alpa_port_params_")
+    try:
+        n_params = sum(p.numel() for p in model.parameters())
+        disk_room(root, 4 * n_params + (1 << 30), label)
+        tic = time.perf_counter()
+        save_params_dir(model, root)
+        save_s = time.perf_counter() - tic
+        tic = time.perf_counter()
+        loaded_sd = load_params_dir(root, dtype=cfg.dtype, device=device)
+        sync(device)
+        load_s = time.perf_counter() - tic
+        loaded = GPTModel(cfg, device=device)
+        loaded.load_state_dict(loaded_sd)
+        del loaded_sd
+        own = model.state_dict()
+        check(all(torch.equal(t, own[k]) for k, t in
+                  loaded.state_dict().items()), f"{label}: a weight differs "
+              "after the round trip")
+        p = np.random.default_rng(SEED + 21).integers(0, cfg.vocab_size, 200)
+        gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+        want = Generator(model, cfg, device=device).generate(p[None], gcfg)
+        reset_launch_counts()
+        gen = Generator(loaded, cfg, device=device)
+        got = gen.generate(p[None], gcfg)
+        launches = launch_counts()
+        check(np.array_equal(got, want), f"{label}: tokens differ after the "
+              "round trip")
+        check(launches == (cfg.num_layers * gen.prefill_calls, 0, 0),
+              f"{label}: flash launches {launches}")
+        print(f"{label}: {n_params} parameters saved in {save_s:.3f} s and "
+              f"loaded onto {device} in {load_s:.3f} s (fp32 files, "
+              f"{4 * n_params / 2**30:.2f} GiB, page cache warm); weights "
+              f"bit-equal, {NEW_TOKENS} greedy tokens equal [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del loaded
+    return launches
+
+
+def phase_serving_rest(device="cuda", cfg=None, draft_cfg=None):
+    """Phase 19, the rest of serving (19a-e).  Returns the launches of
+    each path by name."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    cfg, model, draft_cfg, draft = serving_models(device, cfg, draft_cfg)
+    with torch.inference_mode():
+        spec, beam = timed("serving rest (a-b)", phase_speculative, device,
+                           cfg, model, draft_cfg, draft)
+    del draft
+    out = {"serving_speculative": spec, "serving_beam": beam}
+    out["serving_disagg"] = timed("serving rest (c)", phase_disagg, device,
+                                  cfg, model)
+    out["serving_router"] = timed("serving rest (d)", phase_router, device,
+                                  cfg, model)
+    out["serving_weight_loading"] = timed("serving rest (e)",
+                                          phase_weight_loading, device, cfg,
+                                          model)
+    del model
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def timed(name, fn, *args):
@@ -4636,6 +5301,7 @@ def main(args) -> int:
         timed("telemetry compile cache", phase_compile_cache)
         zero2 = timed("faults and state (d)", phase_faults_zero2)
         swap = timed("faults and state (e)", phase_serving_swap)
+        rest = timed("serving rest", phase_serving_rest)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4644,7 +5310,8 @@ def main(args) -> int:
     fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
                              + remat[0] + auto[0] + infer + acc[0] + spmd[0]
                              + two_level[0] + tiled[0] + traced[0]
-                             + faults[0] + swap[0])
+                             + faults[0] + swap[0]
+                             + sum(v[0] for v in rest.values()))
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
                                      "training": train_fwd,
@@ -4658,14 +5325,17 @@ def main(args) -> int:
                                      "pipeshard_spmd_tiled": tiled[0],
                                      "pipeshard_traced": traced[0],
                                      "fault_recovery": faults[0],
-                                     "serving_swap": swap[0]}
+                                     "serving_swap": swap[0],
+                                     **{k: v[0] for k, v in rest.items()}}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
-    for entry, e, n, p, r, a, g, m, t, b, tr, fr, sw in zip(
+    for part, (entry, e, n, p, r, a, g, m, t, b, tr, fr, sw) in enumerate(zip(
             bwd_entries, engine[1:], (train_dq, train_dkv), pipe[1:],
             remat[1:], auto[1:], acc[1:], spmd[1:], two_level[1:],
-            tiled[1:], traced[1:], faults[1:], swap[1:]):
-        entry["launches"] = e + n + p + r + a + g + m + t + b + tr + fr + sw
+            tiled[1:], traced[1:], faults[1:], swap[1:])):
+        served = {k: v[1 + part] for k, v in rest.items()}
+        entry["launches"] = (e + n + p + r + a + g + m + t + b + tr + fr + sw
+                             + sum(served.values()))
         entry["launches_by_path"] = {"serving_engine": e,
                                      "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
@@ -4677,7 +5347,7 @@ def main(args) -> int:
                                      "pipeshard_spmd_tiled": b,
                                      "pipeshard_traced": tr,
                                      "fault_recovery": fr,
-                                     "serving_swap": sw}
+                                     "serving_swap": sw, **served}
     print(f"run time: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")
     print(card_line())

@@ -197,3 +197,73 @@ def test_duplicated_card_never_reaches_nccl(monkeypatch):
     assert [float(y[0, 0]) for y in ys] == [2.0, 4.0, 2.0, 4.0]
     # each result is its device's own tensor
     assert len({y.data_ptr() for y in ys}) == 4
+
+
+class _CpuNccl:
+    """``torch.cuda.nccl``'s all-gather and reduce-scatter (sum) on CPU
+    tensors: the results NCCL writes, into the outputs it is given."""
+
+    @staticmethod
+    def all_gather(ins, outs):
+        full = torch.cat(ins, 0)
+        for o in outs:
+            o.copy_(full)
+
+    @staticmethod
+    def reduce_scatter(ins, outs, op=0):
+        total = sum(ins)
+        for o, c in zip(outs, total.chunk(len(outs), 0)):
+            o.copy_(c)
+
+
+@pytest.mark.parametrize("kind,dim", [("all_gather", 0), ("all_gather", 1),
+                                      ("reduce_scatter", 0),
+                                      ("reduce_scatter", 1),
+                                      ("all_to_all", 1)])
+def test_nccl_and_plain_collectives_hand_back_one_layout(monkeypatch, kind,
+                                                         dim):
+    """ROADMAP C.4: NCCL's all-gather and reduce-scatter along a dim other
+    than 0 handed back a moved view (strides (1, 2, 1) for a layer norm's
+    mean of shape (2, 8, 1)) where the plain path hands back a contiguous
+    tensor.  ``native_layer_norm_backward`` reads its saved mean and rstd
+    as contiguous whatever their strides, so the same values in that
+    layout gave other gradients: the two-level step over distinct cards
+    missed its first-moment bound.  Both backends now give one layout, and
+    the gradients from either are equal (the dim-0 cases and the
+    all-to-all, contiguous before the repair too, are the controls)."""
+    import sys
+    monkeypatch.setitem(sys.modules, "torch.cuda.nccl", _CpuNccl)
+    monkeypatch.setattr(torch.cuda, "nccl", _CpuNccl, raising=False)
+    gen = torch.Generator().manual_seed(5)
+    b, s, h = 2, 8, 16
+    x = torch.randn(b, s, h, generator=gen)
+    w, bias = torch.randn(h, generator=gen), torch.randn(h, generator=gen)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [h], w, bias, 1e-5)
+    g = torch.randn(b, s, h, generator=gen)
+
+    def run(backend, value):
+        monkeypatch.setattr(collectives, "backend_of",
+                            lambda devices: backend)
+        if kind == "all_gather":
+            xs = list(value.chunk(2, dim))
+            return collectives.all_gather(xs, ["cpu"] * 2, dim)[0]
+        if kind == "all_to_all":
+            # the batch rows in, halves of the sequence out
+            xs = list(value.chunk(2, 0))
+            return collectives.all_to_all(xs, ["cpu"] * 2, dim, 0)[0]
+        # each device holds half of the sum: the scatter gives the value's
+        # block along dim
+        xs = [value / 2, value / 2]
+        return collectives.reduce_scatter(xs, ["cpu"] * 2, dim)[0]
+
+    for value in (mean, rstd):
+        nccl, plain = run("nccl", value), run("plain", value)
+        assert torch.equal(nccl, plain)
+        assert nccl.stride() == plain.stride() and nccl.is_contiguous()
+    if kind == "all_gather":
+        grads = [torch.ops.aten.native_layer_norm_backward(
+            g, x, [h], run(backend, mean), run(backend, rstd), w, bias,
+            [True, True, True]) for backend in ("nccl", "plain")]
+        for a, b_ in zip(*grads):
+            assert torch.equal(a, b_)
+

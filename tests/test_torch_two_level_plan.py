@@ -185,27 +185,3 @@ def test_plan_resharding_equals_jax(case):
         block = full[tuple(slice(o, o + n) for o, n in local_slices(
             shape, dst_spec, coords, dst_mesh))]
         assert torch.equal(shard, block), p
-
-
-@pytest.mark.parametrize("devices, refused", [
-    (["cuda:0", "cuda:1", "cuda:2", "cuda:3"], True),
-    (["cuda:0", "cuda:0", "cuda:1", "cuda:1"], True),
-    (["cuda:0"] * 4, False),
-    (["cuda:0", "cuda:0", "cpu", "cpu"], False),
-    (["cuda:0", "cuda:1"], False),
-])
-def test_wide_stages_over_distinct_cards_are_refused(devices, refused):
-    """Stage meshes of several devices over distinct cards raise, citing
-    ROADMAP C.4 (their step's tied-weight gradient is wrong on four
-    H100s); one card named several times, the host, or one device per
-    stage over distinct cards run."""
-    from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
-        _refuse_wide_stages_over_cards
-    half = len(devices) // 2
-    meshes = [[torch.device(d) for d in devices[:half]],
-              [torch.device(d) for d in devices[half:]]]
-    if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP C.4"):
-            _refuse_wide_stages_over_cards(meshes)
-    else:
-        _refuse_wide_stages_over_cards(meshes)

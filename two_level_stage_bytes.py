@@ -20,12 +20,11 @@ the tree's modules in this process: ``c5`` reads a backward stage's
 in-place accumulator add as a plain elementwise add (the accumulator
 leads), ``c6`` leaves autograd's saved views of a stage input as the
 backward stage's inputs.  ``--four-cards`` (a machine with four cards,
-the current tree): the stages over ``cuda:0..3`` (C.4's refusal lifted),
+the current tree): the stages over ``cuda:0..3``,
 Adam's first moment after the step held to the one-device-per-stage
 step's, as ``chip_smoke.py --four-cards`` holds it, to attribute C.4's
 fault to a repair's plan change."""
 import argparse
-import contextlib
 import dataclasses
 import os
 import sys
@@ -71,9 +70,7 @@ def main(root: str, reference: bool, off, four_cards: bool,
     step = s.make_train_step(s.two_level_method(devices))
     for d in sorted(set(devices)):
         torch.cuda.reset_peak_memory_stats(d)
-    with s.wide_stages_over_cards() if four_cards else \
-            contextlib.nullcontext():
-        state, loss = step(state, batch)
+    state, loss = step(state, batch)
     s.sync_cards(devices)
     ex = step.get_last_executable()
     if ref is not None:
