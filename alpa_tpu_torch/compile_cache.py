@@ -14,7 +14,18 @@ The compile phases write through it:
 * ``parallel_plan`` -- replayable ``ParallelPlan`` records saved by
   ``api.parallelize`` after each compile;
 * ``reshard_strategy`` -- the strategy ``resolve_strategy`` picked for a
-  cross-mesh edge.
+  cross-mesh edge;
+* ``plan_verdict`` -- the plan verifier's ``PlanVerdict`` of a lowered
+  program (``analysis/plan_verifier.py``), keyed by the program's
+  fingerprint, the analyses' version and the knobs that shape the verdict:
+  a warm restart replays the identical verdict without analysing;
+* ``superopt`` -- the superoptimizer's accepted rewrite layout
+  (``analysis/superopt.py``), keyed by the baseline program's fingerprint,
+  the calibration store's and the search knobs: a warm restart replays the
+  same rewrite with zero search.
+
+The verifier and the superoptimizer record their seconds on a miss
+(``solve_seconds``) and the seconds a hit skipped (``saved_seconds``).
 
 Keying: sha256 over a canonical fingerprint of every input that shapes the
 answer, always including ``torch.__version__`` and ``CACHE_FORMAT_VERSION``.

@@ -18,10 +18,11 @@ their own:
    snapshots: a step writes its donated state in place, so the live
    state is torn; the episode falls back to the last verified step.
 4. **Re-solve** — ``solve(survivors)`` builds a step for the surviving
-   device set.  The plan verdict gate reads ``get_plan_verdict`` where
-   an executable has one; the port has no plan verifier (ROADMAP A.7), so
-   the gate finds nothing and the episode records ``"verdict":
-   "unavailable"``.
+   device set, gated on the plan verdict: the candidate plan is verified
+   before it launches (``get_plan_verdict``) and swapped in only when its
+   findings add none to the old plan's.  A pipeshard episode records
+   ``"verdict": "checked"``; a ``ShardParallel`` executable has no
+   verdict, in either package, and records ``"unavailable"``.
 5. **Resume** — restore the last hash-verified step, reopen the launch
    gate, and replay.  A step whose plan is reused is restored into the
    live state in place (CUDA graphs replay on the same addresses); a new
@@ -324,8 +325,8 @@ class ElasticSupervisor:
     @staticmethod
     def _findings_of(ex) -> frozenset:
         """The plan verdict's findings as comparable (analysis, code)
-        pairs; empty for executables without a verifier (every port
-        executable until ROADMAP A.7) or with verification off."""
+        pairs; empty for executables without a verifier (shard-parallel
+        paths) or with verification off."""
         get = getattr(ex, "get_plan_verdict", None)
         if get is None:
             return frozenset()

@@ -43,7 +43,11 @@ state machine:
    operation); other errors only where the caller declares the operation
    idempotent (a transfer is; a stage run that donates its inputs is
    not).  The jitter draws from ``random`` as JAX's does, so one seed
-   gives one backoff schedule in both packages.
+   gives one backoff schedule in both packages.  The plan model checker
+   installs its static retry classification of every site
+   (``install_retry_classification``, from each verified plan, cache hits
+   included); under ``verify_plans="error"`` a real failure at a site it
+   classed unsafe is not retried, whatever the caller declared.
 
 3. **Recovery state machine** (``MeshHealth`` / ``RecoveryManager``):
    HEALTHY -> SUSPECT -> RECOVERING -> DEGRADED with bounded re-probes,
@@ -79,6 +83,7 @@ __all__ = [
     "FaultSpec", "FaultPlan", "InjectedFault", "fire", "active_plan",
     "KNOWN_SITES", "ELASTIC_SITES",
     "set_escalation_manager", "get_escalation_manager",
+    "install_retry_classification", "get_retry_classification",
     "RetryPolicy", "RetryExhaustedError", "call_with_retry",
     "set_retry_policy", "get_retry_policy", "retry_stats",
     "MeshHealth", "RecoveryManager", "ServiceDegradedError",
@@ -360,6 +365,43 @@ retry_stats: Dict[str, int] = {}
 _ESCALATION_MANAGER: Optional[Any] = None
 
 
+#: the plan model checker's static retry classification of the most
+#: recently verified plan: site -> {"classification": "safe" | "unsafe" |
+#: "unreachable", "reasons": [...], "hooks": n}
+_RETRY_CLASSIFICATION: Dict[str, Dict[str, Any]] = {}
+
+
+def install_retry_classification(
+        sites: Optional[Dict[str, Dict[str, Any]]]) -> None:
+    """Install (or, with ``None`` or ``{}``, clear) the model checker's
+    per-site retry classification; ``plan_verifier.verify_program`` calls
+    it for every verified plan, cache hits included, so a warm restart
+    refuses what the cold compile refused."""
+    with _POLICY_LOCK:
+        _RETRY_CLASSIFICATION.clear()
+        if sites:
+            _RETRY_CLASSIFICATION.update(
+                {s: dict(e) for s, e in sites.items()})
+
+
+def get_retry_classification() -> Dict[str, Dict[str, Any]]:
+    """The installed static retry classification (a copy)."""
+    with _POLICY_LOCK:
+        return {s: dict(e) for s, e in _RETRY_CLASSIFICATION.items()}
+
+
+def _refuse_statically_unsafe(site: str) -> bool:
+    """Whether the model checker classed retrying ``site`` unsafe for the
+    verified plan and ``verify_plans`` is "error": there the static proof
+    overrides the caller's idempotent flag."""
+    with _POLICY_LOCK:
+        ent = _RETRY_CLASSIFICATION.get(site)
+    if not ent or ent.get("classification") != "unsafe":
+        return False
+    from alpa_tpu_torch.global_env import global_config
+    return global_config.verify_plans == "error"
+
+
 def set_escalation_manager(manager: Optional[Any]) -> Optional[Any]:
     """Install (``None`` clears) the RecoveryManager that absorbs retry
     exhaustion at ``ELASTIC_SITES``.  Returns the previous target so
@@ -432,7 +474,8 @@ def call_with_retry(fn: Callable[[], Any],
 
     * ``InjectedFault`` is always retryable (the injection preempted the
       real operation); other ``retry_on`` errors are retried only when
-      ``idempotent`` — re-running a donated-buffer execution would read
+      ``idempotent`` and, under ``verify_plans="error"``, the site is not
+      classed unsafe by the plan model checker — re-running a donated-buffer execution would read
       freed inputs, so non-idempotent callers get detection + the
       original error, never a blind re-run.
     * Exhaustion re-raises the LAST error (callers' existing error paths
@@ -451,6 +494,17 @@ def call_with_retry(fn: Callable[[], Any],
             break
         except retry_on as e:  # pylint: disable=broad-except
             retryable = idempotent or isinstance(e, InjectedFault)
+            if retryable and not isinstance(e, InjectedFault) and \
+                    _refuse_statically_unsafe(site):
+                # the model checker proved that a real failure in the
+                # middle of this site cannot be retried without applying
+                # state twice (donation, a partial group, a FIFO reorder)
+                logger.warning(
+                    "%s: retry refused — classified unsafe by the plan "
+                    "model checker (%s) under verify_plans=error", site,
+                    ",".join(get_retry_classification()
+                             .get(site, {}).get("reasons", ())))
+                retryable = False
             out_of_attempts = attempts >= pol.max_attempts
             out_of_budget = (
                 pol.deadline is not None and

@@ -82,6 +82,33 @@ Measurement (the telemetry layer, ``telemetry/``):
   calibration store's disk tier.  Under "auto" ``consider_replan`` raises:
   the port's strategy chooser does not read the store yet (ROADMAP A.6).
 
+The plan analyses (``analysis/``):
+
+* ``verify_plans`` (``ALPA_TPU_VERIFY_PLANS``: "error", "warn" or "off";
+  "warn"): the pipeshard executable verifies each plan it lowers (slot
+  typing, deadlock freedom, liveness and leaks, structure); "error" raises
+  ``PlanVerificationError`` on any error finding before the first launch,
+  and ``call_with_retry`` then refuses a retry at a site the model checker
+  classed unsafe.
+* ``verify_plans_model_check`` (``ALPA_TPU_VERIFY_MODEL_CHECK``: "all",
+  "fixture" or "off"; "fixture": plans of at most
+  ``model_check.FIXTURE_MAX_OPS`` instructions) and
+  ``model_check_state_budget`` (``ALPA_TPU_MODEL_CHECK_BUDGET``, 50000).
+* ``verify_plans_numerics`` (``ALPA_TPU_VERIFY_NUMERICS``, "warn") and
+  ``numerics_error_budget`` (``ALPA_TPU_NUMERICS_ERROR_BUDGET``, 0.05 of a
+  block's largest magnitude).
+* ``verify_plans_equiv`` (``ALPA_TPU_VERIFY_EQUIV``, "warn") and
+  ``equiv_term_budget`` (``ALPA_TPU_EQUIV_TERM_BUDGET``, 100000).
+  "error" on numerics or equivalence refuses a launch on those findings
+  even where ``verify_plans`` only warns.
+* ``superopt_mode`` (``ALPA_TPU_SUPEROPT_MODE``: "off", "suggest" or
+  "auto"; "off"): the certified superoptimizer searches rewrites of the
+  instruction list and reports ("suggest") or runs the accepted one
+  ("auto"); ``superopt_beam_width`` (4), ``superopt_step_budget`` (32),
+  ``superopt_verify_budget`` (2) and ``superopt_max_group`` (0: no cap on a
+  batched group of RESHARDs; ``ALPA_TPU_SUPEROPT_BEAM``, ``_STEPS``,
+  ``_VERIFY_BUDGET``, ``_MAX_GROUP``).
+
 Fault tolerance and state (``fault.py``, ``elastic.py``,
 ``serialization.py``):
 
@@ -210,6 +237,30 @@ class GlobalConfig:
             "ALPA_TPU_CALIBRATION_MIN_SAMPLES", "3"))
         self.calibration_dir = os.environ.get("ALPA_TPU_CALIBRATION_DIR",
                                               None)
+        # the plan analyses
+        self.verify_plans = os.environ.get("ALPA_TPU_VERIFY_PLANS", "warn")
+        self.verify_plans_model_check = os.environ.get(
+            "ALPA_TPU_VERIFY_MODEL_CHECK", "fixture")
+        self.model_check_state_budget = int(os.environ.get(
+            "ALPA_TPU_MODEL_CHECK_BUDGET", "50000"))
+        self.verify_plans_numerics = os.environ.get(
+            "ALPA_TPU_VERIFY_NUMERICS", "warn")
+        self.numerics_error_budget = float(os.environ.get(
+            "ALPA_TPU_NUMERICS_ERROR_BUDGET", "0.05"))
+        self.verify_plans_equiv = os.environ.get("ALPA_TPU_VERIFY_EQUIV",
+                                                 "warn")
+        self.equiv_term_budget = int(os.environ.get(
+            "ALPA_TPU_EQUIV_TERM_BUDGET", "100000"))
+        # the certified superoptimizer
+        self.superopt_mode = os.environ.get("ALPA_TPU_SUPEROPT_MODE", "off")
+        self.superopt_beam_width = int(os.environ.get(
+            "ALPA_TPU_SUPEROPT_BEAM", "4"))
+        self.superopt_step_budget = int(os.environ.get(
+            "ALPA_TPU_SUPEROPT_STEPS", "32"))
+        self.superopt_verify_budget = int(os.environ.get(
+            "ALPA_TPU_SUPEROPT_VERIFY_BUDGET", "2"))
+        self.superopt_max_group = int(os.environ.get(
+            "ALPA_TPU_SUPEROPT_MAX_GROUP", "0"))
         # fault tolerance and state
         self.elastic_step_budget = int(os.environ.get(
             "ALPA_TPU_ELASTIC_STEP_BUDGET", "4"))

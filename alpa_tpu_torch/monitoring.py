@@ -196,9 +196,10 @@ def dump_debug_info(executable, dump_dir: str):
     ``dump_debug_info``): the schedule, the instructions, the resharding
     stats and plan, the step's perf report, the calibration report, the
     compile-cache, checkpoint and overlap counters, the metrics registry,
-    the trace (when tracing) and the flight recorder's ring.  The plan
-    verifier's reports (A.7) have no port yet, so those files are not
-    written."""
+    the trace (when tracing) and the flight recorder's ring; for a
+    pipeshard executable also the plan analyses' reports:
+    ``plan_verdict.txt``, ``model_check.txt``, ``numerics.txt``,
+    ``equiv.txt`` and ``superopt.txt``."""
     os.makedirs(dump_dir, exist_ok=True)
 
     def write(name, text):
@@ -212,6 +213,13 @@ def dump_debug_info(executable, dump_dir: str):
         write("schedule.txt", executable.get_schedule_text())
     if hasattr(executable, "get_instruction_text"):
         write("instructions.txt", executable.get_instruction_text())
+    for name, getter in (("plan_verdict.txt", "get_plan_verdict_text"),
+                         ("model_check.txt", "get_model_check_text"),
+                         ("numerics.txt", "get_numerics_text"),
+                         ("equiv.txt", "get_equiv_text"),
+                         ("superopt.txt", "get_superopt_text")):
+        if hasattr(executable, getter):
+            write(name, getattr(executable, getter)())
     if hasattr(executable, "get_resharding_stats"):
         stats = executable.get_resharding_stats()
         write("resharding.txt", "\n".join(

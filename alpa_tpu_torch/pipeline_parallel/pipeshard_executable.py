@@ -81,7 +81,19 @@ before the op or its graph replays; it never causes a recapture.  The
 launch gate: ``quiesce()`` closes it and waits for the launches in flight
 (and the cards) to drain, ``resume()`` opens it again, as
 ``RecoveryManager`` and ``ElasticSupervisor`` drive them.
+
+Plan analyses (``analysis/``), as the JAX driver runs them: before the
+first launch the plan is verified once (``_ensure_verified``: the program
+of the dispatched mode, lowered with ``_plan_context``'s shardings,
+provenance, outputs and equivalence reference), and every later lowering,
+of any mode or capture, carries that verdict (``get_plan_verdict``).
+Under ``superopt_mode`` "suggest" or "auto" the superoptimizer runs first
+(``_run_superopt``); an accepted "auto" rewrite replaces the instruction
+list, and every table built from the old list is dropped
+(``_set_instructions``), so the eager tables, the captures and the span
+names are built from the rewritten list.
 """
+import dataclasses
 import functools
 import logging
 from contextlib import nullcontext
@@ -108,7 +120,7 @@ from alpa_tpu_torch.shard_parallel.sharding_spec import (local_shape,
                                                          local_slices,
                                                          replicated_spec)
 from alpa_tpu_torch.pipeline_parallel.runtime_emitter import (
-    DispatchRaceChecker, PipelineInstruction, PipelineInstType,
+    DispatchRaceChecker, PipelineInstruction, PipelineInstType, PlanContext,
     emit_free_instructions, lower_to_register_file, partition_streams)
 from alpa_tpu_torch.pipeline_parallel.schedules import \
     create_pipeline_schedule
@@ -811,7 +823,7 @@ class PipeshardDriverExecutable:
         self._summed = set(self.acc_pairs.values())
         summed_to_acc = {summed: acc for acc, summed in self.acc_pairs.items()}
         self.has_bwd = bool(bwd_stages)
-        paths = dict(zip(global_invars, in_paths or ()))
+        paths = self.invar_paths = dict(zip(global_invars, in_paths or ()))
         logical_shapes = list(logical_shapes or [None] * self.num_meshes)
         as_dicts = list(as_dicts or [{}] * self.num_meshes)
         if as_option is None:
@@ -846,6 +858,10 @@ class PipeshardDriverExecutable:
             # a backward stage adds into its accumulators in place
             e.donate_idx = tuple(i for i, v in enumerate(e.invars)
                                  if v in self.acc_pairs)
+            # summed output -> its accumulator input (the translation
+            # validation's accumulation map)
+            e.acc_out_map = {ov: summed_to_acc[ov] for ov in e.outvars
+                             if ov in summed_to_acc}
         self.num_fwd_stages = len(fwd_stages)
         # JAX's rule: a donated state input that exactly one apply
         # computation reads is donated to it, so old and new state never
@@ -957,6 +973,16 @@ class PipeshardDriverExecutable:
         self.stage_dp_info = None
         self.executed_resharding_bytes = 0
         self._peak_bytes = -1
+        # the plan analyses: the plan's verdict (verified once, on the
+        # program of the first mode lowered, however often the plan is
+        # lowered and captured, in any mode), the refusal under
+        # verify_plans="error", the superoptimizer's outcome and the list
+        # it rewrote
+        self._verdict = None
+        self.verified_mode = None
+        self._refusal = None
+        self._superopt_outcome = None
+        self.baseline_instructions = self.instructions
 
     # ---- emission ----
     def _stage_exec_for(self, stage_idx: int) -> StageExecutable:
@@ -1291,6 +1317,7 @@ class PipeshardDriverExecutable:
 
     def _launch(self, *flat_args):
         mode = self._dispatch_mode()
+        self._ensure_verified(mode)
         inputs = self._unshare_written_inputs(flat_args)
         self._moved = 0
         self.executed_cross_mesh_bytes = 0.0
@@ -1659,22 +1686,37 @@ class PipeshardDriverExecutable:
         if checker is not None:
             checker.check()
 
+    def _preplaced_keys(self) -> List[Tuple[Any, int, int]]:
+        """The ``(node, instance, mesh)`` keys placed at launch: every
+        batch slice and other input on each mesh that reads it, and the
+        accumulators."""
+        return ([(v, mb, m) for v, meshes in self.input_place.items()
+                 for m in meshes
+                 for mb in (range(self.num_micro_batches)
+                            if self.batch_invars[self._input_index[v]]
+                            else (-1,))] +
+                [(acc, -1, m) for acc, m in self.acc_allocs])
+
     def _program(self, mode, runs, transfers, step):
         """The register-file program of ``mode``: lowered once per mode over
         the eager run and transfer tables, and once per capture over the
-        graphs (whose ops are also put on the CUDA streams)."""
-        preplaced = ([(v, mb, m) for v, meshes in self.input_place.items()
-                      for m in meshes
-                      for mb in (range(self.num_micro_batches)
-                                 if self.batch_invars[self._input_index[v]]
-                                 else (-1,))] +
-                     [(acc, -1, m) for acc, m in self.acc_allocs])
+        graphs (whose ops are also put on the CUDA streams).  The plan's
+        first lowering is verified; later ones, of any mode, carry its
+        verdict."""
+        preplaced = self._preplaced_keys()
         cache = self._register_programs if step is None else step.programs
         if mode not in cache:
+            verify = (self._plan_context() if self._verdict is None and
+                      global_config.verify_plans != "off" else None)
             prog = lower_to_register_file(
                 self.instructions, preplaced, runs.__getitem__,
                 transfers.__getitem__, mode=mode,
-                overlap_window=self.schedule.overlap_window_hint())
+                overlap_window=self.schedule.overlap_window_hint(),
+                verify=verify)
+            if verify is not None:
+                self._verdict, self.verified_mode = prog.verdict, mode
+            else:
+                prog.verdict = self._verdict
             cache[mode] = (prog, None if step is None else
                            self._stream_ops(prog, step, transfers))
         return cache[mode][0]
@@ -2140,6 +2182,256 @@ class PipeshardDriverExecutable:
         return self.launch_on_driver(*args)
 
     # ---- introspection ----
+    # ---- the plan analyses ----
+    def _plan_context(self) -> PlanContext:
+        """What the plan verifier reads of this executable (the JAX
+        driver's ``_make_lowerer``): the placed values' shardings, the
+        optimizer-state keys and each placed value's provenance by its
+        pytree path, the program outputs and the equivalence reference,
+        derived from the list before any rewrite."""
+        from alpa_tpu_torch.shard_parallel.auto_sharding import (
+            is_opt_state_path, is_param_path)
+        n_mb = self.num_micro_batches
+        preplaced: Dict[Tuple[Any, int, int], Any] = {}
+        provenance: Dict[Tuple[Any, int, int], str] = {}
+        opt_state = set()
+        for v, meshes in self.input_place.items():
+            batch = self.batch_invars[self._input_index[v]]
+            path = self.invar_paths.get(v, "")
+            prov = ("opt_state" if is_opt_state_path(path) else
+                    "param" if is_param_path(path) else "activation")
+            for m in meshes:
+                for mb in (range(n_mb) if batch else (-1,)):
+                    preplaced[(v, mb, m)] = self.input_sharding[(v, m)]
+                    if self.invar_paths:
+                        provenance[(v, mb, m)] = prov
+                if self.invar_paths and is_opt_state_path(path):
+                    opt_state.add((v, -1, m))
+        for acc, m in self.acc_allocs:
+            preplaced[(acc, -1, m)] = self.acc_sharding[(acc, m)]
+            provenance[(acc, -1, m)] = "gradient"
+        protected = set()
+        for kind, payload in self.output_specs:
+            if kind == "env":
+                (k, m) = payload
+                protected.add((k[0], k[1], m))
+            elif kind == "concat":
+                v, meshes = payload
+                protected.update((v, mb, m) for mb, m in meshes)
+        reference = None
+        if global_config.verify_plans_equiv != "off":
+            from alpa_tpu_torch.analysis import equivalence as _equiv
+            reference = _equiv.build_reference(self.baseline_instructions,
+                                               n_mb)
+        return PlanContext(
+            preplaced_shardings=preplaced,
+            protected_keys=frozenset(protected),
+            opt_state_keys=frozenset(opt_state),
+            provenance_keys=provenance, reference=reference,
+            plan_fingerprint=self.get_plan_fingerprint(),
+            devices=tuple(d for devs in self.mesh_device_lists
+                          for d in devs))
+
+    def _lower_for_analysis(self, instructions, mode: str,
+                            context: PlanContext):
+        """``instructions`` lowered and verified with no run or transfer
+        behind its ops (the superoptimizer's candidates)."""
+        return lower_to_register_file(
+            list(instructions), self._preplaced_keys(), lambda i: None,
+            lambda i: None, mode=mode,
+            overlap_window=self.schedule.overlap_window_hint(),
+            verify=context)
+
+    def _ensure_verified(self, mode: str):
+        """Before the first launch: the superoptimizer (under
+        ``superopt_mode`` "suggest" or "auto"), then the plan's verdict,
+        on the program ``mode`` replays ("registers" for the interpreter
+        loops).  Under ``verify_plans="error"`` (or "error" on numerics or
+        equivalence) a finding raises ``PlanVerificationError`` here, and
+        again at every later launch."""
+        if self._refusal is not None:
+            raise self._refusal
+        vmode = mode if mode in ("registers", "overlap") else "registers"
+        if self._verdict is not None:
+            return
+        from alpa_tpu_torch.analysis.plan_verifier import \
+            PlanVerificationError
+        try:
+            if global_config.superopt_mode in ("suggest", "auto") and \
+                    self._superopt_outcome is None:
+                self._run_superopt(vmode)
+            if global_config.verify_plans == "off" or \
+                    self._verdict is not None:
+                return
+            runs, transfers = self._eager_tables()
+            self._program(vmode, runs, transfers, None)
+        except PlanVerificationError as e:
+            self._verdict, self.verified_mode = e.verdict, vmode
+            self._refusal = e
+            raise
+
+    def _run_superopt(self, mode: str):
+        """The certified superoptimization decision (the JAX driver's
+        ``_run_superopt``): lower and verify the baseline, search, gate the
+        winner on the verdict diff and, under "auto" with an accepted
+        rewrite, run the rewritten list from now on: every table indexed
+        by instruction (the eager runs and transfers, the captures, the
+        span names, the streams) is built from it."""
+        from alpa_tpu_torch.analysis import superopt as _superopt
+        from alpa_tpu_torch.analysis.plan_verifier import PlanVerdict
+        smode = global_config.superopt_mode
+        old_verify = global_config.verify_plans
+        if old_verify == "off":
+            # the gate needs verified programs
+            global_config.verify_plans = "warn"
+        try:
+            context = self._plan_context()
+            baseline = self._lower_for_analysis(self.instructions, mode,
+                                                context)
+            candidate_ctx = dataclasses.replace(context,
+                                                plan_fingerprint=None)
+
+            def lower(insts):
+                return self._lower_for_analysis(insts, mode, candidate_ctx)
+
+            def verify(prog, _insts):
+                v = prog.verdict
+                return v if v is not None else PlanVerdict()
+
+            try:
+                outcome = _superopt.run_superopt(
+                    list(self.instructions), self.num_meshes, baseline,
+                    lower, verify, mode=smode)
+            except Exception:  # pylint: disable=broad-except
+                logger.exception(
+                    "superopt: engine failed; keeping the baseline plan")
+                outcome = _superopt.SuperoptOutcome(
+                    mode=smode, searched=True, cache_hit=False,
+                    accepted=False,
+                    layout=_superopt.identity_layout(
+                        len(self.instructions)),
+                    baseline_score=_superopt.PlanScore(0.0, ()),
+                    best_score=_superopt.PlanScore(0.0, ()),
+                    baseline_fingerprint=baseline.fingerprint(),
+                    fingerprint=None,
+                    rejected=[("superopt", "engine-error")], log=[])
+        finally:
+            global_config.verify_plans = old_verify
+        self._superopt_outcome = outcome
+        if smode == "auto" and outcome.accepted and \
+                outcome.instructions is not None:
+            self._set_instructions(outcome.instructions)
+            self._verdict = outcome.program.verdict
+        else:
+            self._verdict = baseline.verdict
+        self.verified_mode = mode
+
+    def _set_instructions(self, instructions, as_baseline: bool = False):
+        """Run ``instructions`` from now on, dropping every table built
+        from the old list.  ``as_baseline``: the list replaces the driver's
+        own (the equivalence reference and the superoptimizer's baseline
+        are derived from it; tests and ``chip_smoke.py`` plant a
+        deoptimized list so)."""
+        self.instructions = list(instructions)
+        if as_baseline:
+            self.baseline_instructions = self.instructions
+            self._superopt_outcome = None
+            self._refusal = None
+        self._instruction_streams = partition_streams(
+            self.instructions, self.num_meshes, self._key_alias)
+        self._has_cross_mesh = any(
+            i.opcode == PipelineInstType.RESHARD and i.src_mesh != i.dst_mesh
+            for i in self.instructions)
+        self._register_programs = {}
+        self._register_program = None
+        self._eager = None
+        self._inst_name_table = None
+        self._clocks = {}
+        self._race_checker = None
+        self._captured = None
+        self._verdict = None
+
+    def get_plan_verdict(self, mode: str = "registers"):
+        """The plan verifier's ``PlanVerdict``, lowering and verifying the
+        program of ``mode`` on demand before the first launch.  One verdict
+        per plan: once a mode's program was verified (the first launch
+        verifies the mode it dispatches), that verdict is the plan's, for
+        every mode.  None when ``verify_plans`` is off or lowering
+        failed."""
+        if self._verdict is None:
+            from alpa_tpu_torch.analysis.plan_verifier import \
+                PlanVerificationError
+            try:
+                self._ensure_verified(mode)
+            except PlanVerificationError as e:
+                # under verify_plans="error" the launch is refused, but the
+                # caller asked for a report
+                return e.verdict
+            except Exception:  # pylint: disable=broad-except
+                logger.exception("get_plan_verdict: lowering failed")
+                return None
+        return self._verdict
+
+    def _verdict_or_none(self, what: str):
+        try:
+            return self.get_plan_verdict()
+        except Exception:  # pylint: disable=broad-except
+            logger.exception("%s failed", what)
+            return None
+
+    def get_plan_verdict_text(self) -> str:
+        """``plan_verdict.txt`` of ``monitoring.dump_debug_info``."""
+        verdict = self._verdict_or_none("get_plan_verdict_text")
+        if verdict is None:
+            return ("plan verdict: (not available — verify_plans=off or "
+                    "lowering failed)")
+        return verdict.format_table()
+
+    def get_model_check_text(self) -> str:
+        """``model_check.txt``: the model checker's stats and findings."""
+        verdict = self._verdict_or_none("get_model_check_text")
+        if verdict is None:
+            return ("model check: (not available — verify_plans=off or "
+                    "lowering failed)")
+        mc_stats = verdict.stats.get("model_check")
+        if not mc_stats:
+            return ("model check: (not run — verify_plans_model_check=off "
+                    "or the plan exceeds the fixture-mode size gate)")
+        from alpa_tpu_torch.analysis import model_check as _mc
+        return _mc.format_stats(mc_stats, [f for f in verdict.findings()
+                                           if f.analysis == "model_check"])
+
+    def get_numerics_text(self) -> str:
+        """``numerics.txt``: the per-output bound table and findings."""
+        verdict = self._verdict_or_none("get_numerics_text")
+        if verdict is None:
+            return ("numerics: (not available — verify_plans=off or "
+                    "lowering failed)")
+        num_stats = verdict.stats.get("numerics")
+        if not num_stats:
+            return "numerics: (not run — verify_plans_numerics=off)"
+        from alpa_tpu_torch.analysis import numerics as _num
+        return _num.format_numerics(num_stats, [f for f in verdict.findings()
+                                                if f.analysis == "numerics"])
+
+    def get_equiv_text(self) -> str:
+        """``equiv.txt``: the per-output proofs and findings."""
+        verdict = self._verdict_or_none("get_equiv_text")
+        if verdict is None:
+            return ("equiv: (not available — verify_plans=off or lowering "
+                    "failed)")
+        eq_stats = verdict.stats.get("equiv")
+        if not eq_stats:
+            return "equiv: (not run — verify_plans_equiv=off)"
+        from alpa_tpu_torch.analysis import equivalence as _eq
+        return _eq.format_equiv(eq_stats, [f for f in verdict.findings()
+                                           if f.analysis == "equiv"])
+
+    def get_superopt_text(self) -> str:
+        """``superopt.txt``: the superoptimizer's decision."""
+        from alpa_tpu_torch.analysis import superopt as _superopt
+        return _superopt.format_superopt_report(self._superopt_outcome)
+
     def get_schedule_text(self) -> str:
         return self.schedule.pprint_schedule()
 

@@ -26,8 +26,9 @@ the next quantization, so the error of the transmitted sum stays at the
 one-shot bound).  ``grad_reduce_scatter`` composes quantize,
 partial-reduce and requantize for ZeRO's reduce-scatter (two hops,
 ``ERROR_BOUND["grad_*_rs"]``).  Random draws come from an explicit
-``torch.Generator``.  The numerics certifier that composes these bounds
-over a plan waits for ROADMAP A.7.  ``STATS`` keeps plain counters; the
+``torch.Generator``.  The plan verifier's numerics certification
+(``analysis/numerics.py``) composes these bounds over a plan.  ``STATS``
+keeps plain counters; the
 registry's ``alpa_reshard_quantized_*``, ``alpa_grad_quantized_*`` and
 ``alpa_grad_error_feedback_norm`` families count the same events.
 """

@@ -32,8 +32,21 @@ under ``fault.call_with_retry``: a RUN that donates its inputs is retried
 only for injected faults, which fire before it runs.  With all of it off
 the raw closures run.  The executable may hand ``execute`` a ``timer`` that
 times ops on the device instead of the host (the CUDA event pairs of
-``pipeshard_executable``).  The plan verifier and the superoptimizer are
-ROADMAP A.7.
+``pipeshard_executable``).
+
+Each lowering records, per instruction, what the plan analyses read
+(``analysis/``): a RUN's precision classification
+(``shard_parallel.eqn_classify``), its stage-decomposition facts for the
+translation validation and, under ``grad_quantize``, the gradient codec's
+tag; a RESHARD's strategy, codec and whether it may join a batched group
+(only ``direct_p2p`` edges may).  The program's ``text`` (one line per
+instruction, values named by their fx nodes) gives its ``fingerprint``.
+Where the caller passes ``verify`` (the executable's lowering context),
+``analysis.plan_verifier.verify_program`` runs over the program at the end
+of the lowering and its verdict is ``prog.verdict``.  Registers-mode
+coalescing asks ``analysis.superopt.reshard_group_extent``, the one
+legality oracle it shares with the superoptimizer's fusion family, which
+honours ``superopt_max_group``.
 """
 import dataclasses
 import enum
@@ -43,6 +56,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from alpa_tpu_torch import fault as _fault
+from alpa_tpu_torch.analysis.superopt import reshard_group_extent
 from alpa_tpu_torch.global_env import global_config
 from alpa_tpu_torch.telemetry import flight as _flight
 from alpa_tpu_torch.telemetry import metrics as _tmetrics
@@ -461,6 +475,8 @@ class OpHook:
     fault_site: Optional[str] = None      # fault.py site name
     fault_infos: Tuple[Any, ...] = ()     # one info dict per member
     idempotent: bool = True               # retry semantics (donation)
+    precision: Optional[Dict[str, Any]] = None   # RUN: eqn_classify
+    equiv: Optional[Dict[str, Any]] = None       # RUN: stage facts
 
 
 class SlotHazardChecker:
@@ -607,6 +623,10 @@ class RegisterFileProgram:
     n_launches: int = 0
     n_free_hops: int = 0
     overlap_window: int = 0
+    # one line per instruction: what ``fingerprint`` hashes
+    text: str = ""
+    # the plan verifier's ``PlanVerdict`` when the lowering verified
+    verdict: Any = None
     run_stats: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {"transfer_busy_s": 0.0,
                                  "wait_blocked_s": 0.0})
@@ -618,6 +638,13 @@ class RegisterFileProgram:
     # op list, the timer)
     _hooked: Dict[Any, Tuple[List[Callable], Any]] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+
+    def fingerprint(self) -> str:
+        """A content hash of the program: its mode and every
+        instruction's line (stage, microbatch, slots, edge, strategy)."""
+        import hashlib
+        return hashlib.sha256(
+            f"mode={self.mode}\n{self.text}".encode()).hexdigest()
 
     def execute(self, regs: List[Any], ops: Optional[List[Callable]] = None,
                 timer: Any = None):
@@ -695,39 +722,6 @@ class RegisterFileProgram:
                      else _wrap_trace(w, name, cat, track, trec))
             wrapped.append(w)
         return wrapped, hazard
-
-
-def reshard_group_extent(recs: Sequence[Dict[str, Any]], i: int
-                         ) -> Tuple[List[int], List[int], int, int]:
-    """The longest group of RESHARDs of one mesh edge starting at record
-    ``i``, hopping the FREEs between them (a FREE follows its slots' last
-    use, so it runs after the group); a RESHARD touching a hopped FREE's
-    slot ends the group.  Returns ``(members, hopped FREEs, FREE hops that
-    let a later member join, the index to resume at)``."""
-    edge = recs[i]["edge"]
-    n = len(recs)
-    members: List[int] = []
-    hopped: List[int] = []
-    blocked: set = set()
-    n_free_hops = counted = 0
-    j = i
-    while j < n:
-        q = recs[j]
-        if q["kind"] == "RESHARD" and q["edge"] == edge:
-            if q["ss"] in blocked or q["ds"] in blocked:
-                break
-            if len(hopped) > counted:
-                n_free_hops += len(hopped) - counted
-                counted = len(hopped)
-            members.append(j)
-            j += 1
-        elif q["kind"] == "FREE":
-            hopped.append(j)
-            blocked.update(q["slots"])
-            j += 1
-        else:
-            break
-    return members, hopped, n_free_hops, j
 
 
 def _make_run_op(run, in_slots, out_slots):
@@ -912,7 +906,8 @@ def lower_to_register_file(
         run_fn: Callable[[int], Callable],
         transfer_fn: Callable[[int], Callable],
         mode: str = "registers",
-        overlap_window: int = 4) -> RegisterFileProgram:
+        overlap_window: int = 4,
+        verify: Optional["PlanContext"] = None) -> RegisterFileProgram:
     """Lower the instruction list into a ``RegisterFileProgram``.
 
     ``preplaced_keys``: the ``(node, instance, mesh)`` keys placed at launch
@@ -924,7 +919,10 @@ def lower_to_register_file(
     holds to its hazards.  Phase 2: "registers" replays the flat order,
     with the RESHARDs of one edge coalesced past the FREEs between them;
     "overlap" replays ``schedule_overlap``'s plan, consecutive launches of
-    one edge merged into one."""
+    one edge merged into one.  ``verify``: the executable's
+    ``PlanContext``; with it (and ``verify_plans`` not "off") the plan
+    verifier runs over the program, as the JAX package's lowering runs it
+    on every compile."""
     if mode not in ("registers", "overlap"):
         raise ValueError(f"unknown lowering mode: {mode!r}")
     slot_of: Dict[Tuple[Any, int, int], int] = {}
@@ -937,6 +935,44 @@ def lower_to_register_file(
 
     for key in preplaced_keys:
         slot(key)
+
+    verifying = verify is not None and global_config.verify_plans != "off"
+    want_numerics = verifying and \
+        global_config.verify_plans_numerics != "off"
+    want_equiv = verifying and \
+        global_config.verify_plans_equiv != "off" and \
+        verify.reference is not None
+    precision_of: Dict[int, Any] = {}
+
+    def _precision(ex):
+        if not want_numerics:
+            return None
+        if id(ex) not in precision_of:
+            from alpa_tpu_torch.shard_parallel.eqn_classify import \
+                classify_stage_precision
+            precision_of[id(ex)] = classify_stage_precision(ex)
+        return precision_of[id(ex)]
+
+    def _equiv(inst):
+        if not want_equiv:
+            return None
+        from alpa_tpu_torch.analysis.equivalence import stage_equiv_info
+        info = stage_equiv_info(inst.executable)
+        mb = inst.micro_batch
+        return {"stage": info["stage"],
+                "mb": int(mb) if mb is not None else -1,
+                "donate": list(info["donate"]), "acc": dict(info["acc"])}
+
+    # the gradient codec's facts on every RUN under grad_quantize; None
+    # when it is off, so records (and fingerprints) are unchanged
+    grad_tag = None
+    if verifying and global_config.grad_quantize != "off":
+        mbs = {int(inst.micro_batch or 0) for inst in instructions
+               if inst.opcode == PipelineInstType.RUN and
+               inst.micro_batch is not None}
+        grad_tag = {"mode": global_config.grad_quantize,
+                    "ef": bool(global_config.grad_error_feedback),
+                    "hops": max(1, len(mbs)), "rs": False}
 
     recs: List[Dict[str, Any]] = []
     by_opcode = {"RUN": 0, "RESHARD": 0, "FREE": 0}
@@ -959,7 +995,14 @@ def lower_to_register_file(
                 # injected faults
                 "site": "stage_launch",
                 "finfo": {"stage": inst.info, "mesh_id": inst.dst_mesh},
-                "idem": not donated})
+                "idem": not donated,
+                "precision": _precision(inst.executable),
+                "equiv": _equiv(inst),
+                "grad_quant": (_grad_quant_of(inst.executable, grad_tag)
+                               if grad_tag else None),
+                "line": (f"RUN {inst.info} mb={inst.micro_batch} "
+                         f"in={list(in_slots)} out={list(out_slots)} "
+                         f"kill={sorted({in_slots[p] for p in donated})}")})
         elif inst.opcode == PipelineInstType.RESHARD:
             by_opcode["RESHARD"] += 1
             v, instance = inst.var_key
@@ -980,7 +1023,14 @@ def lower_to_register_file(
                           "dst_mesh": inst.dst_mesh, "strategy": strategy,
                           "codec": (strategy if strategy.startswith(
                               "quantized") else None)},
-                "idem": True})
+                "idem": True, "strategy": strategy,
+                # only direct transfers coalesce into batched groups
+                "groupable": strategy == "direct_p2p",
+                "nbytes": _reshard_nbytes(inst),
+                "line": (f"RESHARD {v}@{instance} {inst.src_mesh}->"
+                         f"{inst.dst_mesh} slot {ss}->{ds}"
+                         + ("" if strategy == "direct_p2p"
+                            else f" strategy={strategy}"))})
         else:
             by_opcode["FREE"] += 1
             slots = tuple(slot(tuple(k)) for k in inst.free_keys)
@@ -988,7 +1038,8 @@ def lower_to_register_file(
                 "kind": "FREE", "idx": idx, "op": _make_free_op(slots),
                 "slots": slots, "reads": (), "writes": (), "kills": slots,
                 "name": "FREE",
-                "mesh": inst.free_keys[0][2] if inst.free_keys else 0})
+                "mesh": inst.free_keys[0][2] if inst.free_keys else 0,
+                "line": f"FREE {list(slots)}"})
 
     for i, r in enumerate(recs):
         r["pos"] = i
@@ -1022,9 +1073,15 @@ def lower_to_register_file(
                       fault_site=site,
                       fault_infos=(tuple(m["finfo"] for m in mem)
                                    if site else ()),
-                      idempotent=all(m.get("idem", True) for m in mem))
+                      idempotent=all(m.get("idem", True) for m in mem),
+                      precision=(mem[0].get("precision") if len(mem) == 1
+                                 else None),
+                      equiv=mem[0].get("equiv") if len(mem) == 1 else None)
+
+    lines: List[str] = []
 
     def emit(r):
+        lines.append(r["line"])
         ops.append(r["op"])
         info.append(("exec", (r["idx"],), r["reads"], r["writes"]))
         meta.append((r["name"], "instruction", f"mesh {r['mesh']}"))
@@ -1039,13 +1096,16 @@ def lower_to_register_file(
                 emit(r)
                 i += 1
                 continue
-            members, hopped, hops, i = reshard_group_extent(recs, i)
+            members, hopped, hops, i = reshard_group_extent(
+                recs, i, max_members=global_config.superopt_max_group)
             n_free_hops += hops
             mem = [recs[m] for m in members]
             if len(mem) == 1:
                 emit(mem[0])
             else:
                 n_groups += 1
+                lines.extend(m["line"] + f" edgegroup={len(mem)}"
+                             for m in mem)
                 ops.append(_make_reshard_group_op(
                     tuple(m["transfer"] for m in mem),
                     tuple(m["ss"] for m in mem),
@@ -1073,6 +1133,8 @@ def lower_to_register_file(
             mem = [idx]
             k += 1
             while (k < len(plan) and plan[k][0] == "launch" and
+                   recs[idx]["groupable"] and
+                   recs[plan[k][1]]["groupable"] and
                    recs[plan[k][1]]["edge"] == recs[idx]["edge"]):
                 mem.append(plan[k][1])
                 k += 1
@@ -1092,6 +1154,8 @@ def lower_to_register_file(
             srcs = tuple(recs[m]["ss"] for m in mem)
             dsts = tuple(recs[m]["ds"] for m in mem)
             edge = f"{r['edge'][0]}->{r['edge'][1]}"
+            lines.append(f"{kind.upper()} " +
+                         "; ".join(recs[m]["line"] for m in mem))
             if kind == "launch":
                 n_launches += 1
                 n_groups += len(mem) > 1
@@ -1110,14 +1174,67 @@ def lower_to_register_file(
             hooks.append(hook_of([recs[m] for m in mem], kind, name))
             info.append((kind, tuple(recs[m]["idx"] for m in mem), srcs,
                          dsts))
-    return RegisterFileProgram(
+    if mode == "overlap":
+        lines.append(f"MODE overlap window={window} hoisted={n_hoisted} "
+                     f"launches={n_launches}")
+    prog = RegisterFileProgram(
         num_slots=len(slot_of), ops=ops, n_instructions=n,
         by_opcode=by_opcode, slot_of=slot_of, n_coalesced_groups=n_groups,
         op_info=info, mode=mode, graph=graph,
         n_cross_mesh=graph.n_cross_mesh, n_hoisted=n_hoisted,
         n_launches=n_launches, n_free_hops=n_free_hops,
-        overlap_window=window, run_stats=run_stats, op_meta=meta,
-        hooks=hooks)
+        overlap_window=window, text="\n".join(lines),
+        run_stats=run_stats, op_meta=meta, hooks=hooks)
+    if verifying:
+        from alpa_tpu_torch.analysis import plan_verifier
+        prog.verdict = plan_verifier.verify_program(
+            instructions, prog, verify.preplaced_shardings, recs,
+            protected_keys=verify.protected_keys,
+            opt_state_keys=verify.opt_state_keys,
+            provenance_keys=verify.provenance_keys,
+            reference=verify.reference if want_equiv else None,
+            plan_fingerprint=verify.plan_fingerprint,
+            devices=verify.devices)
+    return prog
+
+
+@dataclasses.dataclass
+class PlanContext:
+    """What the plan verifier needs of an executable beyond the instruction
+    list (``pipeshard_executable._make_lowerer``): the shardings of the
+    values placed at launch, keyed ``(node, instance, mesh)``; the program
+    outputs (never freed); the optimizer-state keys; each placed value's
+    provenance ("param", "opt_state", "gradient", "activation"); the
+    equivalence reference; the executable's plan fingerprint; the meshes'
+    devices."""
+    preplaced_shardings: Dict[Tuple[Any, int, int], Any]
+    protected_keys: frozenset = frozenset()
+    opt_state_keys: frozenset = frozenset()
+    provenance_keys: Optional[Dict[Tuple[Any, int, int], str]] = None
+    reference: Optional[Dict[str, Any]] = None
+    plan_fingerprint: Optional[str] = None
+    devices: Tuple[Any, ...] = ()
+
+
+def _grad_quant_of(ex, tag):
+    """The gradient codec's facts for a RUN: the tag, with ``rs`` set where
+    the stage is wide (its gradient sync is the quantized
+    reduce-scatter)."""
+    if getattr(ex, "num_devices", 1) > 1:
+        return dict(tag, rs=True)
+    return dict(tag)
+
+
+def _reshard_nbytes(inst) -> int:
+    """The payload bytes of a RESHARD: its transfer's, else its value's."""
+    t = inst.resharding[0] if isinstance(inst.resharding, tuple) else \
+        inst.resharding
+    n = getattr(t, "nbytes", None)
+    if n:
+        return int(n)
+    val = getattr(inst.var_key[0], "meta", {}).get("val")
+    return int(val.numel() * val.element_size()) \
+        if hasattr(val, "numel") else 0
 
 
 def _strategy_of(inst: PipelineInstruction) -> str:

@@ -42,8 +42,9 @@ to a fresh FIFO queue with every queued request carried over (health
 "degraded": serving goes on, the policy is lost).  A bound
 ``RecoveryManager`` (``attach_recovery``) turns DEGRADED into load
 shedding: new requests get ``fault.ServiceDegradedError``, HTTP 503,
-until recovery clears it.  Not ported yet: disaggregation and the router
-(ROADMAP A.2).
+until recovery clears it.  Disaggregated prefill and decode (the
+``/disagg/*`` endpoints, ``serve/disagg.py``) and the multi-replica router
+(``serve/router.py``) build on this controller.
 """
 import dataclasses
 import json

@@ -203,6 +203,10 @@ class Partitioner:
         self.pres: List[Tuple[Any, Layout]] = []
         self.placeholders: List[fx.Node] = []
         self.gather_views = 0
+        # the contiguous copies of strided local slices (C.8), and their
+        # bytes on one device, per run of the program
+        self.slice_copies = 0
+        self.slice_copy_bytes = 0
         self.barriers: Dict[str, int] = {}
         self.current = "input"
 
@@ -325,6 +329,7 @@ class Partitioner:
                 node = self.emit_collective("all_gather", a, node, before,
                                             dtype, lshape(), d)
         # axes to add: local slices
+        strided = False
         for d in range(len(cur)):
             while cur[d] != dst[d]:
                 a = dst[d][len(cur[d])]
@@ -333,8 +338,21 @@ class Partitioner:
                                   (self.coords, (a,), self.mesh_shape, block))
                 end = self.call(operator.add, (start, block))
                 cur[d] = cur[d] + (a,)
+                # a slice of dim d is a strided view unless every dim
+                # before d has one element
+                strided |= any(n > 1 for n in lshape()[:d])
                 node = self.call(aten.slice.Tensor, (node, d, start, end),
                                  val=_meta(lshape(), dtype))
+        if strided:
+            # ROADMAP C.8: hand back the contiguous block the plain path
+            # holds; ``native_layer_norm_backward`` reads its saved mean
+            # and rstd as contiguous whatever their strides
+            node = self.call(aten.clone.default, (node,),
+                             {"memory_format": torch.contiguous_format},
+                             val=_meta(lshape(), dtype))
+            self.slice_copies += 1
+            self.slice_copy_bytes += _numel(lshape()) * torch.empty(
+                (), dtype=dtype).element_size()
         return node
 
     def resolve(self, key, target: Spec):
@@ -1151,6 +1169,36 @@ def _meta_like(val):
     return val
 
 
+#: the ops that read a strided operand by its strides (ROADMAP C.8's scan)
+STRIDE_SAFE_OPS = (aten.mm.default, aten.bmm.default, aten.sum.default,
+                   aten.sum.dim_IntList, aten.add.Tensor, aten.add_.Tensor)
+
+
+def strided_slice_readers(root: fx.GraphModule
+                          ) -> List[Tuple[fx.Node, fx.Node]]:
+    """``(slice, reader)`` for every local slice of a partitioned program
+    that leaves a strided view (a dim other than 0, with more than one
+    element before it) and reaches an op other than ``STRIDE_SAFE_OPS``
+    or the contiguous copy ``Partitioner.reshard`` makes of it."""
+    out = []
+    for n in root.graph.nodes:
+        if n.op != "call_function" or n.target is not aten.slice.Tensor:
+            continue
+        d = n.args[1] if len(n.args) > 1 else 0
+        val = n.meta.get("val")
+        if val is None or not any(k > 1 for k in tuple(val.shape)[:d]):
+            continue
+        for u in n.users:
+            if u.op == "call_function" and (
+                    u.target in STRIDE_SAFE_OPS or
+                    (u.target is aten.clone.default and
+                     u.kwargs.get("memory_format") is
+                     torch.contiguous_format)):
+                continue
+            out.append((n, u))
+    return out
+
+
 class SpmdProgram:
     """The partitioned program of a traced step: ``parts`` ("compute",
     "apply"; one "compute" part without a gradient marker) of ``Step``s,
@@ -1170,6 +1218,8 @@ class SpmdProgram:
         # keeps the one the program computes it under, complete)
         self.out_specs = part.result_specs
         self.partitioner_stats = {"gather_views": part.gather_views,
+                                  "slice_copies": part.slice_copies,
+                                  "slice_copy_bytes": part.slice_copy_bytes,
                                   "barriers": dict(part.barriers)}
         self.logical_mesh = logical_mesh
         self.devices = logical_mesh.flat_devices()

@@ -249,6 +249,36 @@ Phases, each reported on its own line:
    24 per prefill model call (12 for the draft's) and appear in the
    kernels line.
 
+20. plan analyses (``analysis/``), over the plans the earlier phases ran:
+   (a) the verdict of each pipeshard plan of phases 8, 8b, 10, 11 and 16,
+   recorded by the phase while its executable lived: ok, the errors,
+   warnings and notes by (analysis, code), the analyses' seconds at the
+   first launch (cold) and a second lowering's that replays the verdict
+   from the cache (warm), the model checker's states (or skipped beyond
+   ``FIXTURE_MAX_OPS``), the numerics' largest composed bound, the
+   equivalence's terms, the static peak per mesh beside the measured
+   peak; no error finding, each plan verified exactly once whatever its
+   captures and dispatch modes; (b) phase 16a's int8 and fp8 codec plans:
+   the certified composed bound at least the worst element error 16a
+   measured; (c) the superoptimizer on phase 8's configuration: "suggest"
+   on the plan as compiled (the simulated critical-path and peak ratios;
+   its two steps from the seed state are the baseline), then the list
+   deoptimized under "auto": rewrite searched, gated and run, its CUDA
+   graphs captured from the rewritten list, losses and every parameter
+   after two steps bit-identical to the baseline's, the step's device
+   time (CUDA events) and the graphs' pools beside the baseline's; a
+   second decision on the plan replays the rewrite from the ``superopt``
+   cache with zero search (these steps' flash launches count under
+   ``pipeshard_superopt``); (d) phase 18c's elastic episode reports a real
+   verdict; under ``verify_plans="error"`` a real failure injected at
+   ``stage_launch`` (a site the model checker classes unsafe) is refused
+   where "warn" retries it; ``dump_debug_info`` writes
+   ``plan_verdict.txt`` and ``superopt.txt``.  Phases 13, 15 and 16 also
+   scan their partitioned GPT-1.3B programs for a strided local slice
+   that reaches an op other than mm, bmm, sum, add and add_ (ROADMAP C.8:
+   none may), and phases 15 and 16 print the contiguous copies that the
+   C.8 repair makes per step.
+
 ``--four-cards`` (a machine with four cards): first C.4's bisection
 (phase 16a's narrow pipeshard over the card layouts, every dispatch
 mode, collectives and tiles checked); then GPT-1.3B at batch 32 (8 per
@@ -1526,7 +1556,7 @@ def first_loss(method, cfg, batch):
 
 
 def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
-                    forward_runs=1, keep=False):
+                    forward_runs=1, keep=False, record=True):
     """Train ``cfg`` through the pipeshard ``method`` from the seed state: 3
     warm-up steps (the first runs the stage graphs as they are, the second
     captures them as CUDA graphs) and 5 timed steps, which replay them in
@@ -1537,7 +1567,8 @@ def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
     counting the launches inside the replays); prints the step's metrics.
     Returns a dict: the (fwd, dq, dkv) launches of the run, the executable,
     the step time, host time and peak, the profile, and with ``keep`` the
-    step and its state."""
+    step and its state.  With ``record`` the plan's verdict is recorded
+    for phase 20a (``record_plan``)."""
     batch_size, num_micro_batches = 8, method.num_micro_batches
     warmup, n_iter = 3, 5
     cards = sorted(set(str(d) for d in method.devices.devices.flat))
@@ -1667,6 +1698,8 @@ def timed_pipeshard(label, cfg, method, batch, ref_loss, ref_tol, shard_profile,
               f"profiler {profile['busy_share']:.4f} vs "
               f"{shard_profile['busy_share']:.4f}; step {latency:.5f} vs "
               f"{shard_profile['latency']:.5f} s")
+    if record:
+        record_plan(label, ex, peak_bytes, pool)
     out = {"counts": launch_counts(),   # the timed and profiled steps
            "ex": ex, "latency": latency, "host": host,
            "idle_host": idle_host, "peak": peak_bytes, "reserved": reserved,
@@ -2251,7 +2284,8 @@ def phase_pipeshard(shard_profile):
     batch = lm_batch(cfg, 8)
     ref_loss = shard_first_loss(cfg, batch)
     run = timed_pipeshard("pipeshard", cfg, pipeshard_method(4), batch,
-                          ref_loss, 1e-2, shard_profile, keep=True)
+                          ref_loss, 1e-2, shard_profile, keep=True,
+                          record=False)
     phase_dispatch(cfg, batch, run)
     traced, report, joined = timed("telemetry pipeshard",
                                    phase_telemetry_pipeshard, cfg, batch,
@@ -2259,6 +2293,8 @@ def phase_pipeshard(shard_profile):
     run["traced_counts"], run["joined"] = traced, joined
     run["fault_counts"], run["faults"] = timed(
         "faults and state (a)-(c)", phase_faults_pipeshard, cfg, batch, run)
+    # after every dispatch mode, capture and fault run on the executable
+    record_plan("pipeshard", run["ex"], run["peak"], run["pool"])
     del run["step"], run["ex"], run["state"], report
     torch.cuda.empty_cache()
     peaks = apply_grad_peaks(cfg, batch)
@@ -2396,6 +2432,8 @@ def phase_pipeshard_infer():
           f"{stats['mode']}; graph pools "
           f"{(ex.get_graph_pool_bytes() or 0) / 2**30:.3f} GiB")
     counts = launch_counts()
+    record_plan(label, ex, ex.get_total_allocation_size(),
+                ex.get_graph_pool_bytes())
     del forward, ex, out, want, box, params, model
     torch.cuda.empty_cache()
     return counts[0]
@@ -2660,7 +2698,7 @@ def phase_planner(device="cuda"):
     for label, devices in (("one device", [device]),
                            ("8 virtual devices", [device] * 8)):
         tic = time.perf_counter()
-        _, specs, (graph, choice), shape = plan_auto_sharding(
+        logical_mesh, specs, (graph, choice), shape = plan_auto_sharding(
             fun, avals, paths, bidx, PhysicalDeviceMesh(devices),
             AutoShardingOption(), traced=traced)
         total = time.perf_counter() - tic
@@ -2697,6 +2735,24 @@ def phase_planner(device="cuda"):
         check(objective <= replicated * (1 + 1e-9),
               f"planner {label}: objective {objective} over the replicated "
               f"inputs' {replicated}")
+        if len(devices) > 1:
+            # ROADMAP C.8: the chosen plan partitioned, scanned for strided
+            # local slices that reach a layout-sensitive op
+            from alpa_tpu_torch.shard_parallel.spmd_partition import \
+                SpmdProgram
+            n_out = len(next(n for n in traced.graph.nodes
+                             if n.op == "output").args[0])
+            tic = time.perf_counter()
+            program = SpmdProgram(traced, graph, choice, logical_mesh, specs,
+                                  [None] * n_out, natural_outputs=True)
+            strided = strided_scan([program])
+            print(f"planner {label} C.8 scan: the plan partitioned in "
+                  f"{time.perf_counter() - tic:.3f} s, partitioner "
+                  f"{program.partitioner_stats}; {strided} strided local "
+                  f"slices reach an op other than mm, bmm, sum, add and "
+                  f"add_")
+            check(strided == 0, f"planner: {strided} strided slices (C.8)")
+            del program
     del traced
 
 
@@ -2991,6 +3047,11 @@ def spmd_step_run(label, cfg, method, batch, ref_loss, ref_mu, ref_params,
           f"{ex.compile_seconds:.3f} s, first call {first_s:.3f} s; "
           f"{segments} "
           f"segments, partitioner {ex.program.partitioner_stats}")
+    slice_copy_line(label, [(ex.program, len(ex.program.devices))])
+    strided = strided_scan([ex.program])
+    print(f"{label} C.8 scan: {strided} strided local slices reach an op "
+          f"other than mm, bmm, sum, add and add_")
+    check(strided == 0, f"{label}: {strided} strided slices (C.8)")
     check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
     check(grad_rel[worst_g] <= SPMD_GRAD_TOL,
           f"{label}: first moment {worst_g} differs by "
@@ -3380,6 +3441,14 @@ def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3,
         f"{kind} {row['count']} calls {row['bytes']} bytes ({row['backend']})"
         for kind, row in sorted(coll.items())))
     rs = reshard_line(label, ex)
+    programs = [(i.executable.program, i.executable.num_devices)
+                for i in ex.instructions if i.opcode.name == "RUN" and
+                getattr(i.executable, "program", None) is not None]
+    slice_copy_line(label, programs)
+    strided = strided_scan({id(p): p for p, _ in programs}.values())
+    print(f"{label} C.8 scan: {strided} strided local slices reach an op "
+          f"other than mm, bmm, sum, add and add_")
+    check(strided == 0, f"{label}: {strided} strided slices (C.8)")
     print(f"{label} dispatch {ex.last_dispatch_stats['mode']} with meshes "
           f"{ex.last_dispatch_stats['meshes']}")
     print(f"{label}: Adam's first moment after one step max |diff| / max "
@@ -3418,6 +3487,8 @@ def two_level_run(label, cfg, method, batch, ref, devices, timed_steps=3,
                "split": rewrite_split(ex)}
     if keep:
         metrics.update(mu=mu, losses=losses)
+    if label == "two-level":
+        record_plan(label, ex, peak)
     del state, step, ex
     gc.collect()
     torch.cuda.empty_cache()
@@ -3683,6 +3754,10 @@ def reshard_variants_check(cfg, batch, base_losses, base_params):
               f"2^-24 of the bound); losses "
               f"{losses} vs lossless {base_losses} "
               f"({loss_rel:.3e} relative)")
+        numerics = ex.get_plan_verdict().stats["numerics"]
+        CODEC_RECORDS[mode] = (numerics["max_error_bound"],
+                               max(worst, default=0.0),
+                               numerics["lossy_edges"])
         check(edges and not weights, f"codec {mode}: {len(edges)} edges, "
               f"weight edges {weights}")
         check(worst and max(worst) <= 1.0 + 2.0 ** -14,
@@ -4263,6 +4338,7 @@ def phase_faults_pipeshard(cfg, batch, run):
         with fault.FaultPlan(notice):
             losses = [float(sup.step(batch)) for _ in range(6)]
         ep = sup.episodes[0] if sup.episodes else {}
+        ELASTIC_VERDICTS["18c"] = ep.get("verdict")
         print(f"faults (c) [{card}]: ElasticSupervisor over phase 8's step, "
               f"step-0 restore point in {initial_s:.3f} s, a preemption "
               f"notice at step 3: episode {json.dumps(ep, default=str)}; "
@@ -5237,6 +5313,356 @@ def phase_serving_rest(device="cuda", cfg=None, draft_cfg=None):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 20: the plan analyses
+# ---------------------------------------------------------------------
+
+# what phase 20 reads of earlier phases: each pipeshard plan's verdict,
+# recorded by the phase that built its executable while it lives (20a);
+# the activation codecs' certified and measured errors of phase 16a
+# (20b); phase 18c's elastic episode verdict (20d)
+PLAN_RECORDS = []
+CODEC_RECORDS = {}
+ELASTIC_VERDICTS = {}
+
+
+def strided_scan(programs) -> int:
+    """ROADMAP C.8's scan: the (slice, reader) pairs of ``programs``
+    (partitioned ``SpmdProgram``s) where a strided local slice reaches an
+    op other than mm, bmm, sum, add and add_."""
+    from alpa_tpu_torch.shard_parallel.spmd_partition import \
+        strided_slice_readers
+    return sum(len(strided_slice_readers(p.root)) for p in programs)
+
+
+def slice_copy_line(label, runs):
+    """C.8's cost: the contiguous copies of strided local slices that the
+    partitioned programs of ``runs`` (one ``(program, devices)`` per run
+    of a program in a step) make per step, and their bytes over the
+    devices."""
+    copies = sum(p.partitioner_stats["slice_copies"] for p, _ in runs)
+    nbytes = sum(p.partitioner_stats["slice_copy_bytes"] * n
+                 for p, n in runs)
+    print(f"{label} C.8 [{card_line()}]: strided local slices copied "
+          f"contiguous per step: {copies} copies, {nbytes} bytes over the "
+          f"devices")
+    return copies, nbytes
+
+
+def record_plan(label, ex, measured_peak, pools=None):
+    """Phase 20a's record of a pipeshard plan, taken by the phase that built
+    ``ex`` while it lives: the verdict its first launch verified (cold:
+    the analyses' seconds), the seconds of a second lowering of the same
+    program, which replays the verdict from the ``plan_verdict`` cache
+    (warm, the lowering included), how many times its fingerprint was
+    verified, and the static peak per mesh beside the measured peak."""
+    from alpa_tpu_torch import compile_cache
+    from alpa_tpu_torch.analysis import plan_verifier
+    verdict = ex.get_plan_verdict()
+    fp = ex.get_plan_fingerprint()
+    cache = compile_cache.get_compile_cache()
+
+    def hits():
+        return cache.stats()["namespaces"].get("plan_verdict", {}).get(
+            "hits", 0)
+
+    before = hits()
+    context = dataclasses.replace(ex._plan_context(), plan_fingerprint=None)
+    tic = time.perf_counter()
+    ex._lower_for_analysis(ex.instructions, ex.verified_mode or "registers",
+                           context)
+    warm = time.perf_counter() - tic
+    captured = ex._captured.programs if ex._captured is not None else {}
+    PLAN_RECORDS.append({
+        "label": label, "fingerprint": fp, "mode": ex.verified_mode,
+        "verdict": verdict, "warm_s": warm, "warm_hit": hits() > before,
+        "verifications": plan_verifier.verification_counts.get(fp, 0),
+        "lowerings": len(ex._register_programs) + len(captured),
+        "captures": ex.capture_count, "measured_peak": measured_peak,
+        "pools": pools})
+
+
+def by_code(findings):
+    out = {}
+    for f in findings:
+        out[(f.analysis, f.code)] = out.get((f.analysis, f.code), 0) + 1
+    return {f"{a}/{c}": n for (a, c), n in sorted(out.items())}
+
+
+def phase_plan_verdicts():
+    """Phase 20a: the verdict of each pipeshard plan phases 8, 8b, 10, 11
+    and 16 ran, as recorded while their executables lived."""
+    card = card_line()
+    for r in PLAN_RECORDS:
+        v = r["verdict"]
+        check(v is not None, f"plan analyses {r['label']}: no verdict")
+        st = v.stats
+        mc = st.get("model_check")
+        mc_text = (f"model check {mc['semantics']}, {mc['states']} states, "
+                   f"partial {mc['partial']}" if mc else
+                   f"model check skipped ({st['n_ops']} ops > "
+                   f"FIXTURE_MAX_OPS)")
+        num, eq = st.get("numerics", {}), st.get("equiv", {})
+        peaks = {m: b / 2**30 for m, b in st["peak_bytes"].items()}
+        print(f"plan analyses {r['label']} [{card}]: plan "
+              f"{r['fingerprint'][:12]} ({r['mode']}), {st['n_ops']} ops "
+              f"{st['by_opcode']}, ok {v.ok}; errors {by_code(v.errors)}, "
+              f"warnings {by_code(v.warnings)}, notes {by_code(v.notes)}; "
+              f"verified {r['verifications']} time(s) over "
+              f"{r['lowerings']} lowerings and {r['captures']} capture(s); "
+              f"cold {st['verify_seconds']:.4f} s (the analyses), warm "
+              f"{r['warm_s']:.4f} s (a lowering that replays the verdict "
+              f"from the cache: hit {r['warm_hit']}); {mc_text}; numerics "
+              f"largest composed bound {num.get('max_error_bound', 0.0):.6g}"
+              f"; equivalence {eq.get('n_proved', 0)}/"
+              f"{eq.get('n_outputs', 0)} outputs proved, "
+              f"{eq.get('n_terms', 0)} terms; static peak per mesh "
+              + ", ".join(f"{m}: {g:.3f} GiB" for m, g in sorted(
+                  peaks.items())) +
+              f" (sum {sum(peaks.values()):.3f} GiB) vs the measured "
+              f"allocated peak {r['measured_peak'] / 2**30:.3f} GiB"
+              + (f" + the graphs' pools {r['pools'] / 2**30:.3f} GiB"
+                 if r["pools"] else ""))
+        check(v.ok, f"plan analyses {r['label']}: error findings "
+              f"{[(f.code, f.message) for f in v.errors][:3]}")
+        check(r["verifications"] == 1, f"plan analyses {r['label']}: "
+              f"verified {r['verifications']} times")
+        check(r["warm_hit"], f"plan analyses {r['label']}: the second "
+              f"lowering did not replay the verdict")
+    check(len(PLAN_RECORDS) >= 5, f"plan analyses: {len(PLAN_RECORDS)} "
+          f"plans recorded, want phases 8, 8b, 10, 11 and 16")
+
+
+def phase_codec_bounds():
+    """Phase 20b: phase 16a's quantized edges, the numerics certification's
+    largest composed bound against the worst element error 16a measured
+    (both as a fraction of the block's largest magnitude)."""
+    from alpa_tpu_torch.pipeline_parallel.reshard_codec import ERROR_BOUND
+    check(set(CODEC_RECORDS) == {"int8", "fp8"},
+          f"codec bounds: recorded {sorted(CODEC_RECORDS)}")
+    for mode, (certified, worst_ratio, lossy) in sorted(
+            CODEC_RECORDS.items()):
+        measured = worst_ratio * ERROR_BOUND[mode]
+        print(f"plan analyses codec {mode} [{card_line()}]: phase 16a's "
+              f"plan, lossy hops {lossy}, certified largest composed bound "
+              f"{certified:.6g} ({certified / ERROR_BOUND[mode]:.6f} of the "
+              f"per-hop bound {ERROR_BOUND[mode]:.6g}) vs the worst element "
+              f"error measured {measured:.6g} ({worst_ratio:.6f} of the "
+              f"per-hop bound)")
+        check(certified >= measured, f"codec {mode}: certified bound "
+              f"{certified} under the measured error {measured}")
+
+
+def superopt_steps(cfg, batch, deoptimize, steps=2):
+    """Phase 8's configuration from the seed state: ``steps`` steps (the
+    first runs the stage graphs as they are, the second captures and
+    replays them), with the instruction list replaced by its deoptimized
+    order first when ``deoptimize``; then one more step timed by CUDA
+    events on the launching stream.  Returns the losses, the parameters on
+    the host, the executable, the step's device milliseconds and the
+    step function and state (for 20d)."""
+    from alpa_tpu_torch.analysis import superopt
+    state = train_state(cfg)
+    step = make_train_step(pipeshard_method(4))
+    ex, _ = step.get_executable(state, batch)
+    if deoptimize:
+        ex._set_instructions(superopt.deoptimize_instructions(
+            list(ex.instructions)), as_baseline=True)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    params = {k: v.detach().cpu() for k, v in state.params.items()}
+    losses = [x.detach().cpu() for x in losses]
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    start.record()
+    state, loss = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return losses, params, ex, start.elapsed_time(end), step, state
+
+
+def phase_superopt():
+    """Phase 20c: the superoptimizer on phase 8's configuration.  Under
+    "suggest" on the plan as compiled: the simulated critical-path and
+    peak ratios of the best rewrite; its two steps are the baseline.  Then
+    the plan's list deoptimized (hazard-legal, ``deoptimize_instructions``)
+    under "auto": the rewrite searched, gated and run, CUDA graphs captured
+    from the rewritten list; losses and every parameter after two steps
+    bit-identical to the baseline's.  A second decision on the same plan
+    replays the rewrite from the ``superopt`` cache with zero search.
+    Returns the flash launches of these steps, the "auto" executable, its
+    step and state (for 20d)."""
+    from alpa_tpu_torch import compile_cache
+    cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 8).items()}
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with knobs(superopt_mode="suggest"):
+        base_losses, base_params, ex, base_ms, step, state = superopt_steps(
+            cfg, batch, deoptimize=False)
+        out = ex._superopt_outcome
+        base_pool = ex.get_graph_pool_bytes() or 0
+        b, w = out.baseline_score, out.best_score
+        print(f"superopt suggest [{card}]: phase 8's plan "
+              f"({len(ex.instructions)} instructions), searched "
+              f"{out.searched}, accepted {out.accepted}; simulated critical "
+              f"path {b.makespan_us:.1f} -> {w.makespan_us:.1f} us (ratio "
+              f"{w.makespan_us / max(b.makespan_us, 1e-9):.4f}), simulated "
+              f"peak {b.total_peak / 2**30:.3f} -> {w.total_peak / 2**30:.3f}"
+              f" GiB (ratio {w.total_peak / max(b.total_peak, 1e-9):.4f}); "
+              f"the baseline list runs: step device time {base_ms:.3f} ms, "
+              f"graph pools {base_pool / 2**30:.3f} GiB")
+    del ex, step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    with knobs(superopt_mode="auto"):
+        losses, params, ex, ms, step, state = superopt_steps(
+            cfg, batch, deoptimize=True)
+        out = ex._superopt_outcome
+        pool = ex.get_graph_pool_bytes() or 0
+        same = [k for k in base_params
+                if not torch.equal(params[k], base_params[k])]
+        bitwise = all(torch.equal(a, b_) for a, b_ in zip(losses,
+                                                          base_losses))
+        clones = sum(1 for e in out.layout if not isinstance(e, int) and
+                     e[0] == "clone")
+        print(f"superopt auto [{card}]: the deoptimized list searched "
+              f"{out.searched}, accepted {out.accepted} (rejected by "
+              f"{out.rejected}); simulated critical path "
+              f"{out.baseline_score.makespan_us:.1f} -> "
+              f"{out.best_score.makespan_us:.1f} us, simulated peak "
+              f"{out.baseline_score.total_peak / 2**30:.3f} -> "
+              f"{out.best_score.total_peak / 2**30:.3f} GiB; recompute "
+              f"clones {clones}; CUDA graphs captured "
+              f"{ex.capture_count} time(s) from the rewritten list; step "
+              f"device time {ms:.3f} ms vs the baseline list's "
+              f"{base_ms:.3f} ms; graph pools {pool / 2**30:.3f} vs "
+              f"{base_pool / 2**30:.3f} GiB; losses "
+              f"{[float(x) for x in losses]} vs "
+              f"{[float(x) for x in base_losses]}: bit-identical {bitwise}"
+              f", parameters differing {len(same)} of {len(base_params)}")
+        check(out.accepted and ex.instructions == list(out.instructions),
+              f"superopt auto: the rewrite was not run ({out.rejected})")
+        check(bitwise and not same, f"superopt auto: not bit-identical "
+              f"to the baseline ({same[:3]})")
+        stats = compile_cache.get_compile_cache().stats()["namespaces"]
+        hits = stats.get("superopt", {}).get("hits", 0)
+        tic = time.perf_counter()
+        mode = ex.verified_mode
+        ex._set_instructions(ex.baseline_instructions, as_baseline=True)
+        ex.get_plan_verdict(mode)
+        replay = ex._superopt_outcome
+        replay_s = time.perf_counter() - tic
+        # the replayed rewrite runs (and is captured) again
+        state, loss = step(state, batch)
+        check(bool(torch.isfinite(loss)), f"superopt replay: loss {loss}")
+        stats = compile_cache.get_compile_cache().stats()["namespaces"]
+        print(f"superopt replay [{card}]: a second decision on the same "
+              f"plan: cache hit {replay.cache_hit}, searched "
+              f"{replay.searched}, the same rewrite "
+              f"{replay.fingerprint == out.fingerprint}, "
+              f"{replay_s:.3f} s (lowering and verifying included); the "
+              f"namespace's hits {hits} -> "
+              f"{stats.get('superopt', {}).get('hits', 0)}")
+        check(replay.cache_hit and not replay.searched and
+              replay.fingerprint == out.fingerprint,
+              "superopt: the second decision searched again")
+    return ex, step, state, batch
+
+
+def phase_verdict_paths(ex, step, state, batch):
+    """Phase 20d: the verdict on the ported paths.  Phase 18c's elastic
+    episode recorded a real verdict; under ``verify_plans="error"`` a real
+    failure (not an ``InjectedFault``) injected at ``stage_launch``, a site
+    the model checker classed unsafe, is refused, where "warn" retries
+    it; ``dump_debug_info`` writes ``plan_verdict.txt`` and
+    ``superopt.txt``."""
+    import tempfile
+    from alpa_tpu_torch import fault, monitoring
+    card = card_line()
+    verdict = ELASTIC_VERDICTS.get("18c")
+    print(f"plan analyses elastic [{card}]: phase 18c's episode verdict "
+          f"{verdict}")
+    check(verdict == "checked", f"elastic: episode verdict {verdict}")
+    mc = ex.get_plan_verdict().stats.get("model_check")
+    if mc is None:
+        # beyond FIXTURE_MAX_OPS "fixture" mode skips the model checker, as
+        # the JAX package's does: check this plan on demand ("all")
+        tic = time.perf_counter()
+        with knobs(verify_plans_model_check="all"):
+            mc = ex._lower_for_analysis(
+                ex.instructions, ex.verified_mode or "registers",
+                dataclasses.replace(ex._plan_context(),
+                                    plan_fingerprint=None)
+            ).verdict.stats["model_check"]
+        print(f"plan analyses model check [{card}]: phase 8's plan "
+              f"({len(ex.instructions)} instructions, beyond "
+              f"FIXTURE_MAX_OPS) checked on demand: {mc['semantics']}, "
+              f"{mc['states']} states, partial {mc['partial']}, "
+              f"{time.perf_counter() - tic:.3f} s")
+    sites = mc["retry_sites"]
+    fault.install_retry_classification(sites)
+    policy = fault.RetryPolicy(max_attempts=3, base_delay=0.0,
+                               max_delay=0.0, jitter=0.0)
+    tries = {}
+    for mode in ("warn", "error"):
+        with knobs(verify_plans=mode), fault.FaultPlan(fault.FaultSpec(
+                "stage_launch", times=1,
+                exc=lambda: RuntimeError("a real failure"))) as plan:
+            fault.set_retry_policy(policy, site="stage_launch")
+            try:
+                state, loss = step(state, batch)
+                raised = None
+            except RuntimeError as e:
+                raised = e
+            finally:
+                fault.set_retry_policy(None, site="stage_launch")
+            tries[mode] = (plan.fired("stage_launch"),
+                           plan.retries.get("stage_launch", 0)
+                           if hasattr(plan, "retries") else None,
+                           type(raised).__name__ if raised else None)
+    print(f"plan analyses retry [{card}]: stage_launch classed "
+          f"{sites['stage_launch']['classification']} "
+          f"({sites['stage_launch']['reasons']}); a RuntimeError injected "
+          f"once at the first RUN: under warn (fired, retried, raised) "
+          f"{tries['warn']}, under error {tries['error']}")
+    check(sites["stage_launch"]["classification"] == "unsafe",
+          f"retry: stage_launch classed {sites['stage_launch']}")
+    check(tries["warn"][2] is None and tries["error"][2] == "RuntimeError",
+          f"retry: warn {tries['warn']}, error {tries['error']}")
+    with tempfile.TemporaryDirectory(prefix="alpa_port_dump_") as d:
+        monitoring.dump_debug_info(ex, d)
+        import os
+        files = sorted(os.listdir(d))
+        head = open(os.path.join(d, "plan_verdict.txt"),
+                    encoding="utf-8").readline().strip()
+    print(f"plan analyses dump [{card}]: dump_debug_info wrote {files}; "
+          f"plan_verdict.txt: {head}")
+    check({"plan_verdict.txt", "superopt.txt"} <= set(files),
+          f"dump: {files}")
+    fault.install_retry_classification(None)
+
+
+def phase_plan_analyses():
+    """Phase 20: 20a-d.  Returns the flash launches of 20c's and 20d's
+    steps."""
+    phase_plan_verdicts()
+    phase_codec_bounds()
+    reset_launch_counts()
+    ex, step, state, batch = phase_superopt()
+    phase_verdict_paths(ex, step, state, batch)
+    counts = launch_counts()
+    del ex, step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, printing its wall time as the phase's."""
     tic = time.perf_counter()
@@ -5302,6 +5728,7 @@ def main(args) -> int:
         zero2 = timed("faults and state (d)", phase_faults_zero2)
         swap = timed("faults and state (e)", phase_serving_swap)
         rest = timed("serving rest", phase_serving_rest)
+        analyses = timed("plan analyses", phase_plan_analyses)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5310,7 +5737,7 @@ def main(args) -> int:
     fwd_entry["launches"] = (serving + engine[0] + train_fwd + pipe[0]
                              + remat[0] + auto[0] + infer + acc[0] + spmd[0]
                              + two_level[0] + tiled[0] + traced[0]
-                             + faults[0] + swap[0]
+                             + faults[0] + swap[0] + analyses[0]
                              + sum(v[0] for v in rest.values()))
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
@@ -5326,16 +5753,18 @@ def main(args) -> int:
                                      "pipeshard_traced": traced[0],
                                      "fault_recovery": faults[0],
                                      "serving_swap": swap[0],
+                                     "pipeshard_superopt": analyses[0],
                                      **{k: v[0] for k, v in rest.items()}}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
-    for part, (entry, e, n, p, r, a, g, m, t, b, tr, fr, sw) in enumerate(zip(
+    for part, (entry, e, n, p, r, a, g, m, t, b, tr, fr, sw,
+               so) in enumerate(zip(
             bwd_entries, engine[1:], (train_dq, train_dkv), pipe[1:],
             remat[1:], auto[1:], acc[1:], spmd[1:], two_level[1:],
-            tiled[1:], traced[1:], faults[1:], swap[1:])):
+            tiled[1:], traced[1:], faults[1:], swap[1:], analyses[1:])):
         served = {k: v[1 + part] for k, v in rest.items()}
         entry["launches"] = (e + n + p + r + a + g + m + t + b + tr + fr + sw
-                             + sum(served.values()))
+                             + so + sum(served.values()))
         entry["launches_by_path"] = {"serving_engine": e,
                                      "training": n, "pipeshard": p,
                                      "pipeshard_remat_blocks": r,
@@ -5347,7 +5776,8 @@ def main(args) -> int:
                                      "pipeshard_spmd_tiled": b,
                                      "pipeshard_traced": tr,
                                      "fault_recovery": fr,
-                                     "serving_swap": sw, **served}
+                                     "serving_swap": sw,
+                                     "pipeshard_superopt": so, **served}
     print(f"run time: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")
     print(card_line())

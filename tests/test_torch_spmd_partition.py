@@ -267,3 +267,48 @@ def test_nccl_and_plain_collectives_hand_back_one_layout(monkeypatch, kind,
         for a, b_ in zip(*grads):
             assert torch.equal(a, b_)
 
+
+
+def test_a_local_slice_off_dim_0_hands_back_a_contiguous_block():
+    """ROADMAP C.8: ``Partitioner.reshard`` adds a mesh axis to a dim by a
+    local ``aten.slice``; on dim 1 of a layer norm's saved mean and rstd
+    (shape (2, 8, 1)) that is a view with strides (8, 1, 1), and
+    ``native_layer_norm_backward`` reads its mean and rstd as contiguous
+    whatever their strides: before the repair the input gradient was off
+    by 1.59 and the weight gradient by 3.53 from the unsharded call.  The
+    slice is now copied into a contiguous block (one copy of each, counted
+    in ``partitioner_stats``), no strided slice reaches the backward, and
+    the gradients equal the unsharded program's (exactly for the input
+    gradient's rows; the weight gradient is a sum of two partial sums, to
+    1e-6 relative)."""
+    aten = torch.ops.aten
+    b, s, h = 2, 8, 16
+
+    def fn(g, x, mean, rstd, w, bias):
+        return aten.native_layer_norm_backward(g, x, [h], mean, rstd, w,
+                                               bias, [True, True, True])
+
+    shapes = [(b, s, h), (b, s, h), (b, s, 1), (b, s, 1), (h,), (h,)]
+    rows = ((), (0,), ())
+    in_specs = [rows, rows, ((), (), ()), ((), (), ()), ((),), ((),)]
+    program, mesh = _program(fn, shapes, in_specs,
+                             [rows, ((),), ((),)], (2,))
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(b, s, h, generator=gen)
+    w, bias = torch.randn(h, generator=gen), torch.randn(h, generator=gen)
+    _, mean, rstd = aten.native_layer_norm(x, [h], w, bias, 1e-5)
+    g = torch.randn(b, s, h, generator=gen)
+    full = fn(g, x, mean, rstd, w, bias)
+    outs = _run(program, mesh, [g, x, mean, rstd, w, bias], in_specs)
+    _assert_blocks([[o[0]] for o in outs], full[0], rows, mesh)
+    for o in outs:
+        torch.testing.assert_close(o[1], full[1], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(o[2], full[2], rtol=1e-6, atol=1e-6)
+    slices = [n for n in program.root.graph.nodes
+              if n.target is aten.slice.Tensor]
+    assert [n.args[1] for n in slices] == [1, 1]
+    from alpa_tpu_torch.shard_parallel.spmd_partition import \
+        strided_slice_readers
+    assert strided_slice_readers(program.root) == []
+    assert program.partitioner_stats["slice_copies"] == 2
+    assert program.partitioner_stats["slice_copy_bytes"] == 2 * b * s // 2 * 4
