@@ -1,4 +1,5 @@
-"""Weights of the flax models as the port's state dicts."""
+"""Weights of the flax models as the port's state dicts (GPT/OPT, BLOOM,
+CodeGen and the test MLP)."""
 from typing import Any, Dict
 
 import numpy as np
@@ -20,26 +21,9 @@ def gpt_params_from_flax(tree: Dict[str, Any], config: GPTConfig,
     use; pass ``torch.float32`` to train, with ``GPTModel(...,
     param_dtype=torch.float32)``); LayerNorm parameters stay fp32."""
     p = tree["params"] if "params" in tree else tree
-    param_dtype = param_dtype or config.dtype
-
-    def tensor(x, dtype, transpose=False):
-        a = np.array(x, np.float32)     # a writable copy
-        if transpose:
-            a = np.ascontiguousarray(a.T)
-        return torch.from_numpy(a).to(
-            device=device, dtype=dtype)
-
-    def dense(prefix, node):
-        return {f"{prefix}.weight": tensor(node["kernel"], param_dtype,
-                                           transpose=True),
-                f"{prefix}.bias": tensor(node["bias"], param_dtype)}
-
-    def layer_norm(prefix, node):
-        return {f"{prefix}.weight": tensor(node["scale"], torch.float32),
-                f"{prefix}.bias": tensor(node["bias"], torch.float32)}
-
-    sd = {"wte.weight": tensor(p["wte"]["embedding"], param_dtype),
-          "wpe.weight": tensor(p["wpe"]["embedding"], param_dtype)}
+    tensor, dense, layer_norm = _converters(config, device, param_dtype)
+    sd = {"wte.weight": tensor(p["wte"]["embedding"]),
+          "wpe.weight": tensor(p["wpe"]["embedding"])}
     for i in range(config.num_layers):
         blk = p[f"h{i}"]
         sd.update(layer_norm(f"h.{i}.ln1", blk["ln1"]))
@@ -50,8 +34,79 @@ def gpt_params_from_flax(tree: Dict[str, Any], config: GPTConfig,
         sd.update(dense(f"h.{i}.mlp.fc_out", blk["mlp"]["fc_out"]))
     sd.update(layer_norm("ln_f", p["ln_f"]))
     if "lm_head" in p:
-        sd["lm_head.weight"] = tensor(p["lm_head"]["kernel"], param_dtype,
-                                      transpose=True)
+        sd["lm_head.weight"] = tensor(p["lm_head"]["kernel"], transpose=True)
+    return sd
+
+
+def _converters(config, device, param_dtype):
+    """``(tensor, dense, layer_norm)``: a flax array as a tensor in
+    ``param_dtype`` (default ``config.dtype``), a ``Dense`` node as a
+    ``Linear``'s weight (transposed) and bias (where it has one), a
+    ``LayerNorm`` node as fp32 weight and bias."""
+    param_dtype = param_dtype or config.dtype
+
+    def tensor(x, transpose=False, dtype=None):
+        a = np.array(x, np.float32)     # a writable copy
+        if transpose:
+            a = np.ascontiguousarray(a.T)
+        return torch.from_numpy(a).to(device=device,
+                                      dtype=dtype or param_dtype)
+
+    def dense(prefix, node):
+        out = {f"{prefix}.weight": tensor(node["kernel"], transpose=True)}
+        if "bias" in node:
+            out[f"{prefix}.bias"] = tensor(node["bias"])
+        return out
+
+    def layer_norm(prefix, node):
+        return {f"{prefix}.weight": tensor(node["scale"],
+                                           dtype=torch.float32),
+                f"{prefix}.bias": tensor(node["bias"], dtype=torch.float32)}
+
+    return tensor, dense, layer_norm
+
+
+def bloom_params_from_flax(tree: Dict[str, Any], config, device=None,
+                           param_dtype=None) -> Dict[str, torch.Tensor]:
+    """A flax ``BloomModel`` parameter tree as the state dict of
+    ``alpa_tpu_torch.model.bloom_model.BloomModel`` (the rules of
+    ``gpt_params_from_flax``)."""
+    p = tree["params"] if "params" in tree else tree
+    tensor, dense, layer_norm = _converters(config, device, param_dtype)
+    sd = {"wte.weight": tensor(p["wte"]["embedding"])}
+    sd.update(layer_norm("ln_emb", p["ln_emb"]))
+    for i in range(config.num_layers):
+        blk = p[f"h{i}"]
+        sd.update(layer_norm(f"h.{i}.ln1", blk["ln1"]))
+        sd.update(layer_norm(f"h.{i}.ln2", blk["ln2"]))
+        sd.update(dense(f"h.{i}.attn.qkv", blk["attn"]["qkv"]))
+        sd.update(dense(f"h.{i}.attn.out", blk["attn"]["out"]))
+        sd.update(dense(f"h.{i}.fc_in", blk["fc_in"]))
+        sd.update(dense(f"h.{i}.fc_out", blk["fc_out"]))
+    sd.update(layer_norm("ln_f", p["ln_f"]))
+    if "lm_head" in p:
+        sd.update(dense("lm_head", p["lm_head"]))
+    return sd
+
+
+def codegen_params_from_flax(tree: Dict[str, Any], config, device=None,
+                             param_dtype=None) -> Dict[str, torch.Tensor]:
+    """A flax ``CodeGenModel`` parameter tree as the state dict of
+    ``alpa_tpu_torch.model.codegen_model.CodeGenModel`` (the rules of
+    ``gpt_params_from_flax``; the qkv and out projections have no
+    bias)."""
+    p = tree["params"] if "params" in tree else tree
+    tensor, dense, layer_norm = _converters(config, device, param_dtype)
+    sd = {"wte.weight": tensor(p["wte"]["embedding"])}
+    for i in range(config.num_layers):
+        blk = p[f"h{i}"]
+        sd.update(layer_norm(f"h.{i}.ln1", blk["ln1"]))
+        sd.update(dense(f"h.{i}.attn.qkv", blk["attn"]["qkv"]))
+        sd.update(dense(f"h.{i}.attn.out", blk["attn"]["out"]))
+        sd.update(dense(f"h.{i}.fc_in", blk["fc_in"]))
+        sd.update(dense(f"h.{i}.fc_out", blk["fc_out"]))
+    sd.update(layer_norm("ln_f", p["ln_f"]))
+    sd.update(dense("lm_head", p["lm_head"]))
     return sd
 
 

@@ -19,10 +19,14 @@ the outputs of the Linear products, as ``dots_with_no_batch_dims_saveable``
 keeps the dots without batch dimensions.
 
 KV caches are lists of ``(k_cache, v_cache, index)`` per layer.  Unlike the
-functional JAX version, ``update_kv_cache`` writes the caches in place (a
-full-size copy per layer and step would double the cache traffic).  A
-scalar ``index`` is a Python ``int``, so the flash kernel's ``q_offset``
-needs no device sync; a per-row index is a (B,) tensor.
+functional JAX version, ``update_kv_cache`` writes the caches in place,
+with one ``index_put_`` per cache (a full-size copy per layer and step
+would double the cache traffic).  A scalar ``index`` is a Python ``int``,
+so the flash kernel's ``q_offset`` needs no device sync; a per-row index is
+a (B,) tensor, and a 0-d tensor is a scalar index that a traced function
+takes as an input (on ``reference_attention``).  Traced for a pipeshard or
+sharded executable, the write stays an ``index_put_`` on the cache input,
+which the executable keeps in place (``compile_executable``).
 
 With ``attention_impl="flash"``, the cache-free forward and the prefill at
 a scalar cache index go through the flash kernel (the JAX package's
@@ -31,14 +35,19 @@ there); decode with a per-row index stays on ``reference_attention``, as in
 JAX.  ``pipeline_boundary_every=k`` calls ``mark_pipeline_boundary()``
 before every k-th block, as the JAX model does, for ``ManualLayerOption``;
 outside a pipeshard trace the call does nothing.  Inside a pipeshard trace
-``remat_blocks`` wraps each block in a ``remat_block`` marker pair, and the
-layer transform recomputes it (``remat_policy="dots"`` raises there).
+``remat_blocks`` wraps each block in a ``remat_block`` marker pair that
+carries the block's ``remat_policy``, and the layer transform recomputes
+the block under that policy (``"dots"`` keeps its ``mm``/``addmm``
+outputs).
 
 ``segment_ids`` packs several sequences into one row: tokens attend only
 within their own segment (a block-diagonal mask over the causal one, as an
 additive bias on ``reference_attention``; the flash kernel takes no bias
-operand, so a packed forward stays on the plain path, as in JAX).  Not in
-this port yet: the ring/ulysses attention variants.
+operand, so a packed forward stays on the plain path, as in JAX).  Inside a
+pipeshard trace the bias is a value of the traced graph, computed from the
+``segment_ids`` input, which each remat region reads as an input of its
+own, so one trace serves every packing.  Not in this port yet: the
+ring/ulysses attention variants.
 """
 import dataclasses
 import functools
@@ -52,6 +61,8 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from alpa_tpu_torch.ops.flash_attention import flash_attention
+from alpa_tpu_torch.pipeline_parallel.layer_construction import \
+    checkpoint_kwargs
 from alpa_tpu_torch.pipeline_parallel.primitive_def import (
     mark_pipeline_boundary, remat_block, tracing_active)
 
@@ -172,23 +183,23 @@ def update_kv_cache(kv_cache, k, v):
     """Write step K/V into the resident caches, in place, and return
     ``(k_full, v_full, new_cache)``.
 
-    ``kv_cache`` is (k_cache, v_cache, index) with an int index (uniform
-    write position) or a (B,) tensor (per-row positions for mixed-length
-    batching).  The JAX version zeroes positions at or past index + s in
-    the views it returns; here the full caches are returned as they are.
-    Those positions are masked by the caller's causal offset, so their
-    weights are exactly 0 and their (finite) contents add nothing: the
-    result is the same."""
+    ``kv_cache`` is (k_cache, v_cache, index) with an int or 0-d tensor
+    index (uniform write position) or a (B,) tensor (per-row positions for
+    mixed-length batching).  The JAX version zeroes positions at or past
+    index + s in the views it returns; here the full caches are returned
+    as they are.  Those positions are masked by the caller's causal
+    offset, so their weights are exactly 0 and their (finite) contents add
+    nothing: the result is the same."""
     k_cache, v_cache, index = kv_cache
     b, s = k.shape[0], k.shape[1]
-    if isinstance(index, int):
-        k_cache[:, index:index + s] = k
-        v_cache[:, index:index + s] = v
+    steps = torch.arange(s, device=k.device)
+    if isinstance(index, int) or index.dim() == 0:
+        cols = (index + steps).expand(b, s)
     else:
-        rows = torch.arange(b, device=k.device)[:, None]
-        cols = index[:, None] + torch.arange(s, device=k.device)[None, :]
-        k_cache.index_put_((rows, cols), k.to(k_cache.dtype))
-        v_cache.index_put_((rows, cols), v.to(v_cache.dtype))
+        cols = index[:, None] + steps[None, :]
+    rows = torch.arange(b, device=k.device)[:, None]
+    k_cache = k_cache.index_put_((rows, cols), k.to(k_cache.dtype))
+    v_cache = v_cache.index_put_((rows, cols), v.to(v_cache.dtype))
     return k_cache, v_cache, (k_cache, v_cache, index + s)
 
 
@@ -266,26 +277,8 @@ class TransformerBlock(nn.Module):
         return x, new_cache
 
 
-_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
-    Linear products (``mm``/``addmm``, no batch dimension), recompute the
-    rest, including attention's batched products."""
-    del ctx, args, kwargs
-    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
-            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
-
-
 def _remat_kwargs(config: GPTConfig) -> dict:
-    if config.remat_policy is None:
-        return {}
-    if config.remat_policy == "dots":
-        return dict(context_fn=functools.partial(
-            torch_checkpoint.create_selective_checkpoint_contexts,
-            _save_dots))
-    raise ValueError(f"unknown remat_policy {config.remat_policy!r}")
+    return checkpoint_kwargs(config.remat_policy)
 
 
 class GPTModel(nn.Module):
@@ -334,14 +327,6 @@ class GPTModel(nn.Module):
         remat = (cfg.remat_blocks and kv_caches is None and
                  torch.is_grad_enabled())
         marked = remat and tracing_active()
-        if marked and seg_bias is not None:
-            raise NotImplementedError(
-                "segment_ids inside a pipeshard trace are not ported yet")
-        if marked and cfg.remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} inside a pipeshard trace "
-                "is not ported yet (ROADMAP A.5.3): use remat_policy=None, "
-                "which recomputes each block whole")
         remat_kw = _remat_kwargs(cfg) if remat else None
         new_caches = [] if kv_caches is not None else None
         for i, block in enumerate(self.h):
@@ -350,8 +335,9 @@ class GPTModel(nn.Module):
                 mark_pipeline_boundary()
             if marked:
                 # the layer transform runs the block under checkpoint
-                x = remat_block(lambda y, blk=block: blk(y)[0], x,
-                                f"block_{i}")
+                x = remat_block(
+                    lambda y, blk=block: blk(y, attn_bias=seg_bias)[0], x,
+                    f"block_{i}", cfg.remat_policy)
                 continue
             if remat:
                 x = torch_checkpoint.checkpoint(
@@ -374,6 +360,10 @@ class GPTModel(nn.Module):
         if new_caches is not None:
             return logits, new_caches
         return logits
+
+    def init_kv_caches(self, batch_size: int, dtype=None, device=None):
+        """This family's caches (``init_kv_caches``)."""
+        return init_kv_caches(self.config, batch_size, dtype, device)
 
 
 _PARAM_SLOTS = weakref.WeakKeyDictionary()
@@ -444,19 +434,22 @@ def init_kv_caches(config: GPTConfig, batch_size: int, dtype=None,
 
 
 @torch.no_grad()
-def init_random_(model: GPTModel, seed: int = 0) -> GPTModel:
+def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill ``model``'s parameters with random values from ``seed``:
     Linear weights N(0, 1/fan_in), embeddings N(0, 1/hidden), biases 0,
     LayerNorm scale 1.  Values are drawn in fp32 on the model's device,
     parameter by parameter, and then cast, so two configs that differ only
-    in dtype or depth share their leading layers' weights."""
+    in dtype or depth share their leading layers' weights.  Any decoder
+    family of the port (GPT/OPT, BLOOM, CodeGen)."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     hidden = model.config.hidden_size
+    norms = {id(p) for m in model.modules() if isinstance(m, nn.LayerNorm)
+             for p in m.parameters(recurse=False)}
     for name, p in model.named_parameters():
         if name.endswith("bias"):
             p.zero_()
-        elif ".ln" in name or name.startswith("ln_f"):
+        elif id(p) in norms:
             p.fill_(1.0)
         else:
             std = (hidden if p.dim() == 2 and name.startswith("w")

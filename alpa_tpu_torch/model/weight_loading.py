@@ -44,7 +44,7 @@ def _np(t) -> np.ndarray:
 
 
 def _is_layer_norm(port_name: str) -> bool:
-    return ".ln" in port_name or port_name.startswith("ln_f")
+    return ".ln" in port_name or port_name.startswith("ln_")
 
 
 def _put(arr: np.ndarray, port_name: str, dtype, device) -> torch.Tensor:

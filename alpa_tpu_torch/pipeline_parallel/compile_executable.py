@@ -19,11 +19,19 @@ Counterpart of the training path of ``compile_pipeshard_executable``
      partitions it for its devices
 
 A function with no gradient marker takes the inference path, the JAX
-package's ``_compile_inference``: traced again under the layer transform
-when its trace has no layer markers, sliced into forward stages only,
+package's ``_compile_inference``: its trace is cut into layers by the
+layer option when it has no layer markers (``mark_traced_graph``: the
+graph already traced is marked and retraced, the function is not run
+again), sliced into forward stages only,
 staged with the stage DP's inference objective, run under the
 ``"inference"`` schedule with no apply-grad, donating nothing; its batch
-outputs are joined over microbatches.
+outputs are joined over microbatches.  Where such a function writes an
+input in place and nothing else reads that input (a KV cache written by
+``index_put_``, ``_input_writes``), the trace is not functionalized: the
+stage graph writes the input where it lies and hands it back as the
+output, as the function does eagerly, so a decode step neither copies a
+cache nor moves it between meshes (JAX's cache outputs keep their stage
+placement; here they keep their address too).
 """
 import re
 import time
@@ -40,12 +48,12 @@ from alpa_tpu_torch.pipeline_parallel.apply_grad import (
     compute_grad_to_accumulate_grad, partition_apply_grad,
     split_compute_grad_and_apply_grad)
 from alpa_tpu_torch.pipeline_parallel.computation import (
-    PipelineComputation, collapse_pipeline_marks,
+    PipelineComputation, collapse_pipeline_marks, is_marker_output,
     mark_missing_vars_in_backward_computation_pipeline_marks,
     merge_computations, pipeline_dce, slice_graph_by_full_pipeline_marks)
 from alpa_tpu_torch.pipeline_parallel.layer_construction import (
-    AutoLayerOption, LayerOption, collapse_remat_markers,
-    layer_level_transform, set_current_layer_option)
+    AutoLayerOption, LayerOption, collapse_remat_markers, mark_traced_graph,
+    set_current_layer_option)
 from alpa_tpu_torch.pipeline_parallel.pipeshard_executable import \
     PipeshardDriverExecutable
 from alpa_tpu_torch.pipeline_parallel.primitive_def import (is_marker,
@@ -82,12 +90,54 @@ def _fake_inputs(avals, batch_invars, num_micro_batches, device):
     return out
 
 
+def _marker_root(v: fx.Node) -> fx.Node:
+    """The value a chain of marker outputs forwards (a marker's output is
+    its operand, as ``collapse_pipeline_marks`` makes it)."""
+    while is_marker_output(v):
+        v = v.args[0].args[0][v.args[1]]
+    return v
+
+
+def _input_writes(graph: fx.Graph) -> Optional[List[fx.Node]]:
+    """The in-place ops of a forward-only ``graph`` if every one writes a
+    graph input (through marker outputs) that nothing else reads and no
+    other op writes (``detach_`` aside); None otherwise (the graph is then
+    functionalized)."""
+    writes, readers = [], {}
+    for node in graph.nodes:
+        if node.op != "call_function" or is_marker(node):
+            continue
+        for v in node.all_input_nodes:
+            readers.setdefault(_marker_root(v), []).append(node)
+        schema = getattr(node.target, "_schema", None)
+        # ``detach_`` (of a constant made in the trace) changes no value
+        if schema is not None and schema.is_mutable and \
+                node.target is not torch.ops.aten.detach_.default:
+            writes.append(node)
+    if any(is_marker(n, "grad") for n in graph.nodes):
+        return None
+    written = set()
+    for node in writes:
+        schema = node.target._schema
+        targets = [a for a, arg in zip(node.args, schema.arguments)
+                   if arg.alias_info is not None and arg.alias_info.is_write]
+        if len(targets) != 1 or not isinstance(targets[0], fx.Node):
+            return None
+        root = _marker_root(targets[0])
+        if root.op != "placeholder" or root in written or \
+                readers.get(root) != [node]:
+            return None
+        written.add(root)
+    return writes
+
+
 def trace_train_step(fun: Callable, fake_args, layer_option: LayerOption
                      ) -> fx.GraphModule:
     """The joint graph of the flat train step: traced with the layer
     option installed and the markers on, functionalized if autograd left
-    an in-place op in it, and with ``detach`` (an identity once no
-    autograd runs) dropped."""
+    an in-place op in it (a forward-only graph whose only in-place ops
+    write inputs, ``_input_writes``, keeps them), and with ``detach`` (an
+    identity once no autograd runs) dropped."""
     set_current_layer_option(layer_option)
     try:
         with pipeshard_tracing():
@@ -97,7 +147,8 @@ def trace_train_step(fun: Callable, fake_args, layer_option: LayerOption
     # a model traced outside the layer transform leaves its remat markers
     collapse_remat_markers(gm.graph)
     if any(getattr(n.target, "_schema", None) is not None and
-           n.target._schema.is_mutable for n in gm.graph.nodes):
+           n.target._schema.is_mutable for n in gm.graph.nodes) and \
+            _input_writes(gm.graph) is None:
         gm = make_fx(torch.func.functionalize(gm, remove="mutations"),
                      tracing_mode="fake")(*fake_args)
     for node in list(gm.graph.nodes):
@@ -131,8 +182,9 @@ def compile_pipeshard_executable(fun: Callable,
     if not any(is_marker(n, "grad") for n in gm.graph.nodes):
         if not any(is_marker(n, "start") for n in gm.graph.nodes):
             # a forward-only function never passes through value_and_grad,
-            # so the layer transform is applied here
-            gm = trace_train_step(layer_level_transform(fun, layer_option),
+            # so the layer transform is applied here, to the graph just
+            # traced (JAX's one trace of such a function)
+            gm = trace_train_step(mark_traced_graph(gm, layer_option),
                                   fake_args, layer_option)
         return _compile_inference(
             gm, virtual_mesh, avals, batch_invars, num_micro_batches,

@@ -20,11 +20,17 @@ recomputes the layer's forward between that layer's backward markers
 
 A block the model recomputes (GPT's ``remat_blocks``) reaches the traced
 graph between ``remat_start``/``remat_end`` markers (``remat_block``).
-``trace_loss`` drops the pair and tags the nodes between with their region,
-the counterpart of the JAX package's ``checkpoint`` eqn: the auto-layer DP
-counts their flops but takes no cut point among them, and the layer-marked
-graph runs each region as one module under non-reentrant
-``torch.utils.checkpoint``, so the backward stage recomputes the block.
+``trace_loss`` drops the pair and tags the nodes between with their region
+and its checkpoint policy, the counterpart of the JAX package's
+``checkpoint`` eqn and its ``policy``: the auto-layer DP counts their flops
+but takes no cut point among them, and the layer-marked graph runs each
+region as one module under non-reentrant ``torch.utils.checkpoint``, so
+the backward stage recomputes the block.  Under the ``"dots"`` policy
+(``checkpoint_kwargs``) the region keeps the outputs of its ``mm`` and
+``addmm`` nodes, as JAX's ``dots_with_no_batch_dims_saveable`` keeps the
+dots without batch dimensions, and the backward recomputes the rest: a
+policy sees aten ops here, and a product of a traced region is one of
+those two.
 """
 import dataclasses
 import operator
@@ -38,6 +44,7 @@ from torch.fx.experimental.proxy_tensor import (disable_proxy_modes_tracing,
                                                 make_fx)
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as torch_checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from alpa_tpu_torch.pipeline_parallel.computation import marker_outputs
 from alpa_tpu_torch.pipeline_parallel.primitive_def import (
@@ -118,34 +125,98 @@ def slice_nodes_by_boundary(graph: fx.Graph) -> List[List[fx.Node]]:
 
 
 REMAT_REGION = "remat_region"
+REMAT_POLICY = "remat_policy"
 _REMAT_MARKS = ("remat_start", "remat_end")
+
+# the products a "dots" region keeps: those without a batch dimension
+_SAVED_DOTS = (aten.mm.default, aten.addmm.default)
+
+
+class _KeepDots(TorchDispatchMode):
+    """The forward of a ``"dots"`` region: keeps each ``mm``/``addmm``
+    output, in order."""
+
+    def __init__(self, kept: list):
+        super().__init__()
+        self.kept = kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _SAVED_DOTS:
+            self.kept.append(out)
+        return out
+
+
+class _ReuseDots(TorchDispatchMode):
+    """The region's recomputation in the backward: each ``mm``/``addmm``
+    hands back the forward's output, in order, and every other op runs
+    again (attention's batched products and the flash forward included).
+    Below autograd, so the products' gradients are recorded as usual."""
+
+    def __init__(self, kept: list):
+        super().__init__()
+        self.kept = kept
+        self.next = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _SAVED_DOTS:
+            self.next += 1
+            return self.kept[self.next - 1]
+        return func(*args, **(kwargs or {}))
+
+
+def _dots_contexts():
+    kept: list = []
+    return _KeepDots(kept), _ReuseDots(kept)
+
+
+def checkpoint_kwargs(policy: Optional[str]) -> dict:
+    """The ``torch.utils.checkpoint`` keywords of a remat policy: None
+    saves nothing, ``"dots"`` the products' outputs (``context_fn``: the
+    forward keeps them, the recomputation reuses them).  The policy is
+    applied by these dispatch modes, not by ``torch.utils.checkpoint``'s
+    own selective checkpoint, which under a ``make_fx`` trace keeps every
+    output and leaves the choice to a later partitioner: a region traced
+    into a pipeshard or sharded step recomputes what the policy says."""
+    if policy is None:
+        return {}
+    if policy == "dots":
+        return dict(context_fn=_dots_contexts)
+    raise ValueError(f"unknown remat_policy {policy!r}")
 
 
 def collapse_remat_markers(graph: fx.Graph):
     """Drop the ``remat_block`` marker pairs of ``graph``, pointing each use
     of a marker's output at its operand, and tag every node between a pair
-    with ``node.meta["remat_region"]`` (a name per region)."""
-    region, count = None, 0
+    with ``node.meta["remat_region"]`` (a name per region) and
+    ``node.meta["remat_policy"]`` (the policy its marker names)."""
+    region, policy, count = None, None, 0
     for node in list(graph.nodes):
         if is_marker(node, _REMAT_MARKS):
             for i, out in marker_outputs(node).items():
                 out.replace_all_uses_with(node.args[0][i])
                 graph.erase_node(out)
             if node.args[2] == "remat_start":
-                region, count = f"{marker_name(node)}#{count}", count + 1
+                name, _, policy = marker_name(node).partition("@")
+                region, count = f"{name}#{count}", count + 1
+                policy = policy or None
+                checkpoint_kwargs(policy)   # an unknown policy raises here
             else:
-                region = None
+                region = policy = None
             graph.erase_node(node)
         elif region is not None and node.op == "call_function":
             node.meta[REMAT_REGION] = region
+            node.meta[REMAT_POLICY] = policy
 
 
 def _remove_dead_nodes(graph: fx.Graph):
     """Drop compute nodes nothing uses (autograd's saved-tensor detaches);
-    boundaries stay."""
+    boundaries and in-place writes stay."""
     for node in reversed(list(graph.nodes)):
+        schema = getattr(node.target, "_schema", None)
         if (node.op == "call_function" and not node.users and
-                not is_boundary(node)):
+                not is_boundary(node) and
+                not (schema is not None and schema.is_mutable)):
             graph.erase_node(node)
 
 
@@ -303,19 +374,21 @@ def _layer_io(gm: fx.GraphModule, sliced: List[List[fx.Node]]):
 
 
 class _Checkpointed(torch.nn.Module):
-    """A remat region's nodes, run under non-reentrant checkpoint when a
-    gradient flows through them."""
+    """A remat region's nodes, run under non-reentrant checkpoint with the
+    region's policy when a gradient flows through them."""
 
-    def __init__(self, inner: fx.GraphModule):
+    def __init__(self, inner: fx.GraphModule, policy: Optional[str] = None):
         super().__init__()
         self.inner = inner
+        self.policy = policy
 
     def forward(self, *args):
         if torch.is_grad_enabled() and any(
                 isinstance(a, torch.Tensor) and a.requires_grad
                 for a in args):
-            return torch_checkpoint.checkpoint(self.inner, *args,
-                                               use_reentrant=False)
+            return torch_checkpoint.checkpoint(
+                self.inner, *args, use_reentrant=False,
+                **checkpoint_kwargs(self.policy))
         return self.inner(*args)
 
 
@@ -347,7 +420,8 @@ def _copy_nodes(gm: fx.GraphModule, new: fx.Graph, group: List[fx.Node],
             env[n] = sub.node_copy(n, lambda v: env[v])
         sub.output([env[v] for v in outvars])
         name = f"_remat_{len([m for m in gm.children()])}"
-        gm.add_submodule(name, _Checkpointed(fx.GraphModule(gm, sub)))
+        gm.add_submodule(name, _Checkpointed(
+            fx.GraphModule(gm, sub), group[i].meta.get(REMAT_POLICY)))
         call = new.call_module(name, tuple(local[v] for v in invars))
         for k, v in enumerate(outvars):
             local[v] = new.call_function(operator.getitem, (call, k))
@@ -488,6 +562,19 @@ def layer_level_transform(fn: Callable, layer_option: LayerOption
         return pytree.tree_unflatten(run(*tensors), out_spec)
 
     return wrapped
+
+
+def mark_traced_graph(gm: fx.GraphModule, layer_option: LayerOption
+                      ) -> Callable:
+    """What ``layer_level_transform`` runs, from a graph already traced
+    with the markers on (flat tensors in, a flat list out): the
+    compiler's first trace of a forward-only function, marked without
+    tracing the function again."""
+    _remove_dead_nodes(gm.graph)
+    gm.recompile()
+    sliced = slice_layers(gm, layer_option)
+    return (_remat_by_layer(gm, sliced) if layer_option.remat_layer
+            else add_pipeline_marks_for_sliced_nodes(gm, sliced))
 
 
 def manual_remat(fun: Optional[Callable] = None):

@@ -944,6 +944,8 @@ class PipeshardDriverExecutable:
         self.executed_intra_mesh_bytes = 0.0
         self._keep_ptrs: set = set()
         self.last_dispatch_stats: Dict[str, Any] = {}
+        # the bytes the last launch copied, per input and per output
+        self.last_copies: Dict[str, Dict[int, int]] = {"in": {}, "out": {}}
         # CUDA graphs: the first call warms up, the second captures; a mesh
         # of several devices runs its partitioned program uncaptured, and
         # so does the rest of its executable (ROADMAP A.3.2), as does a
@@ -1319,6 +1321,7 @@ class PipeshardDriverExecutable:
         mode = self._dispatch_mode()
         self._ensure_verified(mode)
         inputs = self._unshare_written_inputs(flat_args)
+        self.last_copies = {"in": {}, "out": {}}
         self._moved = 0
         self.executed_cross_mesh_bytes = 0.0
         self.executed_intra_mesh_bytes = 0.0
@@ -1431,8 +1434,13 @@ class PipeshardDriverExecutable:
             for x, d in zip(flat_args, self.donated_invars)
             if isinstance(x, torch.Tensor) and not d}
         env: Dict[Tuple[Any, int, int], Any] = {}
-        for key, x, _ in self._placements(inputs):
+        for key, x, i in self._placements(inputs):
             env[key] = x
+            if not (isinstance(inputs[i], torch.Tensor) and
+                    isinstance(x, torch.Tensor) and
+                    x.untyped_storage().data_ptr() ==
+                    inputs[i].untyped_storage().data_ptr()):
+                self._count_copy("in", i, x)
         for acc, m in self.acc_allocs:
             env[(acc, -1, m)] = self._zero_accumulator(acc, m)
         runs, transfers = self._eager_tables()
@@ -1898,6 +1906,7 @@ class PipeshardDriverExecutable:
                 continue
             buf = torch.empty_like(x, memory_format=torch.contiguous_format)
             buf.copy_(x)
+            self._count_copy("in", i, buf)
             env[key] = step.static[key] = buf
             if self.batch_invars[i]:
                 step.batch_loads.append((i, key[1], m, buf))
@@ -2039,10 +2048,12 @@ class PipeshardDriverExecutable:
                                self.mesh_devices[m])
                 buf.copy_(x.chunk(self.num_micro_batches)[mb],
                           non_blocking=True)
+            self._count_copy("in", i, buf)
         for i, m, buf in step.copy_loads:
             x = inputs[i]
             if isinstance(x, torch.Tensor) and x.data_ptr() == buf.data_ptr():
                 continue   # the buffer the last step handed back
+            self._count_copy("in", i, buf)
             with torch.cuda.stream(streams[m]):
                 if isinstance(x, torch.Tensor) and x.is_cuda:
                     x.record_stream(streams[m])
@@ -2112,17 +2123,24 @@ class PipeshardDriverExecutable:
                     i, buf = feedback[j]
                     if x.data_ptr() != buf.data_ptr():
                         buf.copy_(x)
+                        self._count_copy("out", j, buf)
                     x = buf.detach()
                     step.handed[i] = weakref.ref(x)
                 elif copy_out and isinstance(x, torch.Tensor) and \
                         x.untyped_storage().data_ptr() not in user:
                     x = x.clone()
+                    self._count_copy("out", j, x)
                 outs.append(x)
             else:
                 v, meshes = payload
                 vals = [get((v, mb, m)) for mb, m in meshes]
                 if n_mb == 1:
-                    outs.append(vals[0].clone() if copy_out else vals[0])
+                    x = vals[0]
+                    if copy_out and x.untyped_storage().data_ptr() \
+                            not in user:
+                        x = x.clone()
+                        self._count_copy("out", j, x)
+                    outs.append(x)
                 elif vals[0].dim() >= 1:
                     dev = self.mesh_devices[meshes[0][1]]
                     outs.append(torch.cat([x.to(dev) for x in vals]))
@@ -2134,6 +2152,17 @@ class PipeshardDriverExecutable:
                         "return per-example values or use "
                         "num_micro_batches=1.")
         return outs
+
+    def _count_copy(self, kind: str, idx: int, x):
+        table = self.last_copies[kind]
+        table[idx] = table.get(idx, 0) + sum(
+            t.numel() * t.element_size() for t in _tensors(x))
+
+    def get_copy_stats(self) -> Dict[str, Dict[int, int]]:
+        """The bytes the last launch copied: ``"in"`` per flat input (into a
+        buffer of the step, a microbatch slice or another device or dtype)
+        and ``"out"`` per flat output (out of a CUDA graph's memory)."""
+        return {k: dict(v) for k, v in self.last_copies.items()}
 
     def _unshare_written_inputs(self, flat_args):
         """The arguments, with a copy of each one an apply graph writes in

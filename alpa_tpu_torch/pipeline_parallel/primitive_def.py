@@ -32,7 +32,7 @@ auto-layer DP never cuts, and runs the region under
 import itertools
 import threading
 from contextlib import contextmanager
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -152,10 +152,15 @@ def _mark(values, name: str, mark_type: str):
     return pytree.tree_unflatten(leaves, spec)
 
 
-def remat_block(fn, x: torch.Tensor, name: str) -> torch.Tensor:
+def remat_block(fn, x: torch.Tensor, name: str,
+                policy: Optional[str] = None) -> torch.Tensor:
     """``fn(x)`` between a ``remat_start`` and a ``remat_end`` marker named
     ``name`` (inside a pipeshard trace only): the layer transform recomputes
-    the nodes between them in the backward pass, as one region."""
+    the nodes between them in the backward pass, as one region, under the
+    checkpoint ``policy`` (None: save nothing; "dots": keep the products'
+    outputs), which rides in the marker's name as ``name@policy``."""
+    if policy is not None:
+        name = f"{name}@{policy}"
     (x,) = pipeline_marker([x], name, "remat_start")
     (y,) = pipeline_marker([fn(x)], name, "remat_end")
     return y

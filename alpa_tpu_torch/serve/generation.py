@@ -17,20 +17,44 @@ Speculative decoding (``generate_speculative``) draws on the host from
 sampled tokens match JAX's under one seed as far as the logits agree;
 greedy speculation gives exactly the tokens of greedy ``generate``.  Beam
 search (``generate_beam``) prefills once and reorders the beams' stacked
-caches with an ``index_select`` per step.
+caches in place, with an ``index_select`` per step.
 
-Not ported yet: ``parallel_method``.
+The Generator serves any decoder family that keeps the JAX contract
+``model(input_ids, position_ids, kv_caches) -> (logits, caches)`` and
+makes its caches with ``model.init_kv_caches`` (GPT/OPT, BLOOM, CodeGen).
+
+``parallel_method`` (JAX's meaning): the four model calls (prefill,
+decode, chunked prefill and speculation's verify) go through
+``parallelize(..., method=parallel_method, donate_argnums=())``, with the
+weights passed as an argument (``torch.func.functional_call`` over the
+model's own tensors, so the ``params`` setter reaches what the stages
+read) and the caches as arguments that come back as outputs.  Under
+``PipeshardParallel(pipeline_schedule="inference")`` each stage writes its
+layers' caches in place and hands them back, so a decode step neither
+moves nor copies a cache; the caches of each batch size are allocated
+once and reused by every ``generate``, so a captured step reads them at
+the same addresses.  The write index enters as a tensor (per row; the
+chunk start as a per-row vector), so one trace serves every position;
+bucketed prefill writes at the int index 0, which keeps the flash kernel
+on the prefill.  A method that hands caches back elsewhere (a sharded
+mesh, as ``DistributedArray``s) has them copied back into the caches
+passed, so every path keeps the in-place contract.
+``prefill_traces``/``decode_traces`` count the traces taken (one per
+executable under the pipeshard method, whose compiler marks the layers
+of the graph it traced).
 """
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from alpa_tpu_torch.api import parallelize
+from alpa_tpu_torch.device_mesh import DistributedArray
 from alpa_tpu_torch.model.gpt_model import (GPTConfig, GPTModel,
                                             config_from_opt_spec,
-                                            config_from_spec,
-                                            init_kv_caches, init_random_)
+                                            config_from_spec, init_random_)
 from alpa_tpu_torch.platform import get_device, to_device
 from alpa_tpu_torch.serve.kv_cache import stacked_kv_caches
 
@@ -137,7 +161,8 @@ def default_prompt_buckets(seq_len: int) -> List[int]:
 
 
 class Generator:
-    """Prefill + decode loop over a GPT-family model.
+    """Prefill + decode loop over a decoder model (GPT/OPT, BLOOM,
+    CodeGen).
 
     Prompts are right-padded to the bucket ladder.  Right padding is safe:
     the causal mask bounds attention to positions before each row's write
@@ -148,14 +173,21 @@ class Generator:
     ``prefill_chunk``: chunked prefill; prompts stream through the cached
     path in fixed-size chunks written at a scalar cache index.
 
+    ``parallel_method``: a ``ParallelMethod`` the model calls run under
+    (see the module docstring), e.g. ``PipeshardParallel(
+    pipeline_schedule="inference")`` with a model that marks its pipeline
+    boundaries.
+
     ``prefill_calls`` / ``decode_calls`` / ``verify_calls`` count model
     calls of each kind (a verify call is speculative decoding's forward of
-    several tokens at the per-row index).
+    several tokens at the per-row index); ``prefill_traces`` /
+    ``decode_traces`` the traces of the parallelized calls.
     """
 
-    def __init__(self, model: GPTModel, config: GPTConfig,
+    def __init__(self, model: torch.nn.Module, config,
                  prompt_buckets: Optional[Sequence[int]] = None,
-                 prefill_chunk: Optional[int] = None, device=None):
+                 prefill_chunk: Optional[int] = None, device=None,
+                 parallel_method=None):
         self.device = get_device(device)
         self.model = model.to(self.device).eval()
         self.config = config
@@ -165,6 +197,135 @@ class Generator:
         self.prefill_calls = 0
         self.decode_calls = 0
         self.verify_calls = 0
+        self.prefill_traces = 0
+        self.decode_traces = 0
+        self.parallel_method = parallel_method
+        self._steps: Dict[str, Any] = {}
+        # kind -> the cache bytes the last call copied back
+        self._copied_back: Dict[str, int] = {}
+        # (batch size, role) -> the caches the parallelized calls reuse
+        self._kv_pool: Dict[Any, List] = {}
+        if parallel_method is not None:
+            self._build_parallel_steps()
+
+    def _build_parallel_steps(self):
+        """The four model calls as parallelized functions of (weights,
+        batch arguments, caches), JAX's ``prefill``/``decode``/
+        ``chunk_prefill``/``verify``."""
+        model = self.model
+        # views of the model's own tensors: the setter writes into them
+        self._weights = {k: p.detach() for k, p in model.named_parameters()}
+
+        def traced(kind, x):
+            if isinstance(x, FakeTensor):
+                setattr(self, kind, getattr(self, kind) + 1)
+
+        def run(params, ids, pos, kv, index):
+            logits, caches = torch.func.functional_call(
+                model, params, (ids, pos, [(k, v, index) for k, v in kv]))
+            return logits, [(k, v) for k, v, _ in caches]
+
+        def prefill(params, ids, lengths, kv):
+            traced("prefill_traces", ids)
+            logits, kv = run(params, ids, None, kv, 0)
+            rows = torch.arange(ids.shape[0], device=ids.device)
+            return logits[rows, lengths - 1], kv
+
+        def decode(params, token, index, kv):
+            traced("decode_traces", token)
+            logits, kv = run(params, token[:, None], index[:, None], kv,
+                             index)
+            return logits[:, 0, :], kv
+
+        def chunk_prefill(params, ids, lengths, start, last, kv):
+            """One chunk at the per-row start ``start`` (all rows equal);
+            ``last`` keeps each row's final-token logits."""
+            traced("prefill_traces", ids)
+            b, c = ids.shape
+            pos = start[:, None] + torch.arange(c, device=ids.device)
+            logits, kv = run(params, ids, pos, kv, start)
+            off = lengths - 1 - start
+            hit = (off >= 0) & (off < c)
+            sel = logits[torch.arange(b, device=ids.device),
+                         off.clamp(0, c - 1)]
+            return torch.where(hit[:, None], sel, last), kv
+
+        def verify(params, toks, index, kv):
+            pos = index[:, None] + torch.arange(toks.shape[1],
+                                                device=toks.device)
+            return run(params, toks, pos, kv, index)
+
+        method = self.parallel_method
+        for name, fn, batch in (("prefill", prefill, (1, 2)),
+                                ("decode", decode, (1, 2)),
+                                ("chunk_prefill", chunk_prefill,
+                                 (1, 2, 3, 4)),
+                                ("verify", verify, (1, 2))):
+            self._steps[name] = parallelize(fn, method=method,
+                                            donate_argnums=(),
+                                            batch_argnums=batch)
+
+    def get_executable(self, kind: str = "decode"):
+        """The executable the last parallelized ``kind`` call ran
+        ("prefill", "decode", "chunk_prefill" or "verify")."""
+        return self._steps[kind].get_last_executable()
+
+    def get_cache_traffic(self, kind: str = "decode") -> Dict[str, int]:
+        """What the last parallelized ``kind`` call did to the caches: the
+        RESHARD instructions of its program that move a cache
+        (``"reshards"``; pipeshard executables) and the bytes copied into
+        or out of a cache (``"copied_bytes"``: by a pipeshard launch, and
+        back into the caches passed where the call handed them back
+        elsewhere)."""
+        ex = self.get_executable(kind)
+        copied = self._copied_back.get(kind, 0)
+        if not hasattr(ex, "get_copy_stats"):
+            return {"reshards": 0, "copied_bytes": copied}
+        first = len(self._weights) + len(self._steps[kind].batch_argnums)
+        n = 2 * self.config.num_layers
+        caches_in = set(range(first, first + n))
+        index = {v: i for i, v in enumerate(ex.global_invars)}
+        reshards = sum(1 for inst in ex.instructions
+                       if inst.opcode.name == "RESHARD" and
+                       index.get(inst.var_key[0]) in caches_in)
+        copies = ex.get_copy_stats()
+        copied += (sum(b for i, b in copies["in"].items() if i in caches_in)
+                   + sum(b for j, b in copies["out"].items()
+                         if 1 <= j <= n))
+        return {"reshards": reshards, "copied_bytes": copied}
+
+    def _local(self, x):
+        return x.gather(self.device) if isinstance(x, DistributedArray) \
+            else x
+
+    def _call(self, kind, *args, caches):
+        """The parallelized ``kind`` on ``args`` and ``caches`` (triples);
+        returns its first output and the caches, written in place (a
+        cache handed back elsewhere is copied into the one passed)."""
+        kv = [(k, v) for k, v, _ in caches]
+        out, new = self._steps[kind](self._weights, *args, kv)
+        copied = 0
+        for (k, v), (k2, v2) in zip(kv, new):
+            for t, t2 in ((k, k2), (v, v2)):
+                if not (isinstance(t2, torch.Tensor) and
+                        t2.data_ptr() == t.data_ptr()):
+                    t.copy_(self._local(t2))
+                    copied += t.numel() * t.element_size()
+        self._copied_back[kind] = copied
+        return self._local(out), kv
+
+    def _caches(self, b: int, role: str = "main"):
+        """Caches for ``b`` rows at index 0: new ones, or under a parallel
+        method the ones of (``b``, ``role``) allocated at their first use
+        (a captured step reads them where they lie)."""
+        if self.parallel_method is None:
+            return self.model.init_kv_caches(b, device=self.device)
+        key = (b, role)
+        if key not in self._kv_pool:
+            self._kv_pool[key] = [
+                (k, v) for k, v, _ in
+                self.model.init_kv_caches(b, device=self.device)]
+        return [(k, v, 0) for k, v in self._kv_pool[key]]
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -176,7 +337,8 @@ class Generator:
     def params(self, new: Dict[str, torch.Tensor]):
         """Copy ``new`` (the same names, shapes and dtypes) into the
         model's own tensors: every address stays, so a captured decode
-        tick reads the new weights (a hot swap's pointer flip)."""
+        tick, and under a parallel method every stage, reads the new
+        weights (a hot swap's pointer flip)."""
         own = self.model.state_dict()
         if set(new) != set(own):
             raise ValueError(
@@ -206,14 +368,18 @@ class Generator:
             ids[i, :len(p)] = p
         return to_device(torch.from_numpy(ids), self.device)
 
-    def _run_bucketed_prefill(self, prompts, lengths, caches=None):
+    def _run_bucketed_prefill(self, prompts, lengths, caches=None,
+                              role="main"):
         """Right-pad to the bucket ladder and prefill at cache index 0,
         into ``caches`` (written in place) or new ones."""
         b = len(prompts)
         ids = self._ids(prompts, self._bucket_len(int(lengths.max())))
         if caches is None:
-            caches = init_kv_caches(self.config, b, device=self.device)
+            caches = self._caches(b, role)
         self.prefill_calls += 1
+        if self._steps:
+            last, kv = self._call("prefill", ids, lengths, caches=caches)
+            return last, [(kc, vc, lengths) for kc, vc in kv]
         logits, caches = self.model(ids, None, caches)
         last = logits[torch.arange(b, device=self.device), lengths - 1]
         # per-row cache indices: each row continues at its own length
@@ -244,19 +410,27 @@ class Generator:
                 f"seq_len or a shorter prompt")
         ids = self._ids(prompts, n_chunks * c)
         if caches is None:
-            caches = init_kv_caches(self.config, b, device=self.device)
+            caches = self._caches(b)
         last = init_last
         if last is None:
             last = torch.zeros((b, self.config.vocab_size),
                                dtype=self.config.dtype, device=self.device)
         rows = torch.arange(b, device=self.device)
         for ci in range(n_chunks):
-            start = caches[0][2]                      # scalar chunk start
-            pos = start + torch.arange(c, device=self.device).expand(b, c)
             self.prefill_calls += 1
-            logits, caches = self.model(ids[:, ci * c:(ci + 1) * c], pos,
-                                        caches)
-            off = lengths - 1 - start
+            chunk = ids[:, ci * c:(ci + 1) * c]
+            if self._steps:
+                # the chunk start as a per-row vector: one trace for all
+                begin = torch.full((b,), start + ci * c, dtype=torch.int64,
+                                   device=self.device)
+                last, kv = self._call("chunk_prefill", chunk, lengths,
+                                      begin, last, caches=caches)
+                caches = [(kc, vc, start + (ci + 1) * c) for kc, vc in kv]
+                continue
+            begin = caches[0][2]                      # scalar chunk start
+            pos = begin + torch.arange(c, device=self.device).expand(b, c)
+            logits, caches = self.model(chunk, pos, caches)
+            off = lengths - 1 - begin
             hit = (off >= 0) & (off < c)
             sel = logits[rows, off.clamp(0, c - 1)]
             last = torch.where(hit[:, None], sel, last)
@@ -273,6 +447,10 @@ class Generator:
         with torch.inference_mode():
             lengths = torch.tensor([len(p)], device=self.device)
             last, caches = self._run_chunked_prefill([p], lengths)
+            if self.parallel_method is not None:
+                # the pooled caches are reused: the handle keeps a copy
+                caches = [(kc.clone(), vc.clone(), i)
+                          for (kc, vc, i) in caches]
         # the scalar index again: suffix chunks continue from it
         caches = [(kc, vc, len(p)) for (kc, vc, _i) in caches]
         return PrefixHandle(caches=caches, length=len(p), last_logits=last,
@@ -287,6 +465,9 @@ class Generator:
 
     def _decode(self, token, index, caches):
         self.decode_calls += 1
+        if self._steps:
+            logits, kv = self._call("decode", token, index, caches=caches)
+            return logits, [(kc, vc, index + 1) for kc, vc in kv]
         logits, caches = self.model(token[:, None], index[:, None], caches)
         return logits[:, 0, :], caches
 
@@ -339,8 +520,14 @@ class Generator:
         lengths = torch.from_numpy(lengths_np).to(self.device)
         if prefix is not None:
             # a copy of the prefix K/V per row: the prefill writes in place
-            init = [(kc.repeat(b, 1, 1, 1), vc.repeat(b, 1, 1, 1), idx)
-                    for (kc, vc, idx) in prefix.caches]
+            if self.parallel_method is None:
+                init = [(kc.repeat(b, 1, 1, 1), vc.repeat(b, 1, 1, 1), idx)
+                        for (kc, vc, idx) in prefix.caches]
+            else:
+                init = [(kc.copy_(pk.expand_as(kc)),
+                         vc.copy_(pv.expand_as(vc)), idx)
+                        for (kc, vc, _), (pk, pv, idx) in zip(
+                            self._caches(b), prefix.caches)]
             logits, caches = self._run_chunked_prefill(
                 prompts, lengths, b, caches=init, start=plen,
                 init_last=prefix.last_logits.repeat(b, 1))
@@ -433,7 +620,9 @@ class Generator:
             return _sample_from_probs(p, np_rng.uniform())
 
         t_logits, t_caches = self._spec_prefill(self, prompt)
-        _, d_caches = self._spec_prefill(draft, prompt)
+        # a generator drafting for itself keeps its draft caches apart
+        _, d_caches = self._spec_prefill(
+            draft, prompt, "draft" if draft is self else "main")
         pending = pick_target(t_logits)
         generated = [pending]
         stats = {"rounds": 0, "proposed": 0, "accepted": 0}
@@ -510,21 +699,26 @@ class Generator:
                          self.device)
 
     @staticmethod
-    def _spec_prefill(gen: "Generator", prompt):
+    def _spec_prefill(gen: "Generator", prompt, role="main"):
         """One prompt prefilled by ``gen``'s own path (chunked or
         bucketed); the caches continue at the per-row index."""
         lengths = gen._ints([len(prompt)])
+        caches = gen._caches(1, role)
         if gen.prefill_chunk:
-            return gen._run_chunked_prefill([prompt], lengths)
-        return gen._run_bucketed_prefill([prompt], lengths)
+            return gen._run_chunked_prefill([prompt], lengths, caches=caches)
+        return gen._run_bucketed_prefill([prompt], lengths, caches=caches)
 
     def _verify(self, toks, caches):
         """The verify leg: ``toks`` (B, s) written at the per-row index in
         one cached forward, all s logits returned (on
         ``reference_attention``, as every per-row-index forward)."""
         b, s = toks.shape
-        pos = caches[0][2][:, None] + torch.arange(s, device=self.device)
+        index = caches[0][2]
         self.verify_calls += 1
+        if self._steps:
+            logits, kv = self._call("verify", toks, index, caches=caches)
+            return logits, [(kc, vc, index + s) for kc, vc in kv]
+        pos = index[:, None] + torch.arange(s, device=self.device)
         return self.model(toks, pos, caches)
 
     # ---- beam search ----
@@ -603,7 +797,8 @@ class Generator:
             if t == max_new_tokens - 1 or (
                     eos_token_id is not None and bool(finished.all())):
                 break
-            kv = kv.index_select(2, beam_idx)
+            # in place: the caches keep their addresses from step to step
+            kv.copy_(kv.index_select(2, beam_idx))
             caches = [(kv[0, i], kv[1, i],
                        torch.full((k,), index, dtype=torch.int64,
                                   device=self.device))
@@ -614,27 +809,48 @@ class Generator:
         best = int(torch.argmax(norm))
         return beams[best:best + 1].cpu().numpy().astype(np.int32)
 
+def _family(config):
+    """The model class of a config: GPT/OPT, BLOOM or CodeGen."""
+    from alpa_tpu_torch.model.bloom_model import BloomConfig, BloomModel
+    from alpa_tpu_torch.model.codegen_model import (CodeGenConfig,
+                                                    CodeGenModel)
+    return {GPTConfig: GPTModel, BloomConfig: BloomModel,
+            CodeGenConfig: CodeGenModel}[type(config)]
+
+
+def config_from_name(name: str):
+    """The config of a ladder name: "gpt-125M", "opt-1.3b", "bloom-560m"
+    or "codegen-350m"."""
+    from alpa_tpu_torch.model.bloom_model import config_from_bloom_spec
+    from alpa_tpu_torch.model.codegen_model import config_from_codegen_spec
+    low = name.lower()
+    if low.startswith("opt"):
+        return config_from_opt_spec(name)
+    if low.startswith("bloom"):
+        return config_from_bloom_spec(name)
+    if low.startswith("codegen"):
+        return config_from_codegen_spec(name)
+    return config_from_spec(name.split("-")[-1])
+
+
 def get_model(name_or_config, params=None, seed: int = 0,
-              device=None) -> Generator:
+              device=None, parallel_method=None) -> Generator:
     """Build a servable Generator.
 
-    ``name_or_config``: a GPTConfig, or a ladder name like "gpt-125M" /
-    "opt-1.3b".  Weights are random from ``seed`` unless ``params`` (a
-    state dict, e.g. from ``model.convert.gpt_params_from_flax``) is given.
-    ``device`` defaults to CUDA and raises when CUDA is missing.
+    ``name_or_config``: a ``GPTConfig``, ``BloomConfig`` or
+    ``CodeGenConfig``, or a ladder name (``config_from_name``).  Weights
+    are random from ``seed`` unless ``params`` (a state dict, e.g. from
+    ``model.convert.gpt_params_from_flax``) is given.  ``device`` defaults
+    to CUDA and raises when CUDA is missing; ``parallel_method`` is the
+    Generator's.
     """
     device = get_device(device)
-    if isinstance(name_or_config, GPTConfig):
-        config = name_or_config
-    else:
-        name = str(name_or_config)
-        if name.lower().startswith("opt"):
-            config = config_from_opt_spec(name)
-        else:
-            config = config_from_spec(name.split("-")[-1])
-    model = GPTModel(config, device=device)
+    config = (name_or_config if not isinstance(name_or_config, str)
+              else config_from_name(name_or_config))
+    model = _family(config)(config, device=device)
     if params is None:
         init_random_(model, seed)
     else:
         model.load_state_dict(params)
-    return Generator(model, config, device=device)
+    return Generator(model, config, device=device,
+                     parallel_method=parallel_method)

@@ -61,12 +61,12 @@ Phases, each reported on its own line:
    parameters to 1e-4 of their tensor's largest value where the step-0
    gradient is at least 1e-2 of the tensor's largest, to Adam's bound of
    2 x lr x steps elsewhere (``param_diffs``).  Full
-   width at ``PIPESHARD_LAYERS`` (12) of its 24 layers (every pipeshard
-   phase's depth, a boundary after the sixth block), bf16 compute, fp32
+   width at ``PIPESHARD_LAYERS`` (6) of its 24 layers (every pipeshard
+   phase's depth, a boundary after the third block), bf16 compute, fp32
    params and Adam, no remat, batch 8 in 4 microbatches, 3 warm-up and 5
    timed steps: a finite loss that falls, the first step's loss within
    1e-2 relative of one ``ShardParallel`` step from the same state and
-   batch, and exactly 4 x 12 forward, dq and dk/dv launches per step;
+   batch, and exactly 4 x 6 forward, dq and dk/dv launches per step;
    step time, tokens/s,
    TFLOPS, MFU, the allocated peak of the replayed steps beside the CUDA
    graphs' pools, trace and build time, the instruction counts and the
@@ -84,16 +84,16 @@ Phases, each reported on its own line:
    uncaptured peak;
 8b. pipeshard remat blocks: phase 8 with ``remat_blocks=True`` (GPT's
    per-block remat inside the pipeshard trace): first loss within 1e-2 of
-   ``ShardParallel``'s on the same config, 192 forward launches per step,
-   step and peak beside phase 8's;
+   ``ShardParallel``'s on the same config, 8 x 6 forward launches per
+   step, step and peak beside phase 8's;
 9. pipeshard auto-layer fidelity: the fidelity check of phase 8 for 4
    layers without boundaries under ``AutoLayerOption(layer_num=4,
    remat_layer=True)``;
 10. pipeshard auto: the README's headline form at phase 8's width and depth,
-   GPT-1.3B with no boundaries under ``AutoLayerOption(layer_num=8,
+   GPT-1.3B with no boundaries under ``AutoLayerOption(layer_num=4,
    remat_layer=True)`` and ``UniformStageOption(2)``, 4 microbatches, 1F1B,
    as phase 8 measures it (first loss within 1e-6 of ``ShardParallel``'s,
-   192 forward launches per step: each block's forward runs again in its
+   8 x 6 forward launches per step: each block's forward runs again in its
    layer's backward), with the layer cuts (blocks and flops per layer);
    then one step under ``get_3d_parallel_method(dp=1, op=1, pp=2)`` and one
    under ``AutoStageOption`` on one card (the stage DP's partition, solver
@@ -101,19 +101,19 @@ Phases, each reported on its own line:
 11. pipeshard infer: a forward-only ``parallelize``d function returning
    GPT-1.3B's logits under ``PipeshardParallel`` (2 stages x 4
    microbatches, the ``"inference"`` schedule, batch 8): logits against the
-   eager forward at bf16 tolerance, 96 forward and no backward launch per
-   call, call time, host time, device share and tokens/s;
+   eager forward at bf16 tolerance, 4 x 6 forward and no backward launch
+   per call, call time, host time, device share and tokens/s;
 12. shard grad-acc: fidelity first, GPT-1.3B's width at 4 layers in fp32,
    batch 8, ``ShardParallel(num_micro_batches=4)`` against eager
    ``ShardParallel()`` from the same weights (phase 8's checks: step-0
    gradients to 1e-4 of each tensor's largest, over 2 Adam steps losses to
    1e-5 relative and parameters by ``param_diffs``); then ``bench.py``'s
-   GPT-1.3B step at full width and 12 of its 24 layers (bf16 compute,
+   GPT-1.3B step at full width and 6 of its 24 layers (bf16 compute,
    fp32 params and
    Adam, flash, per-block remat) under ``ShardParallel(
    num_micro_batches=4)``, batch 32 (phase 6's batch of 8 per
-   microbatch): 3 warm-up and 5 timed steps, exactly 192 forward, 96 dq
-   and 96 dk/dv launches per step, a finite loss that falls, the first
+   microbatch): 3 warm-up and 5 timed steps, exactly 8 x 6 forward, 4 x 6
+   dq and 4 x 6 dk/dv launches per step, a finite loss that falls, the first
    loss within 1e-2 relative of the mean of four eager forward losses of
    the same state on the microbatches; step time, tokens/s, TFLOPS, MFU,
    trace and compile seconds, peak allocated memory beside phase 6's, then
@@ -140,7 +140,7 @@ Phases, each reported on its own line:
    1e-5 relative and parameters to 1e-5 of each tensor's largest, and 4 x
    the one-device flash launches; the plan's specs and the collectives
    per step by kind and bytes;
-15. spmd: phase 6's GPT-1.3B at ``SPMD_LAYERS`` (12) of its 24 layers
+15. spmd: phase 6's GPT-1.3B at ``SPMD_LAYERS`` (6) of its 24 layers
    (full width, bf16 compute, fp32 params and Adam, flash, per-block
    remat, batch 8) under ``ShardParallel`` with
    the ILP's mesh-shape search and under ``Zero2Parallel``, each over the
@@ -168,8 +168,8 @@ Phases, each reported on its own line:
    first pipeshard with one stage on the card and one on the host; then
    ``AutoStageOption`` on the card named 4 times: its partition,
    submeshes and solve seconds, and its first loss;
-16. two-level: phase 8's GPT-1.3B (12 layers, bf16 compute, fp32 params
-   and Adam, flash, no remat, a boundary after 6 blocks, batch 8 in 4
+16. two-level: phase 8's GPT-1.3B (6 layers, bf16 compute, fp32 params
+   and Adam, flash, no remat, a boundary after 3 blocks, batch 8 in 4
    microbatches, 1F1B) in two stages of two virtual devices each (the card
    named 4 times), each stage planned by the ILP and run by the SPMD
    partitioner, values moved between the stage meshes as tiles; held to
@@ -196,7 +196,7 @@ Phases, each reported on its own line:
    ``AutoStageOption(profiling_mode="measured")`` on GPT at hidden 2048
    and 4 layers: the partition, each stage's analytic and measured
    seconds beside its RUN time, ``alpa_cost_model_drift_ratio``; (d)
-   phase 13's planner (12 layers) on the card named twice, cold, warm in
+   phase 13's planner (6 layers) on the card named twice, cold, warm in
    the process and warm in a subprocess over a disk cache: identical
    plans, the hits, the solve seconds; (e) after phase 4b's requests,
    ``GET /metrics``: the ``alpa_serving_*`` and ``alpa_kv_*`` families,
@@ -224,7 +224,8 @@ Phases, each reported on its own line:
    until recovery, ``check_alive`` and ``WedgeDetector`` ``ok``.  The
    checkpoints go under a temporary directory, removed after.
 
-19. the rest of serving, OPT-1.3B (bf16, flash, 24 layers, seed 0) with
+19. the rest of serving, OPT-1.3B (bf16, flash, ``SERVING_REST_LAYERS``
+   of its 24 layers, seed 0) with
    OPT-125M (seed 1) as the draft: (a) greedy ``generate_speculative``
    (4 drafts a round) with the OPT-125M draft and with the target as its
    own draft, 4 prompts of 32-480 tokens and 64 new tokens, equal to
@@ -293,6 +294,32 @@ plan's ILP objective beside the measured step, peak memory per card;
 then phase 16 over the four cards (two stages of two cards, NCCL inside
 each), direct and tiled, held to phase 8's step by phase 16's bounds.
 
+21. serving families and pipelined serving: (a) OPT-1.3B (24 layers,
+   bf16, flash, a boundary after 12 blocks) behind
+   ``Generator(parallel_method=PipeshardParallel(num_micro_batches=1,
+   ManualLayerOption(), UniformStageOption(2), "inference"))``, its two
+   stages on phase 8's devices, and behind the plain ``Generator`` on the
+   same weights: phase 4's 4 prompts (37-511 tokens), 32 greedy new
+   tokens, three ``generate`` calls (traced and warm, captured, replayed);
+   the tokens equal the plain ones (phase 4b's near-tie rule), the trace
+   counts stay flat after the first call, no RESHARD and no copy of a
+   cache in a decode step after warm-up, one capture and no recapture,
+   24 flash-forward launches per prefill call; ms per token of both
+   paths, the decode step's time (CUDA events) and the peak memory;
+   (b) BLOOM-560m and CodeGen-350M at their ladders' widths and depths
+   (bf16, random weights from the seed): the cached decode (a 64-token
+   prefill, 8 decode steps) against the full-context forward at the same
+   positions (``FAMILY_LOGIT_REL``), and at 2 layers in fp32 to 1e-4;
+   phase 4's prompts through the plain Generator of each and BLOOM-560m
+   pipelined in two stages, whose tokens equal the plain ones (near-tie
+   rule); ms per token; (c) phase 8's GPT-1.3B (6 layers, bf16, a
+   boundary after 3 blocks, 4 microbatches, 1F1B) with per-block remat
+   under ``remat_policy="dots"``, and with packed rows (``segment_ids``,
+   positions restarting per segment): the first loss to 1e-2 relative and
+   Adam's first moment to ``TWO_LEVEL_GRAD_TOL`` of the same step run
+   eagerly, the step time beside phase 8's (the CPU tests hold both
+   steps to the JAX package's in fp32).
+
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels as JSON.
@@ -300,6 +327,7 @@ and the line before it lists the kernels as JSON.
 import concurrent.futures
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import re
@@ -320,7 +348,12 @@ from alpa_tpu_torch import (AutoLayerOption, AutoStageOption,
                             UniformStageOption, get_3d_parallel_method)
 from alpa_tpu_torch.model.gpt_model import (GPTModel, config_from_opt_spec,
                                             config_from_spec, init_random_)
-from alpa_tpu_torch.model.model_util import (TrainState, adam, gpt_lm_loss,
+from alpa_tpu_torch.model.bloom_model import (BloomModel,
+                                             config_from_bloom_spec)
+from alpa_tpu_torch.model.codegen_model import (CodeGenModel,
+                                               config_from_codegen_spec)
+from alpa_tpu_torch.model.model_util import (TrainState, adam,
+                                             cross_entropy_loss, gpt_lm_loss,
                                              make_apply_fn, sgd)
 from alpa_tpu_torch.ops import _build
 from alpa_tpu_torch.ops import flash_attention as fa
@@ -343,6 +376,12 @@ ENGINE_REQUESTS = 16
 ENGINE_NEW_TOKENS = 64
 ENGINE_ROWS = 4
 ENGINE_CHUNK = 128
+# the longest wait of phase 4b's profile for its rows to be admitted
+# and its ticks to run, in seconds
+ENGINE_PROFILE_TIMEOUT = 120
+# the whole run's own limit in seconds, from the start of main(); the run
+# is given 1200 s
+WATCHDOG_S = 1140
 # two bf16 paths through 24 layers (a solo B=1 decode against the engine's
 # B=4 tick) may order a near-tie differently: a divergence is accepted
 # only where the two tokens' logits lie within this many logit units of
@@ -812,25 +851,54 @@ def near_tie_divergence(model, prompt, got, want):
     return pos, max(abs(a - b), top - min(a, b))
 
 
-def profile_engine_ticks(engine, ticks, label, top=8):
+def profile_engine_ticks(engine, start_work, ticks, label, top=8):
     """``torch.profiler`` over ``ticks`` decode ticks of a live engine: the
     busy time (the union of kernel intervals) per tick and its share of
     the profiled span, the wall time per tick, and the ``top`` heaviest
-    kernels by device time per tick."""
+    kernels by device time per tick.  The profiler is set up on the idle
+    engine; ``start_work()`` then submits the rows and returns their
+    streams.  Recording starts once every row is admitted and 5 ticks
+    have run, and stops after ``ticks`` ticks or when the rows finish,
+    whichever comes first.  Every wait ends within
+    ``ENGINE_PROFILE_TIMEOUT`` seconds or fails the phase.  Returns the
+    profile (None when no tick was recorded) and the streams."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        start = engine.decode_steps
-        tic = time.perf_counter()
-        while engine.decode_steps < start + ticks:
+    deadline = time.monotonic() + ENGINE_PROFILE_TIMEOUT
+
+    def wait_for(cond, what):
+        while not cond():
+            check(time.monotonic() < deadline, f"{label}: {what} within "
+                  f"{ENGINE_PROFILE_TIMEOUT} s")
             time.sleep(0.001)
-        wall = time.perf_counter() - tic
-        done = engine.decode_steps - start
+
+    # warm-up is the profiler's set-up (CUPTI's included); the one active
+    # step is the recorded window
+    window = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=activities,
+                                schedule=window) as prof:
+        streams = start_work()
+        wait_for(lambda: int(engine._active.sum()) >= len(streams),
+                 "every row admitted")
+        admitted = engine.decode_steps
+        wait_for(lambda: engine.decode_steps >= admitted + 5,
+                 "the prefills done")
+        # counted from just before the step() that starts the recording
+        # (ticks run while it starts) to just before the one that stops
+        # it (the engine's thread waits for the GIL while it stops)
+        start, tic = engine.decode_steps, time.perf_counter()
+        prof.step()
+        wait_for(lambda: (engine.decode_steps >= start + ticks or
+                          not engine._active.any()), f"{ticks} ticks")
+        done, wall = engine.decode_steps - start, time.perf_counter() - tic
+        prof.step()
+    if done == 0:
+        return None, streams
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        return None
+        return None, streams
     busy_us, reach = 0.0, spans[0][0]
     for s0, e0 in spans:
         busy_us += max(0.0, e0 - max(s0, reach))
@@ -847,7 +915,7 @@ def profile_engine_ticks(engine, ticks, label, top=8):
               f"time: {e.key[:110]}")
     return {"ticks": done, "wall_s_per_tick": wall / done,
             "busy_s_per_tick": busy_us / 1e6 / done,
-            "busy_share": busy_us / (reach - spans[0][0])}
+            "busy_share": busy_us / (reach - spans[0][0])}, streams
 
 
 def phase_engine():
@@ -1028,15 +1096,14 @@ def phase_engine():
           f"engine captures {paged.decode_captures}, replays "
           f"{paged.decode_replays} for {paged.decode_steps} ticks")
     # decode at steady state: four long requests, profiled for 50 ticks
-    with paged._cv:
-        long_streams = [paged.submit_stream(p, GenerationConfig(
-            max_new_tokens=300)) for p in prompts[:ENGINE_ROWS]]
-    while paged._active.sum() < ENGINE_ROWS:
-        time.sleep(0.001)
-    admitted = paged.decode_steps
-    while paged.decode_steps < admitted + 5:    # the prefills are done
-        time.sleep(0.001)
-    profile = profile_engine_ticks(paged, 50, label)
+
+    def long_requests():
+        with paged._cv:
+            return [paged.submit_stream(p, GenerationConfig(
+                max_new_tokens=300)) for p in prompts[:ENGINE_ROWS]]
+
+    profile, long_streams = profile_engine_ticks(paged, long_requests, 50,
+                                                 label)
     for stream in long_streams:
         list(stream)
     paged.shutdown()
@@ -1137,9 +1204,9 @@ def phase_fidelity():
     check(diff < 1e-3, f"fp32 logits differ by {diff}")
 
 
-def make_train_step(method=None, donate_argnums=(0,)):
+def make_train_step(method=None, donate_argnums=(0,), loss_of=gpt_lm_loss):
     """``bench.py``'s train step, through the port (``ShardParallel()`` by
-    default)."""
+    default); ``loss_of(apply_fn, params, batch)``."""
 
     @alpa_tpu_torch.parallelize(
         method=method or alpa_tpu_torch.ShardParallel(),
@@ -1147,7 +1214,7 @@ def make_train_step(method=None, donate_argnums=(0,)):
     def train_step(state, batch):
 
         def loss_fn(p):
-            return gpt_lm_loss(state.apply_fn, p, batch)
+            return loss_of(state.apply_fn, p, batch)
 
         loss, grads = alpa_tpu_torch.value_and_grad(loss_fn)(state.params)
         return state.apply_gradients(grads=grads), loss
@@ -2201,7 +2268,7 @@ def phase_calibration(joined):
 
 
 def compile_cache_plan(cache_dir=None):
-    """Phase 13's planner (GPT-1.3B at 12 layers, batch 8) on the card
+    """Phase 13's planner (GPT-1.3B at ``SPMD_LAYERS``, batch 8) on the card
     named twice, through the compile cache: ``(plan, seconds, stats)``,
     the plan as its shape, specs and strategy vector."""
     from alpa_tpu_torch.compile_cache import (CompileCache,
@@ -2214,7 +2281,8 @@ def compile_cache_plan(cache_dir=None):
     if cache_dir is not None:
         reset_compile_cache(CompileCache(cache_dir=cache_dir))
     cfg = dataclasses.replace(config_from_spec(
-        "1.3B", dtype=torch.bfloat16, attention_impl="flash"), num_layers=12)
+        "1.3B", dtype=torch.bfloat16, attention_impl="flash"),
+        num_layers=SPMD_LAYERS)
     fun, avals, paths, bidx = planned_step(cfg, 8, "cuda")
     traced = trace_flat(fun, avals, torch.device("cuda"))
     tic = time.perf_counter()
@@ -2258,7 +2326,8 @@ def phase_compile_cache():
     check(out.returncode == 0, f"compile cache subprocess failed: "
           f"{out.stderr[-2000:]}")
     child = json.loads(out.stdout.strip().splitlines()[-1])
-    print(f"compile cache [{card_line()}]: GPT-1.3B planner (12 layers) on "
+    print(f"compile cache [{card_line()}]: GPT-1.3B planner "
+          f"({SPMD_LAYERS} layers) on "
           f"the card named twice, shape {cold['shape']}: cold "
           f"{cold_s:.3f} s ({cold_st}), warm in process {warm_s:.3f} s "
           f"({warm_st}), warm in a subprocess over {tmp} "
@@ -2442,7 +2511,8 @@ def phase_pipeshard_infer():
 def phase_pipeshard_auto(shard_profile, ref_loss=None):
     """The README's headline form at full width and phase 8's depth:
     GPT-1.3B with no
-    boundaries, ``AutoLayerOption(layer_num=8, remat_layer=True)``, 2
+    boundaries, ``AutoLayerOption(layer_num=AUTO_LAYER_NUM,
+    remat_layer=True)``, 2
     uniform stages, 4 microbatches, 1F1B; each block's flash forward runs
     twice (the recompute).  Prints the layer cuts; then one step under
     ``get_3d_parallel_method`` (dp = op = 1, pp = 2) and one under
@@ -2454,14 +2524,16 @@ def phase_pipeshard_auto(shard_profile, ref_loss=None):
     if ref_loss is None:
         ref_loss = shard_first_loss(cfg, batch)
     label = "pipeshard auto"
-    run = timed_pipeshard(label, cfg, auto_pipeshard_method(4, 8), batch,
+    run = timed_pipeshard(label, cfg,
+                          auto_pipeshard_method(4, AUTO_LAYER_NUM), batch,
                           ref_loss, 1e-6, shard_profile, forward_runs=2)
     counts, ex = run["counts"], run["ex"]
     del run
     flash = torch.ops.alpa_tpu_torch.flash_fwd.default
     cuts = [(sum(n.target is flash for n in c.nodes),
              sum(node_flops(n) for n in c.nodes)) for c in ex.fwd_layer_comps]
-    check(len(cuts) == 8 and sum(b for b, _ in cuts) == cfg.num_layers,
+    check(len(cuts) == AUTO_LAYER_NUM and
+          sum(b for b, _ in cuts) == cfg.num_layers,
           f"{label}: layer cuts {cuts}")
     print(f"{label} layers: (blocks, forward flops per microbatch by "
           f"node_flops) {cuts}; stages {len(ex.fwd_layer_comps)} layers in "
@@ -2480,7 +2552,8 @@ def phase_pipeshard_auto(shard_profile, ref_loss=None):
           f"{ref_loss}")
     del ex
 
-    method = auto_pipeshard_method(4, 8, devices=stage_devices()[:1],
+    method = auto_pipeshard_method(4, AUTO_LAYER_NUM,
+                                   devices=stage_devices()[:1],
                                    stage_option=AutoStageOption())
     loss, ex = first_loss(method, cfg, batch)
     rel = abs(loss - ref_loss) / abs(ref_loss)
@@ -2491,7 +2564,7 @@ def phase_pipeshard_auto(shard_profile, ref_loss=None):
           f"DP with its cost tensor {info['seconds']:.6f} s; first loss "
           f"{loss:.6f}, {rel:.3e} relative to ShardParallel (tol 1e-6)")
     check(info["solver"].startswith("native") and
-          info["partition"] == [(0, 8, (1, 1))],
+          info["partition"] == [(0, AUTO_LAYER_NUM, (1, 1))],
           f"{label}: stage DP {info}")
     check(rel <= 1e-6, f"{label}: AutoStageOption's first loss {loss} vs "
           f"{ref_loss}")
@@ -2664,7 +2737,8 @@ def planned_step(cfg, batch_size, device):
 
 def phase_planner(device="cuda"):
     """Phase 13: ``plan_auto_sharding`` on GPT-1.3B's train step (full
-    width, depth cut to 12 layers to keep the run's time, batch 8, bf16,
+    width, depth cut to ``SPMD_LAYERS`` to keep the run's time, batch 8,
+    bf16,
     flash, Adam), traced once on fake
     tensors, for the card's one-device mesh and a virtual 8-device mesh
     (the card named 8 times): the search's shapes, graph sizes, build and
@@ -2678,7 +2752,8 @@ def phase_planner(device="cuda"):
     from alpa_tpu_torch.shard_parallel.strategy import Edge
     from alpa_tpu_torch.global_env import global_config as gconf
     cfg = dataclasses.replace(config_from_spec(
-        "1.3B", dtype=torch.bfloat16, attention_impl="flash"), num_layers=12)
+        "1.3B", dtype=torch.bfloat16, attention_impl="flash"),
+        num_layers=SPMD_LAYERS)
     fun, avals, paths, bidx = planned_step(cfg, 8, device)
     tic = time.perf_counter()
     traced = trace_flat(fun, avals, torch.device(device))
@@ -2919,14 +2994,20 @@ def adam_bound(steps):
 # first moment by a share of 1, not of 1e-2.
 SPMD_LOSS_TOL = 1e-4
 SPMD_GRAD_TOL = 1e-2
-# the depth of phases 8-12 and 15-18: half of GPT-1.3B's 24 layers at its
-# full width, so that the whole run stays inside its time limit as phases
-# are added (the plans and the checks do not depend on the depth; phases
-# 6 and 13 and --four-cards keep 24); the pipeshard phases cut it into two
-# stages at the middle
-SPMD_LAYERS = 12
-PIPESHARD_LAYERS = 12
+# the depth of phases 8-13, 15-18 and 21c: a quarter of GPT-1.3B's 24
+# layers at its full width, so that the whole run stays inside its time
+# limit on a slower host as phases are added (the plans and the checks do
+# not depend on the depth; phase 6 and --four-cards keep 24); the
+# pipeshard phases cut it into two stages at the middle.  12 layers read
+# 880.5 s and, on a host 1.24x slower, 1088.0 s for the whole run
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+SPMD_LAYERS = 6
+PIPESHARD_LAYERS = 6
 PIPESHARD_BOUNDARY = PIPESHARD_LAYERS // 2
+# phase 10's automatic layers: AutoLayerOption's clustering keeps every
+# layer within (1 + eps) of an equal share of the flops, and at 6 blocks
+# the LM head's product alone takes a quarter of them, so 4 layers
+AUTO_LAYER_NUM = 4
 SPMD_PARAM_TOL = 0.25
 # Phase 16's first-moment bound, at cuBLAS's default configuration.  The
 # two-level step runs each stage's products on one device's rows where
@@ -3520,8 +3601,8 @@ def two_level_reference(cfg, batch, devices):
 
 
 def phase_pipeshard_spmd(phase8):
-    """Phase 16: phase 8's GPT-1.3B (12 layers, bf16 compute, fp32 params
-    and Adam, flash, no remat, a boundary after 6 blocks, batch 8 in 4
+    """Phase 16: phase 8's GPT-1.3B (6 layers, bf16 compute, fp32 params
+    and Adam, flash, no remat, a boundary after 3 blocks, batch 8 in 4
     microbatches, 1F1B) under the two-level plan: two stages of two
     virtual devices each (the card named 4 times), each planned by the
     ILP and run by the SPMD partitioner, values moved between the stage
@@ -4702,6 +4783,13 @@ ROUTER_NEW_TOKENS = 16
 # once) and the draft's (one row) are two bf16 paths through the same
 # weights, which may order a near-tie differently
 SELF_DRAFT_MIN_ACCEPT = 0.75
+# phase 19's depth: 6 of OPT-1.3B's 24 layers at its full width since
+# phase 21 joined the run (its host-bound decodes scale with the depth;
+# its checks do not depend on it), so that the whole run stays well
+# inside its time limit on a slower host: 979.4 s with 24 layers, 880.5 s
+# with 12 and 1088.0 s with 12 on a host 1.24x slower (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SERVING_REST_LAYERS = 6
 
 
 def sync(device):
@@ -4730,9 +4818,12 @@ def count_prefills(*gens):
 
 
 def serving_models(device, cfg=None, draft_cfg=None):
-    """OPT-1.3B (seed 0) and OPT-125M (seed 1), bf16, flash attention."""
-    cfg = cfg or config_from_opt_spec("1.3b", dtype=torch.bfloat16,
-                                      attention_impl="flash")
+    """OPT-1.3B (seed 0, ``SERVING_REST_LAYERS`` layers) and OPT-125M
+    (seed 1), bf16, flash attention."""
+    cfg = cfg or dataclasses.replace(
+        config_from_opt_spec("1.3b", dtype=torch.bfloat16,
+                             attention_impl="flash"),
+        num_layers=SERVING_REST_LAYERS)
     draft_cfg = draft_cfg or config_from_opt_spec(
         "125m", dtype=torch.bfloat16, attention_impl="flash")
     model = GPTModel(cfg, device=device)
@@ -5663,8 +5754,350 @@ def phase_plan_analyses():
     return counts
 
 
+# ---------------------------------------------------------------------
+# phase 21: serving families and pipelined serving
+# ---------------------------------------------------------------------
+
+# the cached decode (rows of one token over the whole cache) against the
+# full-context forward: two bf16 paths through 24 layers whose products
+# run at other shapes, so their roundings part in the residual stream and
+# every logit moves by a share of the logits' scale, small ones too; held
+# to 2e-2 of the largest |logit| (five bf16 ulps of it); the same paths
+# in fp32 (2 layers) to 1e-4.  A first bound of atol = rtol = 5e-2 per
+# element read BLOOM-560m's 6.641e-02 at a logit near 0.1 (max |logit|
+# 8.875; NVIDIA H100 80GB HBM3, 700.00 W), where the fp32 paths agree to
+# 1.907e-05: the bf16 paths' rounding, not a fault
+FAMILY_LOGIT_REL = 2e-2
+FAMILY_PREFILL, FAMILY_DECODE = 64, 8
+
+
+def serving_pipeshard():
+    """21a's method: two stages of one device (phase 8's), one
+    microbatch, the ``"inference"`` schedule."""
+    return PipeshardParallel(devices=stage_devices(), num_micro_batches=1,
+                             layer_option=ManualLayerOption(),
+                             stage_option=UniformStageOption(num_stages=2),
+                             pipeline_schedule="inference")
+
+
+def family_prompts(vocab):
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n) for n in PROMPT_LENGTHS]
+
+
+def timed_generate(gen, prompts):
+    """``gen``'s greedy tokens for ``prompts`` (``NEW_TOKENS`` each) and
+    the call's ms per new token (prefill included)."""
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = gen.generate(prompts, GenerationConfig(max_new_tokens=NEW_TOKENS))
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - tic) * 1e3 / NEW_TOKENS
+
+
+def decode_step_ms(gen, b):
+    """The device time of one decode call of ``b`` rows (CUDA events over
+    20 calls after 3) on ``gen``'s caches, at the per-row index where the
+    longest prompt's generation ends."""
+    with torch.inference_mode():
+        caches = gen._caches(b)
+        tok = torch.ones(b, dtype=torch.int64, device="cuda")
+        index = torch.full((b,), max(PROMPT_LENGTHS) + NEW_TOKENS,
+                           dtype=torch.int64, device="cuda")
+        return cuda_ms(lambda: gen._decode(tok, index, caches))
+
+
+def hold_tokens(model, prompts, got, want, label):
+    """Phase 4b's rule row by row; the rows that are equal."""
+    same = 0
+    for p, g, w in zip(prompts, got, want):
+        tie = same_or_near_tie(model, p, list(g[len(p):]),
+                               list(w[len(p):]), label)
+        same += tie is None
+    return same
+
+
+def phase_pipelined_serving():
+    """21a; returns its flash-forward launches."""
+    label = "21a pipelined serving"
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config_from_opt_spec("1.3b", dtype=torch.bfloat16,
+                               attention_impl="flash",
+                               pipeline_boundary_every=12)
+    model = GPTModel(cfg, device="cuda")
+    init_random_(model, SEED)
+    prompts = family_prompts(cfg.vocab_size)
+    plain = Generator(model, cfg, device="cuda")
+    piped = Generator(model, cfg, device="cuda",
+                      parallel_method=serving_pipeshard())
+    reset_launch_counts()
+    timed_generate(plain, prompts)
+    want, plain_ms = timed_generate(plain, prompts)
+    plain_launches = launch_counts()[0]
+    check(plain_launches == 2 * cfg.num_layers,
+          f"{label}: the plain prefills launched {plain_launches} times")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    outs, times, traces = [], [], []
+    for _ in range(3):
+        got, ms = timed_generate(piped, prompts)
+        outs.append(got)
+        times.append(ms)
+        traces.append((piped.prefill_traces, piped.decode_traces))
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()[0]
+    calls = piped.prefill_calls
+    dec, pre = piped.get_executable("decode"), piped.get_executable("prefill")
+    traffic = {k: piped.get_cache_traffic(k) for k in ("prefill", "decode")}
+    same = [hold_tokens(model, prompts, got, want, label) for got in outs]
+    plain_step = decode_step_ms(plain, len(prompts))
+    piped_step = decode_step_ms(piped, len(prompts))
+    card = card_line()
+    print(f"{label}: OPT-1.3B ({cfg.num_layers} layers, bf16, flash, a "
+          f"boundary after 12 blocks), {len(prompts)} prompts of "
+          f"{PROMPT_LENGTHS} tokens, {NEW_TOKENS} greedy new tokens, "
+          f"{dec.num_fwd_stages} stages on {stage_devices()}; rows equal to "
+          f"the plain Generator's per call {same} of {len(prompts)} (the "
+          f"others part at a near-tie); traces (prefill, decode) after each "
+          f"call {traces}; flash-forward launches {launches} over {calls} "
+          f"prefill calls; cache traffic per call (RESHARDs, bytes copied) "
+          f"{traffic}; decode RESHARDs {dec.get_instruction_counts()}, "
+          f"captures {dec.capture_count}, recaptures {dec.recapture_count}; "
+          f"prefill captures {pre.capture_count}, recaptures "
+          f"{pre.recapture_count}; plan verdicts {pre.get_plan_verdict().ok}, "
+          f"{dec.get_plan_verdict().ok}")
+    print(f"{label} metrics [{card}]: ms per new token (prefill included) "
+          f"plain {plain_ms:.3f}, pipelined per call "
+          f"{['%.3f' % t for t in times]}; decode step (B={len(prompts)}, "
+          f"CUDA events) plain {plain_step:.3f} ms, pipelined "
+          f"{piped_step:.3f} ms; peak allocated over the pipelined calls "
+          f"{peak / 2**30:.3f} GiB; trace seconds prefill "
+          f"{pre.trace_seconds:.3f}, decode {dec.trace_seconds:.3f}")
+    check(traces[1] == traces[0] and traces[2] == traces[0],
+          f"{label}: trace counts moved across calls: {traces}")
+    check(launches == cfg.num_layers * calls, f"{label}: {launches} "
+          f"flash-forward launches over {calls} prefill calls")
+    check(all(t == {"reshards": 0, "copied_bytes": 0}
+              for t in traffic.values()),
+          f"{label}: a step moved or copied a cache: {traffic}")
+    check(dec.capture_count == 1 and dec.recapture_count == 0 and
+          dec.last_dispatch_stats.get("graphs"),
+          f"{label}: decode did not replay one capture: "
+          f"{dec.last_dispatch_stats}")
+    check(pre.get_plan_verdict().ok and dec.get_plan_verdict().ok,
+          f"{label}: a plan failed the verifier")
+    del plain, piped, model, dec, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return plain_launches + launches
+
+
+def family_fidelity(make_cfg, model_cls, layers=None):
+    """The cached decode (``FAMILY_PREFILL`` tokens prefilled, then
+    ``FAMILY_DECODE`` one at a time) against the full-context forward at
+    the same positions: the largest |diff|, the largest |logit| and the
+    largest violation of atol = rtol = 1e-4."""
+    cfg = make_cfg()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = model_cls(cfg, device="cuda")
+    init_random_(model, SEED)
+    ids = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, FAMILY_PREFILL + FAMILY_DECODE)),
+        device="cuda")
+    with torch.inference_mode():
+        full = model(ids).float()
+        logits, caches = model(ids[:, :FAMILY_PREFILL], None,
+                               model.init_kv_caches(2, device="cuda"))
+        steps = [logits.float()]
+        for t in range(FAMILY_PREFILL, FAMILY_PREFILL + FAMILY_DECODE):
+            step, caches = model(ids[:, t:t + 1], None, caches)
+            steps.append(step.float())
+    cached = torch.cat(steps, dim=1)
+    diff = float((cached - full).abs().max())
+    worst = max_violation(cached, full, atol=1e-4, rtol=1e-4)
+    del model, caches
+    torch.cuda.empty_cache()
+    return diff, float(full.abs().max()), worst
+
+
+def phase_serving_families():
+    """21b; returns nothing (the families run the plain attention)."""
+    label = "21b serving families"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16 = torch.bfloat16
+    families = (
+        ("BLOOM-560m", lambda dtype=bf16: config_from_bloom_spec(
+            "bloom-560m", dtype=dtype, pipeline_boundary_every=12),
+         BloomModel),
+        ("CodeGen-350M", lambda dtype=bf16: config_from_codegen_spec(
+            "codegen-350m", dtype=dtype, pipeline_boundary_every=10),
+         CodeGenModel))
+    for name, make_cfg, model_cls in families:
+        fp32 = family_fidelity(lambda: make_cfg(torch.float32), model_cls,
+                               2)
+        full = family_fidelity(make_cfg, model_cls)
+        cfg = make_cfg()
+        print(f"{label}: {name} (hidden {cfg.hidden_size}, "
+              f"{cfg.num_layers} layers, {cfg.num_heads} heads): cached "
+              f"decode ({FAMILY_PREFILL}-token prefill, {FAMILY_DECODE} "
+              f"steps) vs full-context forward, bf16 at full depth max "
+              f"|diff| {full[0]:.3e} = {full[0] / full[1]:.3e} of max "
+              f"|logit| {full[1]:.3f} (tol {FAMILY_LOGIT_REL}); fp32 at 2 "
+              f"layers max |diff| {fp32[0]:.3e}, violation {fp32[2]:.3e} "
+              f"(atol 1e-4, rtol 1e-4)")
+        check(full[0] <= FAMILY_LOGIT_REL * full[1] and fp32[2] <= 0,
+              f"{label}: {name}'s cached decode differs from the "
+              f"full-context forward: {full}, {fp32}")
+        model = model_cls(cfg, device="cuda")
+        init_random_(model, SEED)
+        prompts = family_prompts(cfg.vocab_size)
+        plain = Generator(model, cfg, device="cuda")
+        want, plain_ms = timed_generate(plain, prompts)
+        line = f"{label} metrics [{card_line()}]: {name} ms per new token " \
+            f"(prefill included, {len(prompts)} prompts of " \
+            f"{PROMPT_LENGTHS}) plain {plain_ms:.3f}"
+        if model_cls is BloomModel:
+            piped = Generator(model, cfg, device="cuda",
+                              parallel_method=serving_pipeshard())
+            times, same = [], []
+            for _ in range(2):
+                got, ms = timed_generate(piped, prompts)
+                times.append(ms)
+                same.append(hold_tokens(model, prompts, got, want, label))
+            traffic = piped.get_cache_traffic("decode")
+            line += (f", pipelined in 2 stages {['%.3f' % t for t in times]}"
+                     f" (rows equal to plain per call {same} of "
+                     f"{len(prompts)}; decode cache traffic {traffic})")
+            check(traffic == {"reshards": 0, "copied_bytes": 0},
+                  f"{label}: {name}'s decode moved or copied a cache: "
+                  f"{traffic}")
+            del piped
+        print(line)
+        del plain, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def packed_lm_batch(cfg, batch_size):
+    """``lm_batch`` with each row packed: segments of 64-511 tokens, the
+    positions restarting at each, the last 16 tokens padding (-1)."""
+    batch = lm_batch(cfg, batch_size)
+    rng = np.random.default_rng(SEED + 1)
+    seg = np.full((batch_size, cfg.seq_len), -1, np.int64)
+    pos = np.zeros((batch_size, cfg.seq_len), np.int64)
+    for r in range(batch_size):
+        start, i = 0, 0
+        while start < cfg.seq_len - 16:
+            end = min(start + int(rng.integers(64, 512)), cfg.seq_len - 16)
+            seg[r, start:end] = i
+            pos[r, start:end] = np.arange(end - start)
+            start, i = end, i + 1
+    batch["segment_ids"], batch["position_ids"] = seg, pos
+    return batch
+
+
+def packed_loss(apply_fn, params, batch):
+    logits = apply_fn(params, batch["input_ids"], batch["position_ids"],
+                      segment_ids=batch["segment_ids"])
+    return cross_entropy_loss(logits.float(), batch["labels"])
+
+
+def remat_policy_run(label, cfg, batch, method, loss, steps):
+    """One Adam step from the seed state eagerly and ``steps`` under the
+    pipeshard ``method``: both first losses, the first moment's max |diff|
+    / max |mu| per tensor after one step, the replayed steps' time and the
+    run's flash launches."""
+    state = train_state(cfg)
+    ref_step = make_train_step(shard_method(), loss_of=loss)
+    state, ref_loss = ref_step(state, batch)
+    ref_loss, ref_mu = float(ref_loss), gathered_mu(state)
+    del state, ref_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = train_state(cfg)
+    step = make_train_step(method, loss_of=loss)
+    reset_launch_counts()
+    state, first = step(state, batch)
+    first = float(first)
+    mu = max_rel_diff(gathered_mu(state), ref_mu)
+    counts = launch_counts()
+    times = []
+    for _ in range(steps - 1):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        state, loss_t = step(state, batch)
+        float(loss_t)
+        times.append(time.perf_counter() - tic)
+    ex = step.get_last_executable()
+    out = dict(loss=first, ref=ref_loss, mu=mu,
+               step=min(times) if times else float("nan"),
+               trace=ex.trace_seconds, counts=launch_counts(),
+               first_counts=counts)
+    del state, step, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeshard_remat_policy(phase8):
+    """21c; returns its (fwd, dq, dkv) launches."""
+    label = "21c pipeshard remat policy and packing"
+    total = (0, 0, 0)
+    variants = (("dots", dict(remat_blocks=True, remat_policy="dots"),
+                 gpt_lm_loss, lm_batch),
+                ("packed", dict(remat_blocks=True), packed_loss,
+                 packed_lm_batch))
+    for name, kw, loss, make_batch in variants:
+        cfg = pipeshard_config(pipeline_boundary_every=PIPESHARD_BOUNDARY,
+                               **kw)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in make_batch(cfg, 8).items()}
+        run = remat_policy_run(label, cfg, batch, pipeshard_method(4), loss,
+                               5)
+        rel = abs(run["loss"] - run["ref"]) / abs(run["ref"])
+        worst = max(run["mu"], key=run["mu"].get)
+        print(f"{label}: {name}, GPT-1.3B at {cfg.num_layers} layers (bf16, "
+              f"flash), batch 8 in 4 microbatches, 1F1B: first loss "
+              f"{run['loss']:.6f} vs eager {run['ref']:.6f} (relative "
+              f"{rel:.3e}, tol 1e-2); first moment max |diff| / max |mu| "
+              f"{run['mu'][worst]:.3e} at {worst} (tol "
+              f"{TWO_LEVEL_GRAD_TOL}); launches (fwd, dq, dkv) of the first "
+              f"step {run['first_counts']}; trace {run['trace']:.3f} s")
+        print(f"{label} metrics [{card_line()}]: {name} step "
+              f"{run['step']:.5f} s (replayed, best of 4) vs phase 8's "
+              f"{phase8['latency']:.5f} s (no remat, unpacked)")
+        check(rel <= 1e-2 and run["mu"][worst] <= TWO_LEVEL_GRAD_TOL,
+              f"{label}: {name} differs from the eager step")
+        if name == "dots":
+            want = (2 * cfg.num_layers * 4, cfg.num_layers * 4,
+                    cfg.num_layers * 4)
+            check(run["first_counts"] == want, f"{label}: dots launches "
+                  f"{run['first_counts']}, want {want}")
+        total = tuple(a + b for a, b in zip(total, run["counts"]))
+    return total
+
+
+def phase_families(phase8):
+    """Phase 21 (a-c): the launches of 21a and of 21c by path."""
+    served = timed("serving families (a)", phase_pipelined_serving)
+    timed("serving families (b)", phase_serving_families)
+    trained = timed("serving families (c)", phase_pipeshard_remat_policy,
+                    phase8)
+    return {"serving_pipelined": (served, 0, 0),
+            "pipeshard_remat_policy": trained}
+
+
 def timed(name, fn, *args):
-    """``fn(*args)``, printing its wall time as the phase's."""
+    """``fn(*args)``, printing its wall time as the phase's; its start goes
+    to standard error too, so that the error stream's end names the phase
+    a stopped run was in."""
+    print(f"phase start: {name}", file=sys.stderr, flush=True)
     tic = time.perf_counter()
     out = fn(*args)
     print(f"phase time: {name} {time.perf_counter() - tic:.2f} s")
@@ -5682,6 +6115,10 @@ def main(args) -> int:
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    if not args:
+        # a run past its own limit prints every thread's stack to standard
+        # error and exits with 1, before the 1200 s it is given run out
+        faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     print(f"setup: {card_line()}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     build_kernels()
@@ -5729,6 +6166,8 @@ def main(args) -> int:
         swap = timed("faults and state (e)", phase_serving_swap)
         rest = timed("serving rest", phase_serving_rest)
         analyses = timed("plan analyses", phase_plan_analyses)
+        families = timed("serving families and pipelined serving",
+                         phase_families, phase8)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5738,7 +6177,8 @@ def main(args) -> int:
                              + remat[0] + auto[0] + infer + acc[0] + spmd[0]
                              + two_level[0] + tiled[0] + traced[0]
                              + faults[0] + swap[0] + analyses[0]
-                             + sum(v[0] for v in rest.values()))
+                             + sum(v[0] for v in rest.values())
+                             + sum(v[0] for v in families.values()))
     fwd_entry["launches_by_path"] = {"serving": serving,
                                      "serving_engine": engine[0],
                                      "training": train_fwd,
@@ -5754,7 +6194,9 @@ def main(args) -> int:
                                      "fault_recovery": faults[0],
                                      "serving_swap": swap[0],
                                      "pipeshard_superopt": analyses[0],
-                                     **{k: v[0] for k, v in rest.items()}}
+                                     **{k: v[0] for k, v in rest.items()},
+                                     **{k: v[0] for k, v in
+                                        families.items()}}
     fwd_entry["at_training_shape"] = fwd_train
     fwd_entry["at_engine_suffix_shape"] = fwd_engine
     for part, (entry, e, n, p, r, a, g, m, t, b, tr, fr, sw,
@@ -5762,7 +6204,8 @@ def main(args) -> int:
             bwd_entries, engine[1:], (train_dq, train_dkv), pipe[1:],
             remat[1:], auto[1:], acc[1:], spmd[1:], two_level[1:],
             tiled[1:], traced[1:], faults[1:], swap[1:], analyses[1:])):
-        served = {k: v[1 + part] for k, v in rest.items()}
+        served = {k: v[1 + part] for k, v in
+                  list(rest.items()) + list(families.items())}
         entry["launches"] = (e + n + p + r + a + g + m + t + b + tr + fr + sw
                              + so + sum(served.values()))
         entry["launches_by_path"] = {"serving_engine": e,
@@ -5778,6 +6221,7 @@ def main(args) -> int:
                                      "fault_recovery": fr,
                                      "serving_swap": sw,
                                      "pipeshard_superopt": so, **served}
+    faulthandler.cancel_dump_traceback_later()
     print(f"run time: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")
     print(card_line())

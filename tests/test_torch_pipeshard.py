@@ -465,11 +465,6 @@ def test_unported_options_raise_with_their_roadmap_item(kwargs, item):
                              serial.params, **MLP_TOL)
 
 
-def _raises_at_compile(method, step, state, batch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        alpa_tpu_torch.parallelize(step, method=method)(state, batch)
-
-
 def test_inference_schedule_and_forward_only_function_raise():
     """The inference schedule with a gradient step raises ``ValueError``
     (it runs forward-only functions); a forward-only function under 1F1B
@@ -498,8 +493,9 @@ def test_multi_device_stage_and_gpt_remat_raise():
     """A stage mesh of two devices (which raised until intra-op sharding
     inside a stage was ported) runs, each stage planned by the ILP on its
     two devices, and equals the serial step; GPT's per-block remat inside
-    a pipeshard trace runs, except with the "dots" policy, which raises
-    citing A.5.3."""
+    a pipeshard trace runs with the "dots" policy too (which raised until
+    ROADMAP A.5.3 was ported), its loss equal to the eager step's (rtol
+    1e-6)."""
     _, t_state, batch = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
     _, serial, _ = _mlp_pair(2, optax.sgd(1e-2), tmu.sgd(1e-2))
     two_per_stage = PipeshardParallel(
@@ -516,9 +512,14 @@ def test_multi_device_stage_and_gpt_remat_raise():
     cfg = tgm.GPTConfig(remat_blocks=True, remat_policy="dots",
                         pipeline_boundary_every=2, **GPT_SHAPE)
     model = tgm.GPTModel(cfg, device="cpu", param_dtype=torch.float32)
-    state = tmu.TrainState.create(apply_fn=tmu.make_apply_fn(model),
-                                  params=dict(model.named_parameters()),
-                                  tx=tmu.sgd(1e-2))
+
+    def gpt_state():
+        return tmu.TrainState.create(
+            apply_fn=tmu.make_apply_fn(model),
+            params={k: p.detach().clone()
+                    for k, p in model.named_parameters()},
+            tx=tmu.sgd(1e-2))
+
     ids = np.zeros((2, GPT_SHAPE["seq_len"]), np.int64)
 
     def step(state, batch):
@@ -526,8 +527,11 @@ def test_multi_device_stage_and_gpt_remat_raise():
             lambda p: tmu.gpt_lm_loss(state.apply_fn, p, batch))(state.params)
         return state.apply_gradients(grads=grads), loss
 
-    _raises_at_compile(_port_method(2, 1, "1f1b"), step, state,
-                       {"input_ids": ids, "labels": ids}, "A.5.3")
+    _, loss = alpa_tpu_torch.parallelize(step, method=_port_method(
+        2, 1, "1f1b"))(gpt_state(), {"input_ids": ids, "labels": ids})
+    tids = torch.from_numpy(ids)
+    _, want = step(gpt_state(), {"input_ids": tids, "labels": tids})
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-6)
 
 
 def test_manual_stage_option_groups_layers_as_jax():

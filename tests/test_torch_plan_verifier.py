@@ -36,6 +36,9 @@ from alpa_tpu_torch.pipeline_parallel.runtime_emitter import (
 def _keep_global_torch_rng():
     with torch.random.fork_rng():
         yield
+    # a plan with leaked slots annotates the flight dumps process-wide
+    from alpa_tpu_torch.telemetry import flight
+    flight.clear_annotations()
 
 
 @pytest.fixture

@@ -20,7 +20,7 @@ from alpa_tpu_torch.serve import Generator, get_model, run_controller
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "alpa_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "alpa_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "alpa_tpu", "transformers")
 TINY = GPTConfig(hidden_size=64, num_layers=1, num_heads=1, seq_len=32,
                  vocab_size=32)
 
@@ -39,7 +39,8 @@ def _blocked(name: str) -> bool:
 
 def test_every_module_imports_with_jax_blocked():
     """Import each port module, and chip_smoke.py, in a fresh interpreter
-    where any attempt to import jax, flax or alpa_tpu raises."""
+    where any attempt to import jax, flax, alpa_tpu or transformers
+    raises."""
     modules = [".".join(p.relative_to(REPO).with_suffix("").parts)
                for p in sorted(PORT.rglob("*.py"))]
     modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
